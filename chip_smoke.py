@@ -1,0 +1,429 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's flat ANN path on one NVIDIA GPU, and check it.
+
+    python3 chip_smoke.py [--seed 0]
+
+Phases, each printing one JSON line:
+
+  build    nvcc builds every kernel of ``src/repro_torch/kernels/csrc``.
+  data     a synthetic clustered twin of Deep1M's published shape (paper
+           Table 3: n = 1,000,000, d = 256, float32), made with numpy from
+           ``--seed``, indexed by ``repro_torch.index.build_index`` on the
+           card.
+  parity   each CUDA kernel against its plain PyTorch version, on the
+           same tensors, at the shapes the main path gives it and at edge
+           shapes (padding, k > Tc, ties, seeds outside the ladder, an
+           overflowing tie cluster).
+  fused    the main path: ``index.search`` at B = 1, 16 and 64, k = 10,
+           with every launch count set to 0 before and read after; ids
+           identical to the plain path's; recall@10 against an exact
+           brute force; the median batch time.
+  profile  device time by CUDA kernel of one B = 64 search
+           (torch.profiler), and the card's idle share of the batch time.
+  unfused  n = 4,096 (below the fused policy's 8,192), through the
+           pairwise kernel's 2-D and per-query forms, its counts read the
+           same way; ids identical to the plain path's.
+  kernels  the line {"kernels": [...]}: per kernel its launches on its
+           path, its time, its plain version's, one PyTorch library
+           call's, and its bound on the card from this run's inputs.
+
+Then the card's name and power limit as nvidia-smi prints them, and last
+``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
+before that line.  Where CUDA is unavailable it exits non-zero at once
+and prints no result.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+# NVIDIA H100 SXM data sheet: HBM3 rate and float32 rate outside the
+# tensor cores (the kernels here do float32 arithmetic on CUDA cores)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+N_POINTS, DIM = 1_000_000, 256  # Deep1M (paper Table 3)
+K = 10
+BATCHES = (1, 16, 64)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(ok, what: str) -> None:
+    if not ok:
+        raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def make_clustered_twin(n: int, d: int, seed: int, clusters: int = 60,
+                        active: int = 12) -> np.ndarray:
+    """Clustered Gaussian mixture with low-rank spread inside each
+    cluster (local intrinsic dimension ≈ ``active``), the recipe of the
+    repo's Deep twin (benchmarks/datasets.py), at full scale."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(clusters, d)).astype(np.float32) * 6.0
+    basis = rng.normal(size=(clusters, active, d)).astype(np.float32)
+    basis /= np.linalg.norm(basis, axis=-1, keepdims=True)
+    asg = rng.integers(0, clusters, n)
+    coeff = rng.standard_normal((n, active), dtype=np.float32)
+    pts = rng.standard_normal((n, d), dtype=np.float32)
+    pts *= 0.05  # a pinch of full-rank noise: distances are non-degenerate
+    for c in range(clusters):
+        rows = np.flatnonzero(asg == c)
+        pts[rows] += centers[c] + coeff[rows] @ basis[c]
+    return pts
+
+
+def make_queries(data: np.ndarray, count: int, seed: int) -> np.ndarray:
+    """Dataset points with a small jitter (paper §7.1)."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, data.shape[0], count)
+    sample = data[rng.integers(0, data.shape[0], min(data.shape[0], 100_000))]
+    scale = 0.05 * np.linalg.norm(sample.std(axis=0)) / np.sqrt(data.shape[1])
+    jitter = rng.standard_normal((count, data.shape[1]), dtype=np.float32)
+    return (data[ids] + jitter * scale).astype(np.float32)
+
+
+def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median of ``reps`` timings by CUDA events, after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+    """Least time on the card in ms, and what bounds it."""
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def profile_search(torch, index, q: np.ndarray, batch_ms: float) -> dict:
+    """Device time by CUDA kernel for one search, by torch.profiler, and
+    the share of the untraced median batch time ``batch_ms`` in which the
+    card ran no kernel (tracing itself slows the host, so the traced
+    window overstates it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    index.search(q, K)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        index.search(q, K)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", 0) or 0
+        if dev_us > 0 and evt.cpu_time_total == 0:  # a kernel or a copy
+            rows.append({"name": evt.key[:80], "calls": evt.count, "device_ms": dev_us / 1e3})
+    rows.sort(key=lambda r: -r["device_ms"])
+    busy = sum(r["device_ms"] for r in rows)
+    return {"B": q.shape[0], "traced_wall_ms": wall_ms, "batch_ms": batch_ms,
+            "device_busy_ms": busy, "idle_share": max(0.0, 1.0 - busy / batch_ms),
+            "by_kernel": rows[:16]}
+
+
+def edge_parity(torch, dev, ref, ops, kpair, ksel, kver) -> int:
+    """The kernels against their plain versions at the edge shapes of the
+    CPU tests; returns the number of cases checked."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    cases = 0
+    for B in (1, 5):
+        for N in (100, 300):
+            for d in (15, 64):
+                q = torch.randn((B, d), generator=g, device=dev)
+                x = torch.randn((N, d), generator=g, device=dev)
+                check(torch.allclose(kpair.pairwise_sq_dist(q, x),
+                                     ref.pairwise_sq_dist(q, x), rtol=1e-5, atol=1e-4),
+                      f"pairwise_sq_dist edge ({B}, {N}, {d})")
+                cases += 1
+    for B, N, d in ((4, 33, 16), (3, 50, 256)):
+        q = torch.randn((B, d), generator=g, device=dev)
+        x = torch.randn((B, N, d), generator=g, device=dev)
+        check(torch.allclose(kpair.pairwise_sq_dist_rows(q, x),
+                             ref.pairwise_sq_dist(q, x), rtol=1e-5, atol=1e-5),
+              f"pairwise_sq_dist_rows edge ({B}, {N}, {d})")
+        cases += 1
+    for B, N, T, T_pad, scale in ((1, 100, 7, 71, 1.0), (7, 700, 120, 184, 1.0),
+                                  (5, 300, 1, 65, 1.0), (2, 500, 30, 94, 1e-9),
+                                  (2, 500, 30, 94, 1e9)):
+        dd = torch.randn((B, N), generator=g, device=dev) ** 2 * 3
+        tau0 = dd.mean(1) * max(T / N, 1e-3) * scale
+        got = ksel.radius_select(dd, tau0, T, T_pad=T_pad)
+        want = ref.radius_select_kernel(dd, tau0, T, T_pad=T_pad)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"radius_select edge ({B}, {N}, {T}, {T_pad}, {scale})")
+        cases += 1
+    tie = torch.full((1, 600), 5.0, device=dev)
+    tie[0, 597:] = 0.5
+    got = ksel.radius_select(tie, torch.ones(1, device=dev), 10, T_pad=100)
+    want = ref.radius_select_kernel(tie, torch.ones(1, device=dev), 10, T_pad=100)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)) and int(got[2][0]) == 600,
+          "radius_select tie-cluster overflow")
+    _, idx = ops.radius_select(tie, 10, T_pad=100)  # rerouted to the exact sort
+    check(set(idx[0, :3].tolist()) == {597, 598, 599}, "overflow reroute")
+    cases += 1
+    rng = np.random.default_rng(8)
+    for B, n, d, Tc, k, pad in ((1, 50, 8, 10, 1, 0), (7, 129, 33, 64, 10, 20),
+                                (2, 40, 12, 6, 10, 2), (16, 5000, 64, 4000, 128, 100)):
+        data = torch.randn((n, d), generator=g, device=dev)
+        q = torch.randn((B, d), generator=g, device=dev)
+        cand = torch.from_numpy(np.stack([rng.permutation(n)[:Tc] for _ in range(B)])
+                                .astype(np.int32)).to(dev)
+        if pad:
+            cand[:, Tc - pad:] = -1
+        if B == 7:  # exact ties: duplicate rows, the earlier position answers first
+            data[9], data[8] = data[3], data[4]
+        gv, gi = kver.verify_topk(data, q, cand, k)
+        wv, wi = ref.verify_topk(data, q, cand, k)
+        check(torch.equal(gi, wi) and torch.allclose(gv, wv, rtol=1e-5, atol=1e-5),
+              f"verify_topk edge ({B}, {n}, {d}, {Tc}, {k}, {pad})")
+        cases += 1
+    return cases
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script runs on an "
+              "NVIDIA GPU", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from repro_torch.core import ann_query, candidate_budget, select_seed
+    from repro_torch.index import IndexConfig, build_index
+    from repro_torch.kernels import _build, counts, ops, ref
+    from repro_torch.kernels import pairwise_dist as kpair
+    from repro_torch.kernels import select as ksel
+    from repro_torch.kernels import verify as kver
+
+    dev = torch.device("cuda")
+    smi = nvidia_smi()
+
+    # -- build -------------------------------------------------------------
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    _build.load()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "library": os.path.relpath(lib_path, ROOT),
+          "sources": sorted(p.name for p in _build.CSRC.glob("*.cu"))})
+
+    # -- data and index ----------------------------------------------------
+    t0 = time.perf_counter()
+    data = make_clustered_twin(N_POINTS, DIM, args.seed)
+    queries = make_queries(data, max(BATCHES), args.seed + 1)
+    index = build_index(data, IndexConfig(backend="flat", seed=args.seed), device=dev)
+    impl = index.impl
+    torch.cuda.synchronize()
+    T = candidate_budget(impl.params, impl.n, K)
+    T_pad = min(T + max(256, T // 8), impl.n)
+    emit({"phase": "data", "n": impl.n, "d": impl.d, "m": impl.m,
+          "beta": impl.params.beta, "T": T, "T_pad": T_pad,
+          "data_bytes": impl.data.numel() * 4,
+          "projected_bytes": impl.projected.numel() * 4,
+          "seconds": time.perf_counter() - t0})
+
+    # -- parity at the main path's shapes (B = 64) and at edge shapes -------
+    q64 = torch.from_numpy(queries).to(dev)
+    qp = impl.family.project(q64)
+    d2p = kpair.pairwise_sq_dist(qp, impl.projected)
+    d2p_plain = ref.pairwise_sq_dist(qp, impl.projected)
+    pw_err = float((d2p - d2p_plain).abs().max())
+    # the norm trick's float32 cancellation scales with |q|² + |x|²
+    pw_tol = 1e-5 * float((qp * qp).sum(1).max() + (impl.projected ** 2).sum(1).max())
+    check(pw_err <= pw_tol, f"pairwise_sq_dist: max |diff| {pw_err} > {pw_tol}")
+
+    tau0 = select_seed(d2p, T, impl.m)
+    sel = ksel.radius_select(d2p, tau0, T, T_pad=T_pad)
+    sel_plain = ref.radius_select_kernel(d2p, tau0, T, T_pad=T_pad)
+    sel_same = all(torch.equal(a, b) for a, b in zip(sel, sel_plain))
+    sel_err = float((sel[0] - sel_plain[0]).nan_to_num(0.0).abs().max())  # inf − inf: 0
+    check(sel_same, "radius_select: vals, idx or counts differ from the plain version")
+    check(bool((sel[2] <= T_pad).all()) and bool((sel[2] >= T).all()),
+          f"radius_select: counts {sel[2].min().item()}..{sel[2].max().item()} "
+          f"outside [T, T_pad]")
+    _, pos = ref.topk_smallest(sel[0], T)
+    cand = torch.gather(sel[1], 1, pos.to(torch.int64))
+
+    ver = kver.verify_topk(impl.data, q64, cand, K)
+    ver_plain = ref.verify_topk(impl.data, q64, cand, K)
+    ver_ids_same = torch.equal(ver[1], ver_plain[1])
+    ver_err = float((ver[0] - ver_plain[0]).abs().max())
+    check(ver_ids_same, "verify_topk: ids differ from the plain version")
+    check(torch.allclose(ver[0], ver_plain[0], rtol=1e-5, atol=1e-5),
+          f"verify_topk: d² max |diff| {ver_err}")
+    del ver_plain
+    n_edge = edge_parity(torch, dev, ref, ops, kpair, ksel, kver)
+    emit({"phase": "parity", "edge_cases": n_edge, "kernels": {
+        "pairwise_sq_dist": {"shape": [64, impl.n, impl.m], "max_abs_err": pw_err,
+                             "tol": pw_tol},
+        "radius_select": {"shape": [64, impl.n], "T": T, "T_pad": T_pad,
+                          "identical": sel_same, "max_abs_err": sel_err,
+                          "count_min": int(sel[2].min()), "count_max": int(sel[2].max())},
+        "verify_topk": {"shape": [64, T, impl.d], "k": K, "ids_identical": ver_ids_same,
+                        "max_abs_err": ver_err}}})
+
+    # -- the fused main path -------------------------------------------------
+    counts.reset()
+    answers = {B: index.search(queries[:B], K) for B in BATCHES}
+    fused_counts = counts.snapshot()
+    for name in ("pairwise_sq_dist", "radius_select", "verify_topk"):
+        check(fused_counts["launches"][name] > 0, f"fused path never launched {name}")
+    check(fused_counts["routes"]["radius_select.overflow"] == 0,
+          "fused path rerouted a select to the sort")
+    for B in BATCHES:
+        ids_plain = ann_query(impl, torch.from_numpy(queries[:B]).to(dev), k=K, T=T,
+                              fused=True, force="plain")[0].cpu().numpy()
+        check(np.array_equal(answers[B].indices, ids_plain),
+              f"fused path at B={B}: kernel ids differ from the plain path's")
+    x64 = impl.data.double()
+    qd = q64.double()
+    exact = torch.topk((qd * qd).sum(1, keepdim=True) + (x64 * x64).sum(1)[None]
+                       - 2.0 * qd @ x64.T, K, largest=False).indices.cpu().numpy()
+    del x64
+    got = answers[64].indices
+    recall = float(np.mean([len(set(got[i]) & set(exact[i])) / K for i in range(64)]))
+    check(recall > 0.5, f"recall@10 {recall} on the fused path")
+    batch_ms = {}
+    for B in BATCHES:
+        qB = queries[:B]
+        batch_ms[B] = time_ms(torch, lambda: index.search(qB, K), reps=7, warmup=1)
+    emit({"phase": "fused", "launches": fused_counts["launches"],
+          "routes": fused_counts["routes"], "ids_identical_to_plain": True,
+          "recall_at_10": recall, "queries_for_recall": 64,
+          "candidates_selected_b64": answers[64].stats.candidates_selected,
+          "median_batch_ms": {str(B): batch_ms[B] for B in BATCHES},
+          "queries_per_s": {str(B): B / batch_ms[B] * 1e3 for B in BATCHES}})
+    emit({"phase": "profile",
+          **profile_search(torch, index, queries, batch_ms[max(BATCHES)])})
+
+    # -- the unfused path (n < 8192) ----------------------------------------
+    small = make_clustered_twin(4096, DIM, args.seed + 2)
+    q_small = make_queries(small, 16, args.seed + 3)
+    index_s = build_index(small, IndexConfig(backend="flat", seed=args.seed), device=dev)
+    T_s = candidate_budget(index_s.impl.params, index_s.n, K)
+    counts.reset()
+    res_s = index_s.search(q_small, K)
+    unfused_counts = counts.snapshot()
+    for name in ("pairwise_sq_dist", "pairwise_sq_dist_rows"):
+        check(unfused_counts["launches"][name] > 0, f"unfused path never launched {name}")
+    qs = torch.from_numpy(q_small).to(dev)
+    ids_plain = ann_query(index_s.impl, qs, k=K, T=T_s, fused=False,
+                          force="plain")[0].cpu().numpy()
+    check(np.array_equal(res_s.indices, ids_plain),
+          "unfused path: kernel ids differ from the plain path's")
+    _, cand_s = ref.topk_smallest(
+        ref.pairwise_sq_dist(index_s.impl.family.project(qs), index_s.impl.projected), T_s)
+    rows = index_s.impl.data[cand_s.to(torch.int64)]
+    rows_k = kpair.pairwise_sq_dist_rows(qs, rows)
+    rows_err = float((rows_k - ref.pairwise_sq_dist(qs, rows)).abs().max())
+    check(torch.allclose(rows_k, ref.pairwise_sq_dist(qs, rows), rtol=1e-5, atol=1e-5),
+          f"pairwise_sq_dist_rows: max |diff| {rows_err}")
+    emit({"phase": "unfused", "n": index_s.n, "B": 16, "T": T_s,
+          "launches": unfused_counts["launches"], "ids_identical_to_plain": True,
+          "rows_max_abs_err": rows_err})
+
+    # -- per-kernel times at the main path's shapes (B = 64) ------------------
+    B, n, m, d = 64, impl.n, impl.m, impl.d
+    x_proj = impl.projected
+    uniq = int(torch.unique(cand[cand >= 0]).numel())
+    entries = []
+
+    def entry(name, path, source, replaces, launches, err, fn, plain, library,
+              bytes_moved, ops_count):
+        t_bound, by = bound(bytes_moved, ops_count)
+        entries.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "path": path, "launches": launches, "max_abs_err": err,
+            "ms": time_ms(torch, fn), "plain_ms": time_ms(torch, plain, reps=3, warmup=1),
+            "bound_ms": t_bound, "bound_by": by,
+            "library_ms": None if library is None else time_ms(torch, library, reps=3,
+                                                               warmup=1)})
+
+    csrc = "src/repro_torch/kernels/csrc/"
+    entry("pairwise_sq_dist", "fused", csrc + "pairwise_dist.cu",
+          "src/repro/kernels/pairwise_dist.py:28",
+          fused_counts["launches"]["pairwise_sq_dist"], pw_err,
+          lambda: kpair.pairwise_sq_dist(qp, x_proj),
+          lambda: ref.pairwise_sq_dist(qp, x_proj),
+          lambda: torch.cdist(qp, x_proj) ** 2,
+          4 * (B * m + n * m + B * n), 2 * B * n * m + 2 * B * n)
+    L, iters = 16, 14
+    entry("radius_select", "fused", csrc + "select.cu",
+          "src/repro/kernels/select.py:55",
+          fused_counts["launches"]["radius_select"], sel_err,
+          lambda: ksel.radius_select(d2p, tau0, T, T_pad=T_pad),
+          lambda: ref.radius_select_kernel(d2p, tau0, T, T_pad=T_pad),
+          lambda: torch.topk(d2p, T, largest=False),
+          4 * B * n + 4 * B + 8 * B * T_pad + 4 * B, (L + iters + 2) * B * n)
+    entry("verify_topk", "fused", csrc + "verify.cu",
+          "src/repro/kernels/verify.py:34",
+          fused_counts["launches"]["verify_topk"], ver_err,
+          lambda: kver.verify_topk(impl.data, q64, cand, K),
+          lambda: ref.verify_topk(impl.data, q64, cand, K),
+          lambda: torch.topk(((impl.data[cand.to(torch.int64)] - q64[:, None, :]) ** 2)
+                             .sum(-1), K, largest=False),
+          4 * (uniq * d + B * d + B * T) + 8 * B * K, 3 * B * T * d)
+    Bs, Ts = rows.shape[0], rows.shape[1]
+    entry("pairwise_sq_dist_rows", "unfused", csrc + "pairwise_dist.cu",
+          "src/repro/kernels/pairwise_dist.py:28",
+          unfused_counts["launches"]["pairwise_sq_dist_rows"], rows_err,
+          lambda: kpair.pairwise_sq_dist_rows(qs, rows),
+          lambda: ref.pairwise_sq_dist(qs, rows),
+          lambda: torch.cdist(qs[:, None, :], rows).squeeze(1) ** 2,
+          4 * (Bs * d + Bs * Ts * d + Bs * Ts), 3 * Bs * Ts * d)
+    # the algorithm's own traffic (repro/obs/roofline.py's models), beside
+    # the one-read bounds above, and what verify's bound counts
+    extra = {
+        "radius_select": {"traffic_model_ms": (16 * B * n * 4 + 2 * B * T_pad * 4)
+                          / PEAK_BYTES_PER_S * 1e3},
+        "verify_topk": {"traffic_model_ms": 4 * (B * T * d + B * d + 4 * B * K)
+                        / PEAK_BYTES_PER_S * 1e3,
+                        "candidate_reads": B * T, "unique_rows": uniq}}
+    for e in entries:
+        e.update(extra.get(e["name"], {}))
+    emit({"kernels": entries})
+
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,14 @@
+"""repro_torch — PM-LSH's flat ANN path in PyTorch, with hand-written
+CUDA kernels for NVIDIA Hopper (sm_90a).
+
+The PyTorch counterpart of ``repro`` (the JAX package, which stays the
+reference).  Layout mirrors it: ``core`` (estimator, projection family,
+flat index, fused pipeline), ``kernels`` (CUDA kernels, their plain
+PyTorch twins and the dispatch), ``index`` (the facade).  ``convert``
+carries a JAX flat index's arrays across.
+
+Entry points run on the card (``device="cuda"``) and raise where CUDA is
+absent unless the caller asks for ``device="cpu"``.  This package
+imports neither ``jax`` nor anything of ``repro``.
+"""
+from .device import resolve_device  # noqa: F401

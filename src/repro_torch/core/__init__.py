@@ -1,0 +1,12 @@
+"""The PM-LSH core on the card: estimator, projection family, flat index
+and the fused query pipeline (counterparts of ``repro.core``)."""
+from .estimator import PMLSHParams, chi2_ppf, solve_parameters  # noqa: F401
+from .flat_index import (  # noqa: F401
+    FlatIndex,
+    ann_query,
+    answer_distances,
+    build_flat_index,
+    candidate_budget,
+)
+from .fused import fused_ann_query, select_seed  # noqa: F401
+from .hashing import ProjectionFamily  # noqa: F401

@@ -1,0 +1,30 @@
+"""repro_torch.index — the Index facade of the port (``repro.index``).
+
+    from repro_torch.index import IndexConfig, build_index
+
+    index = build_index(data, IndexConfig(backend="flat"))   # device="cuda"
+    res = index.search(queries, k=10)     # (B, k) int32 / float32 numpy
+    res.stats.candidates_selected         # unified work accounting
+
+``device`` defaults to the card and raises where CUDA is absent; pass
+``device="cpu"`` for the plain PyTorch versions.  The flat backend is
+the one ported so far.
+"""
+from .backends import BaseIndex, FlatBackend  # noqa: F401
+from .config import IndexConfig  # noqa: F401
+from .registry import (  # noqa: F401
+    KNOWN_CAPABILITIES,
+    available_backends,
+    backend_capabilities,
+    build_index,
+    get_backend,
+    register_backend,
+)
+from .types import (  # noqa: F401
+    CpSearchResult,
+    Index,
+    MutableIndex,
+    SearchResult,
+    WorkStats,
+    pack_batch,
+)

@@ -1,0 +1,15 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a) and their plain twins.
+
+kernels (sources in ``csrc/``, built by ``_build`` at first use):
+  pairwise_dist — ESTIMATE and the unfused VERIFY: pairwise squared
+                  distances, (B, d) × (N, d) and per-query (B, N, d)
+  select        — radius-threshold SELECT: rung ladder + bisection +
+                  index-ordered compaction of the T = βn + k budget
+  verify        — gather-free VERIFY: exact distances on candidate ids
+                  and a streaming top-k answer
+ops    — dispatch: CUDA tensors launch the kernels, CPU tensors take the
+         plain versions
+ref    — the plain PyTorch versions (the semantics contract)
+counts — launch counts of every kernel
+"""
+from . import counts, ops, ref  # noqa: F401

@@ -1,0 +1,44 @@
+"""Launch counts of the port's CUDA kernels, and of the plain routes.
+
+Each kernel wrapper adds one to its entry of ``LAUNCHES`` where it
+launches its kernel, and nowhere else, so a run can show which kernels
+its path went through: ``reset()``, drive the path, ``snapshot()``.
+``ROUTES`` counts the dispatch rules of ``ops`` that answer with a
+plain PyTorch version on any device (the reference's own routing, not
+a fallback): the degenerate-budget sort and the overflow reroute of
+``radius_select``, and ``verify_topk`` at k > 128.
+"""
+from __future__ import annotations
+
+__all__ = ["LAUNCHES", "ROUTES", "bump", "route", "reset", "snapshot"]
+
+LAUNCHES: dict[str, int] = {
+    "pairwise_sq_dist": 0,       # 2-D form, norm trick
+    "pairwise_sq_dist_rows": 0,  # per-query (B, N, d) form, difference form
+    "radius_select": 0,          # one count per call: 16 CUDA launches
+    "verify_topk": 0,            # one count per call: partial + merge launches
+}
+
+ROUTES: dict[str, int] = {
+    "radius_select.sort": 0,       # T_pad >= N: nothing to skip
+    "radius_select.overflow": 0,   # survivors > T_pad: exact sort instead
+    "verify_topk.k_over_128": 0,   # beyond the kernel's answer width
+}
+
+
+def bump(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def route(name: str) -> None:
+    ROUTES[name] += 1
+
+
+def reset() -> None:
+    for table in (LAUNCHES, ROUTES):
+        for key in table:
+            table[key] = 0
+
+
+def snapshot() -> dict[str, dict[str, int]]:
+    return {"launches": dict(LAUNCHES), "routes": dict(ROUTES)}

@@ -1,0 +1,119 @@
+"""Dispatch over the port's kernels, mirroring ``repro.kernels.ops``.
+
+A CUDA tensor launches the hand-written kernel; a CPU tensor takes the
+plain PyTorch version in ``ref``.  ``force="plain"`` takes the plain
+version on any device: it exists for the tests and for ``chip_smoke.py``,
+which holds each kernel against it on the card.  There is no interpret
+mode and no fallback: a kernel that fails to build or launch raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import counts, ref
+from . import pairwise_dist as _pairwise
+from . import select as _select
+from . import verify as _verify
+
+__all__ = ["pairwise_sq_dist", "default_select_seed", "radius_select",
+           "verify_topk"]
+
+
+def _plain(force: str | None, *tensors: torch.Tensor) -> bool:
+    """True where the plain version answers: forced, or CPU tensors."""
+    if force not in (None, "plain"):
+        raise ValueError(f"force must be None or 'plain', got {force!r}")
+    kinds = {t.device.type for t in tensors}
+    if len(kinds) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(kinds)}")
+    return force == "plain" or kinds == {"cpu"}
+
+
+def pairwise_sq_dist(q: torch.Tensor, x: torch.Tensor, *,
+                     force: str | None = None) -> torch.Tensor:
+    """(B,d) × (N,d) → (B,N) squared Euclidean distances (float32).
+
+    x may be per-query candidate rows (B, N, d), the gathered VERIFY
+    form, which sums in the difference form.
+    """
+    if _plain(force, q, x):
+        return ref.pairwise_sq_dist(q, x)
+    q = q.to(torch.float32).contiguous()
+    x = x.to(torch.float32).contiguous()
+    if x.ndim == 3:
+        return _pairwise.pairwise_sq_dist_rows(q, x)
+    return _pairwise.pairwise_sq_dist(q, x)
+
+
+def default_select_seed(d: torch.Tensor, T: int, *, stride: int = 8) -> torch.Tensor:
+    """Per-row seed for radius selection from a strided sample of d:
+    the sample mean scaled by the target fraction T/N — within the
+    rung ladder's reach of the T-th smallest for any unimodal row."""
+    samp = d[:, ::stride]
+    N = d.shape[1]
+    return samp.mean(1) * max(T / N, 1e-3)
+
+
+def radius_select(d: torch.Tensor, T: int, *, tau0: torch.Tensor | None = None,
+                  T_pad: int | None = None, force: str | None = None,
+                  with_count: bool = False):
+    """Row-wise T smallest (values, indices) by radius thresholding.
+
+    Ascending, lowest-index tie-break, like a stable sort.  The kernel
+    compacts the survivors of a threshold into T_pad ≥ T slots and one
+    stable sort over those finishes.  A tie cluster wider than the
+    buffer is detected from the exact survivor counts and rerouted to
+    the exact sort: that check reads the counts on the host, one device
+    sync per call.  A degenerate budget (T_pad ≥ N) sorts directly.
+
+    ``with_count=True`` appends the per-row survivor count (B,) int32
+    (``WorkStats.candidates_selected``); the sort paths report T.
+    """
+    B, N = d.shape
+    if not 1 <= T <= N:
+        raise ValueError(f"radius_select: T={T} out of range for N={N}")
+    if T_pad is None:
+        T_pad = T + max(256, T // 8)
+    T_pad = min(max(T_pad, T), N)
+    plain = _plain(force, d)
+
+    def _sort():
+        vals, idx = ref.topk_smallest(d, T)
+        return vals, idx, torch.full((B,), T, dtype=torch.int32, device=d.device)
+
+    if T_pad >= N:  # nothing to skip: the plain sort is cheaper
+        counts.route("radius_select.sort")
+        vals, idx, cnt = _sort()
+    else:
+        if tau0 is None:
+            tau0 = default_select_seed(d, T)
+        select = ref.radius_select_kernel if plain else _select.radius_select
+        vals_p, idx_p, cnt = select(d.to(torch.float32).contiguous(), tau0, T,
+                                    T_pad=T_pad)
+        # an overflowed buffer dropped survivors in index order, possibly
+        # true top-T members: answer with the exact sort instead
+        if bool((cnt > T_pad).any()):
+            counts.route("radius_select.overflow")
+            vals, idx, cnt = _sort()
+        else:
+            vals, pos = ref.topk_smallest(vals_p, T)
+            idx = torch.gather(idx_p, 1, pos.to(torch.int64))
+    return (vals, idx, cnt) if with_count else (vals, idx)
+
+
+def verify_topk(data: torch.Tensor, q: torch.Tensor, cand: torch.Tensor, k: int, *,
+                force: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused VERIFY: exact distances on candidate ids + top-k answer.
+
+    data (n,d) × q (B,d) × cand (B,Tc) → (d² (B,k) ascending, ids (B,k)).
+    k > 128 is past the kernel's answer width and takes the plain
+    version on every device, as the reference routes it (ops.py:309).
+    """
+    if k > _verify.MAX_K:
+        counts.route("verify_topk.k_over_128")
+        return ref.verify_topk(data, q, cand, k)
+    if _plain(force, data, q, cand):
+        return ref.verify_topk(data, q, cand, k)
+    return _verify.verify_topk(data.to(torch.float32).contiguous(),
+                               q.to(torch.float32).contiguous(),
+                               cand.to(torch.int32).contiguous(), k)

@@ -17,6 +17,10 @@ def pytest_configure(config):
         "XLA_FLAGS=--xla_force_host_platform_device_count=8); the "
         "multi_devices fixture SKIPS — never silently passes — on one "
         "device")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the repro_torch CUDA "
+        "kernels); SKIPS visibly where torch.cuda.is_available() is false")
 
 
 @pytest.fixture()

@@ -1,0 +1,163 @@
+"""The port's CUDA kernels held against their plain PyTorch versions, on
+the card.
+
+Every test here is marked ``cuda`` and skips visibly where
+``torch.cuda.is_available()`` is false.  This file imports nothing of
+JAX, so it runs on a machine with a card and no JAX:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: radius_select agrees exactly (same thresholds, integer
+counts, copied values); verify's ids agree exactly and its d² to rtol
+1e-5 (both sum the difference form, in another order); pairwise to
+rtol 1e-5 and an atol of 1e-4 (the norm trick's cancellation at |q|²
++ |x|² of a few hundred, with the cross term summed in another order
+than cuBLAS's).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import counts, ops, ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture()
+def cuda():
+    """The card, or a visible skip where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _tie_cluster(device):
+    d = torch.full((1, 600), 5.0, device=device)
+    d[0, 597:] = 0.5  # the true top-T lives at the highest indices
+    return d
+
+
+def _verify_inputs(B, n, d, Tc, pad, seed, device):
+    rng = np.random.default_rng(seed)
+    data = rng.normal(size=(n, d)).astype(np.float32)
+    q = rng.normal(size=(B, d)).astype(np.float32)
+    cand = np.stack([rng.permutation(n)[:Tc] for _ in range(B)]).astype(np.int32)
+    if pad:
+        cand[:, Tc - pad:] = -1
+    return tuple(torch.from_numpy(a).to(device) for a in (data, q, cand))
+
+
+@pytest.mark.parametrize("B,N,d", [(1, 100, 15), (5, 300, 64), (64, 4099, 15),
+                                   (9, 1000, 256)])
+def test_pairwise_matches_plain(cuda, B, N, d):
+    g = torch.Generator(device=cuda).manual_seed(B + N + d)
+    q = torch.randn((B, d), generator=g, device=cuda)
+    x = torch.randn((N, d), generator=g, device=cuda)
+    before = counts.LAUNCHES["pairwise_sq_dist"]
+    got = ops.pairwise_sq_dist(q, x)
+    torch.cuda.synchronize()
+    assert counts.LAUNCHES["pairwise_sq_dist"] == before + 1
+    torch.testing.assert_close(got, ops.pairwise_sq_dist(q, x, force="plain"),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("B,N,d", [(1, 7, 15), (4, 33, 16), (16, 406, 256)])
+def test_pairwise_rows_matches_plain(cuda, B, N, d):
+    g = torch.Generator(device=cuda).manual_seed(B + N + d)
+    q = torch.randn((B, d), generator=g, device=cuda)
+    x = torch.randn((B, N, d), generator=g, device=cuda)
+    before = counts.LAUNCHES["pairwise_sq_dist_rows"]
+    got = ops.pairwise_sq_dist(q, x)
+    torch.cuda.synchronize()
+    assert counts.LAUNCHES["pairwise_sq_dist_rows"] == before + 1
+    torch.testing.assert_close(got, ops.pairwise_sq_dist(q, x, force="plain"),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,N,T,T_pad,seed_scale", [
+    (1, 100, 7, 71, 1.0), (7, 700, 120, 184, 1.0), (3, 20000, 2000, 2300, 1.0),
+    (2, 5000, 30, 94, 1e-9), (2, 5000, 30, 94, 1e9), (64, 9000, 900, 1156, 1.0),
+])
+def test_radius_select_matches_plain(cuda, B, N, T, T_pad, seed_scale):
+    from repro_torch.kernels.select import radius_select
+
+    g = torch.Generator(device=cuda).manual_seed(N + T)
+    d = torch.randn((B, N), generator=g, device=cuda) ** 2
+    tau0 = d.mean(1) * max(T / N, 1e-3) * seed_scale
+    got = radius_select(d, tau0, T, T_pad=T_pad)
+    want = ref.radius_select_kernel(d, tau0, T, T_pad=T_pad)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_radius_select_overflow_matches_plain(cuda):
+    from repro_torch.kernels.select import radius_select
+
+    d = _tie_cluster(cuda)
+    tau0 = torch.full((1,), 1.0, device=cuda)
+    got = radius_select(d, tau0, 10, T_pad=100)
+    want = ref.radius_select_kernel(d, tau0, 10, T_pad=100)
+    assert int(got[2][0]) == 600
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    vals, idx = ops.radius_select(d, 10, T_pad=100)  # rerouted to the sort
+    assert set(idx[0, :3].tolist()) == {597, 598, 599}
+
+
+@pytest.mark.parametrize("B,n,d,Tc,k,pad", [
+    (1, 50, 8, 10, 1, 0), (7, 129, 33, 64, 10, 20), (2, 40, 12, 6, 10, 2),
+    (1, 20000, 256, 9000, 10, 0), (16, 5000, 64, 4000, 128, 100),
+])
+def test_verify_matches_plain(cuda, B, n, d, Tc, k, pad):
+    data, q, cand = _verify_inputs(B, n, d, Tc, pad, seed=n, device=cuda)
+    gv, gi = ops.verify_topk(data, q, cand, k)
+    wv, wi = ops.verify_topk(data, q, cand, k, force="plain")
+    assert torch.equal(gi, wi)
+    torch.testing.assert_close(gv, wv, rtol=1e-5, atol=1e-5)
+
+
+def test_verify_exact_ties_go_to_earliest_position(cuda):
+    data, q, cand = _verify_inputs(2, 40, 16, 12, 0, seed=21, device=cuda)
+    data[9], data[8] = data[3], data[4]
+    q[:] = data[3] + 0.01
+    cand[0] = torch.tensor([9, 1, 3, 2, 8, 4, 5, 6, 7, 0, 11, 12], device=cuda)
+    cand[1] = torch.tensor([3, 4, 9, 8, 1, 2, 5, 6, 7, 0, 11, 12], device=cuda)
+    gv, gi = ops.verify_topk(data, q, cand, 10)
+    wv, wi = ops.verify_topk(data, q, cand, 10, force="plain")
+    assert torch.equal(gi, wi)
+    assert int(gi[0, 0]) == 9 and int(gi[1, 0]) == 3
+
+
+@pytest.mark.parametrize("n", [2048, 9000])
+def test_flat_facade_matches_plain(cuda, n):
+    """The whole flat path on the card: kernels against plain versions."""
+    from repro_torch.index import IndexConfig, build_index
+
+    rng = np.random.default_rng(n)
+    data = (rng.normal(size=(20, 64)) * 4)[rng.integers(0, 20, n)]
+    data = (data + rng.normal(size=(n, 64)) * 0.5).astype(np.float32)
+    q = (data[rng.integers(0, n, 7)] + 0.1 * rng.normal(size=(7, 64))).astype(np.float32)
+    kern = build_index(data, IndexConfig(backend="flat"), device=cuda)
+    plain = build_index(data, IndexConfig(backend="flat", options={"force": "plain"}),
+                        device=cuda)
+    counts.reset()
+    rk = kern.search(q, 10)
+    used = counts.snapshot()["launches"]
+    rp = plain.search(q, 10)
+    np.testing.assert_array_equal(rk.indices, rp.indices)
+    np.testing.assert_allclose(rk.distances, rp.distances, rtol=1e-6)
+    assert rk.stats.candidates_verified == rp.stats.candidates_verified
+    if n >= 8192:
+        assert used["radius_select"] == 1 and used["verify_topk"] == 1
+    else:
+        assert used["pairwise_sq_dist_rows"] == 1
+    assert used["pairwise_sq_dist"] == 1
+
+
+def test_wrappers_reject_cpu_tensors(cuda):
+    from repro_torch.kernels.pairwise_dist import pairwise_sq_dist
+
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pairwise_sq_dist(torch.zeros(2, 3), torch.zeros(4, 3))
+    assert pairwise_sq_dist(torch.zeros(2, 3, device=cuda),
+                            torch.zeros(4, 3, device=cuda)).shape == (2, 4)

@@ -1,0 +1,142 @@
+"""What the port must never do: import JAX or the JAX package, carry on
+quietly on the CPU, fall back from a kernel to its plain version, or
+build anywhere but an ignored directory."""
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import _build, counts, ops
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+PORT_FILES = sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py"))
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _forbidden(module: str) -> bool:
+    return module.split(".")[0] in FORBIDDEN
+
+
+@pytest.mark.parametrize("path", PORT_FILES + ["chip_smoke.py"])
+def test_source_imports_no_jax_and_nothing_of_repro(path):
+    tree = ast.parse((ROOT / path).read_text(), filename=path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_importing_the_port_loads_no_jax():
+    """Every submodule of repro_torch, and chip_smoke's module-level code,
+    in a fresh interpreter: neither jax nor repro may end up loaded."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(len([m for m in sys.modules if m.startswith('repro_torch')]), bad)\n"
+    )
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(ROOT / "src"), str(ROOT)])}
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded, bad = out.stdout.split(" ", 1)
+    assert int(loaded) >= 15 and bad.strip() == "[]", out.stdout
+
+
+@pytest.mark.parametrize("entry", ["build_index", "build_flat_index", "FlatBackend",
+                                   "flat_index_from_arrays"])
+def test_entry_points_default_to_cuda_and_raise_without_it(entry):
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device works here")
+    from repro_torch.convert import flat_index_from_arrays
+    from repro_torch.core import build_flat_index
+    from repro_torch.index import FlatBackend, build_index
+
+    data = np.random.default_rng(0).normal(size=(64, 8)).astype(np.float32)
+    call = {"build_index": lambda: build_index(data),
+            "build_flat_index": lambda: build_flat_index(data),
+            "FlatBackend": lambda: FlatBackend(data),
+            "flat_index_from_arrays": lambda: flat_index_from_arrays(
+                data, np.ones((8, 15), np.float32), m=15)}[entry]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()
+
+
+def _wrapper_calls():
+    from repro_torch.kernels import pairwise_dist, select, verify
+
+    z = torch.zeros
+    return {
+        "pairwise_sq_dist": lambda: pairwise_dist.pairwise_sq_dist(z(2, 3), z(4, 3)),
+        "pairwise_sq_dist_rows": lambda: pairwise_dist.pairwise_sq_dist_rows(
+            z(2, 3), z(2, 4, 3)),
+        "radius_select": lambda: select.radius_select(z(2, 9), z(2), 3, T_pad=5),
+        "verify_topk": lambda: verify.verify_topk(
+            z(9, 3), z(2, 3), torch.zeros(2, 4, dtype=torch.int32), 2),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(counts.LAUNCHES))
+def test_kernel_wrapper_raises_on_a_cpu_tensor(name):
+    before = dict(counts.LAUNCHES)
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        _wrapper_calls()[name]()
+    assert counts.LAUNCHES == before
+
+
+def test_ops_routes_cpu_tensors_to_plain_and_checks_force():
+    before = dict(counts.LAUNCHES)
+    q, x = torch.rand(2, 5), torch.rand(7, 5)
+    assert ops.pairwise_sq_dist(q, x).shape == (2, 7)
+    assert counts.LAUNCHES == before  # the plain version launches nothing
+    with pytest.raises(ValueError, match="force"):
+        ops.pairwise_sq_dist(q, x, force="interpret")
+
+
+def test_build_targets_sm90a_under_an_ignored_directory():
+    assert "arch=compute_90a,code=sm_90a" in _build.ARCH_FLAGS
+    rel = _build.BUILD_ROOT.relative_to(ROOT).as_posix()
+    assert rel == "build/repro_torch"
+    ignored = {line.strip() for line in (ROOT / ".gitignore").read_text().splitlines()}
+    assert ignored & {"build/", "/build/", "build"}
+    assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
+        "common.cu", "pairwise_dist.cu", "select.cu", "verify.cu"]
+
+
+def test_build_without_nvcc_raises():
+    if shutil.which("nvcc") or pathlib.Path("/usr/local/cuda/bin/nvcc").exists():
+        pytest.skip("nvcc is installed here")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_cuda(alone, tmp_path):
+    """No card (or no repo beside it): non-zero exit and no result line."""
+    if torch.cuda.is_available() and not alone:
+        pytest.skip("CUDA is present: chip_smoke runs for real here")
+    script = ROOT / "chip_smoke.py"
+    cwd = ROOT
+    if alone:
+        shutil.copy(script, tmp_path / "chip_smoke.py")
+        script, cwd = tmp_path / "chip_smoke.py", tmp_path
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
