@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flat ANN path on one NVIDIA GPU, and check it.
+"""Drive the PyTorch port's flat ANN, quantized and closest-pair paths on
+one NVIDIA GPU, and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -23,6 +24,21 @@ Phases, each printing one JSON line:
   unfused  n = 4,096 (below the fused policy's 8,192), through the
            pairwise kernel's 2-D and per-query forms, its counts read the
            same way; ids identical to the plain path's.
+  quant    ``flat-pq`` (PQ, 16 codebooks × 256 values) on the Deep1M
+           twin: ``index.search`` at B = 1, 16 and 64, k = 10, counts set
+           to 0 before and read after (adc_dist, pairwise_sq_dist,
+           radius_select and verify_topk must each launch); ids identical
+           to the plain path's; recall@10; the median batch time; the ADC
+           kernel against its plain version at B = 64; a profile.
+  cp       a clustered twin of the Audio set at its published shape
+           (paper Table 3: n = 54,387, d = 192, float32; 40 clusters, 6
+           active dimensions): ``flat`` ``cp_search(k=10)`` at cp_c = 4,
+           γ = 1, counts read around it; pairs and counters identical to
+           the plain path's; the pair_join kernel against its plain
+           version on the sorted rows (pairs, counters, bands joined);
+           recall@10 against an exact float64 brute force on the card;
+           the median cp_search time; a profile; then one ``flat-pq``
+           cp_search (R = 1024 > 128 takes the plain join's route).
   kernels  the line {"kernels": [...]}: per kernel its launches on its
            path, its time, its plain version's, one PyTorch library
            call's, and its bound on the card from this run's inputs.
@@ -52,6 +68,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 N_POINTS, DIM = 1_000_000, 256  # Deep1M (paper Table 3)
+AUDIO_N, AUDIO_D = 54_387, 192  # Audio (paper Table 3)
 K = 10
 BATCHES = (1, 16, 64)
 
@@ -125,20 +142,20 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def profile_search(torch, index, q: np.ndarray, batch_ms: float) -> dict:
-    """Device time by CUDA kernel for one search, by torch.profiler, and
-    the share of the untraced median batch time ``batch_ms`` in which the
-    card ran no kernel (tracing itself slows the host, so the traced
-    window overstates it)."""
+def profile_call(torch, fn, wall_ms: float) -> dict:
+    """Device time by CUDA kernel of one ``fn()`` (after a warm-up call),
+    by torch.profiler, and the share of the untraced wall time
+    ``wall_ms`` in which the card ran no kernel (tracing itself slows the
+    host, so the traced window overstates it)."""
     from torch.profiler import ProfilerActivity, profile
 
-    index.search(q, K)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        index.search(q, K)
+        fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        traced_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total", 0) or 0
@@ -146,9 +163,28 @@ def profile_search(torch, index, q: np.ndarray, batch_ms: float) -> dict:
             rows.append({"name": evt.key[:80], "calls": evt.count, "device_ms": dev_us / 1e3})
     rows.sort(key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows)
-    return {"B": q.shape[0], "traced_wall_ms": wall_ms, "batch_ms": batch_ms,
-            "device_busy_ms": busy, "idle_share": max(0.0, 1.0 - busy / batch_ms),
-            "by_kernel": rows[:16]}
+    return {"traced_wall_ms": traced_ms, "wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": max(0.0, 1.0 - busy / wall_ms), "by_kernel": rows[:16]}
+
+
+def exact_closest_pairs(torch, x, k: int, rows: int = 2048) -> set:
+    """The k closest pairs of x's rows (i < j), by blocks of rows on the
+    card in float64."""
+    x64 = x.double()
+    norms = (x64 * x64).sum(1)
+    n = x64.shape[0]
+    cols = torch.arange(n, device=x.device)
+    best_v, best_p = [], []
+    for r0 in range(0, n, rows):
+        r1 = min(r0 + rows, n)
+        d2 = norms[r0:r1, None] + norms[None, :] - 2.0 * (x64[r0:r1] @ x64.T)
+        d2 = torch.where(cols[None, :] > cols[r0:r1, None], d2, float("inf"))
+        v, flat = torch.topk(d2.reshape(-1), k, largest=False)
+        best_v.append(v)
+        best_p.append(torch.stack([flat // n + r0, flat % n], 1))
+    v, p = torch.cat(best_v), torch.cat(best_p)
+    top = torch.topk(v, k, largest=False).indices
+    return {tuple(pair) for pair in p[top].tolist()}
 
 
 def edge_parity(torch, dev, ref, ops, kpair, ksel, kver) -> int:
@@ -208,6 +244,177 @@ def edge_parity(torch, dev, ref, ops, kpair, ksel, kver) -> int:
               f"verify_topk edge ({B}, {n}, {d}, {Tc}, {k}, {pad})")
         cases += 1
     return cases
+
+
+def quant_phase(torch, dev, data, queries, exact, seed: int) -> dict:
+    """flat-pq on the Deep1M twin: the quantized main path, its checks,
+    and what the kernels line needs of the ADC kernel."""
+    from repro_torch.core import candidate_budget, select_seed
+    from repro_torch.index import IndexConfig, build_index
+    from repro_torch.kernels import adc as kadc
+    from repro_torch.kernels import counts, ops, ref
+
+    cfg = IndexConfig(backend="flat-pq", seed=seed)
+    t0 = time.perf_counter()
+    pq = build_index(data, cfg, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    impl = pq.impl
+    T = candidate_budget(impl.params, impl.n, K)
+
+    counts.reset()
+    answers = {B: pq.search(queries[:B], K) for B in BATCHES}
+    used = counts.snapshot()
+    for name in ("adc_dist", "pairwise_sq_dist", "radius_select", "verify_topk"):
+        check(used["launches"][name] > 0, f"quant path never launched {name}")
+    # the rerank budget R, as the facade chose it: it verifies R rows a query
+    R = answers[1].stats.candidates_verified
+    plain = build_index(data, cfg.with_options(force="plain"), device=dev)
+    check(torch.equal(pq.codes, plain.codes), "quant path: the plain index's codes differ")
+    for B in BATCHES:
+        check(np.array_equal(answers[B].indices, plain.search(queries[:B], K).indices),
+              f"quant path at B={B}: kernel ids differ from the plain path's")
+    del plain
+    got = answers[max(BATCHES)].indices
+    recall = float(np.mean([len(set(got[i]) & set(exact[i])) / K for i in range(len(got))]))
+    check(recall > 0.5, f"recall@10 {recall} on the quant path")
+    batch_ms = {}
+    for B in BATCHES:
+        qB = queries[:B]
+        batch_ms[B] = time_ms(torch, lambda: pq.search(qB, K), reps=7, warmup=1)
+
+    # the ADC kernel at the main path's shapes: B = 64 queries, T candidates
+    q64 = torch.from_numpy(queries).to(dev)
+    d2p = ops.pairwise_sq_dist(impl.family.project(q64), impl.projected)
+    _, cand = ops.radius_select(d2p, T, tau0=select_seed(d2p, T, impl.m))
+    ccodes = pq.codes[cand.to(torch.int64)]
+    lut = pq.codec.lookup_tables(q64)
+    got_adc = kadc.adc_dist(ccodes, lut)
+    want_adc = ref.adc_dist(ccodes, lut)
+    adc_err = float((got_adc - want_adc).abs().max())
+    # tolerance: exact; both add the same table entries in slot order
+    check(torch.equal(got_adc, want_adc), f"adc_dist: max |diff| {adc_err}, expected 0")
+    idx = ccodes.permute(0, 2, 1).to(torch.int64)  # the library call's index form
+    B, S, V = lut.shape
+    emit({"phase": "quant", "n": impl.n, "d": impl.d, "codebooks": S, "values": V,
+          "T": T, "R": R, "build_seconds": build_s, "launches": used["launches"],
+          "routes": used["routes"], "ids_identical_to_plain": True,
+          "recall_at_10": recall, "queries_for_recall": len(got),
+          "adc_max_abs_err": adc_err, "code_bytes": pq.codes.numel(),
+          "median_batch_ms": {str(b): batch_ms[b] for b in BATCHES},
+          "queries_per_s": {str(b): b / batch_ms[b] * 1e3 for b in BATCHES}})
+    emit({"phase": "quant_profile", "B": max(BATCHES),
+          **profile_call(torch, lambda: pq.search(queries, K), batch_ms[max(BATCHES)])})
+    return {"launches": used["launches"]["adc_dist"], "err": adc_err,
+            "fn": lambda: kadc.adc_dist(ccodes, lut),
+            "plain": lambda: ref.adc_dist(ccodes, lut),
+            "library": lambda: torch.gather(lut, 2, idx).sum(1),
+            "bytes": ccodes.numel() + 4 * lut.numel() + 4 * B * ccodes.shape[1],
+            "ops": ccodes.numel()}
+
+
+def cp_phase(torch, dev, seed: int) -> dict:
+    """Closest pair on the Audio twin: the flat cp_search path, its
+    checks, and what the kernels line needs of the pair_join kernel."""
+    from repro_torch.core.cp_fused import cp_threshold2
+    from repro_torch.index import IndexConfig, build_index
+    from repro_torch.kernels import counts, ref
+    from repro_torch.kernels import pair_join as kjoin
+
+    audio = make_clustered_twin(AUDIO_N, AUDIO_D, seed + 4, clusters=40, active=6)
+    cfg = IndexConfig(backend="flat", seed=seed)
+    index = build_index(audio, cfg, device=dev)
+    index.cp_search(K)  # warm-up
+    counts.reset()
+    res = index.cp_search(K)
+    used = counts.snapshot()
+    check(used["launches"]["pair_join"] > 0, "cp path never launched pair_join")
+    t0 = time.perf_counter()
+    plain = build_index(audio, cfg.with_options(force="plain"), device=dev).cp_search(K)
+    plain_s = time.perf_counter() - t0
+    check(np.array_equal(res.pairs, plain.pairs), "cp path: pairs differ from the plain path's")
+    check((res.stats.pairs_verified, res.stats.tiles_pruned)
+          == (plain.stats.pairs_verified, plain.stats.tiles_pruned),
+          f"cp path: counters {res.stats} differ from the plain path's {plain.stats}")
+    exact = exact_closest_pairs(torch, index.impl.data, K)
+    recall = len(exact & {tuple(p) for p in res.pairs.tolist()}) / K
+    check(recall >= 0.5, f"cp recall@10 {recall}")
+    cp_ms = time_ms(torch, lambda: index.cp_search(K), reps=5, warmup=1)
+
+    # the kernel against its plain version on the sorted rows of this run
+    key = index.impl.projected[:, 0]
+    order = torch.sort(key, stable=True).indices
+    xs, ks = index.impl.data[order].contiguous(), key[order].contiguous()
+    thresh2 = cp_threshold2(cfg.cp_c, cfg.m, 1.0)
+    kv, ki, kj, kstats = kjoin.pair_join(xs, ks, K, thresh2=thresh2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pv, pi, pj, pstats = ref.pair_join(xs, ks, K, thresh2=thresh2)
+    torch.cuda.synchronize()
+    join_plain_ms = (time.perf_counter() - t0) * 1e3
+    check(kstats.tolist() == pstats.tolist(),
+          f"pair_join: counters {kstats.tolist()} differ from the plain version's "
+          f"{pstats.tolist()}")
+    # tolerance: the norm trick's float32 cancellation on |xi|² + |xj|²
+    # (≈ 2·max|x|²) times 1e-6, as the card tests hold it
+    join_tol = 1e-6 * 2 * float((xs * xs).sum(1).max())
+    join_err = float((kv - pv).abs().max())
+    check(join_err <= join_tol, f"pair_join: d² max |diff| {join_err} > {join_tol}")
+    # the kernel's pairs, re-verified in the difference form: its d² are
+    # theirs and the pair set is the plain version's (ranks among
+    # near-equal d² may differ: the kernel and cuBLAS round the cross
+    # term differently)
+    real = ki >= 0
+    diff = xs[ki[real].long()] - xs[kj[real].long()]
+    reverify_err = float((kv[real] - (diff * diff).sum(1)).abs().max())
+    check(reverify_err <= join_tol,
+          f"pair_join: d² {reverify_err} from the difference form > {join_tol}")
+    check(set(zip(ki.tolist(), kj.tolist())) == set(zip(pi.tolist(), pj.tolist())),
+          "pair_join: pair set differs from the plain version's")
+    join_identical = torch.equal(ki, pi) and torch.equal(kj, pj)
+    pairs_verified, tiles_pruned, bands = kstats.tolist()
+    n_ti = -(-AUDIO_N // 128)
+    tiles = n_ti * (n_ti + 1) // 2
+    emit({"phase": "cp", "n": AUDIO_N, "d": AUDIO_D, "k": K, "cp_c": cfg.cp_c, "gamma": 1.0,
+          "thresh2": thresh2, "launches": used["launches"], "routes": used["routes"],
+          "pairs_identical_to_plain": True, "counters_identical_to_plain": True,
+          "join_positions_identical_to_plain": join_identical,
+          "pairs_verified": pairs_verified, "tiles_pruned": tiles_pruned, "tiles": tiles,
+          "bands_joined": bands, "bands": n_ti, "all_pairs": AUDIO_N * (AUDIO_N - 1) // 2,
+          "recall_at_10": recall, "median_cp_search_ms": cp_ms,
+          "plain_cp_search_s": plain_s, "pair_join_max_abs_err": join_err,
+          "pair_join_tol": join_tol, "pair_join_reverify_err": reverify_err,
+          "distances": res.distances.tolist()})
+    emit({"phase": "cp_profile", **profile_call(torch, lambda: index.cp_search(K), cp_ms)})
+
+    pq = build_index(audio, IndexConfig(backend="flat-pq", seed=seed), device=dev)
+    counts.reset()
+    t0 = time.perf_counter()
+    pq_res = pq.cp_search(K)
+    pq_s = time.perf_counter() - t0
+    pq_used = counts.snapshot()
+    check(pq_used["routes"]["pair_join.k_over_128"] == 1,
+          f"flat-pq cp_search routes {pq_used['routes']}: expected one k > 128 route")
+    pq_recall = len(exact & {tuple(p) for p in pq_res.pairs.tolist()}) / K
+    # pairs whose PQ codes are equal: their estimated distance is 0
+    _, same = torch.unique(pq.codes, dim=0, return_counts=True)
+    emit({"phase": "cp_pq", "R": pq_res.stats.candidates_verified,
+          "distinct_code_rows": same.numel(),
+          "pairs_with_equal_codes": int((same * (same - 1) // 2).sum()),
+          "routes": pq_used["routes"], "launches": pq_used["launches"],
+          "recall_at_10": pq_recall, "cp_search_s": pq_s,
+          "pairs_estimated": pq_res.stats.point_distance_computations,
+          "pairs_verified": pq_res.stats.candidates_verified,
+          "tiles_pruned": pq_res.stats.tiles_pruned})
+    tile_rows = 2 * 128 * AUDIO_D * 4 * (tiles - tiles_pruned)
+    return {"launches": used["launches"]["pair_join"], "err": join_err,
+            "fn": lambda: kjoin.pair_join(xs, ks, K, thresh2=thresh2),
+            "plain_ms": join_plain_ms, "library": None,
+            "bytes": 4 * (AUDIO_N * AUDIO_D + AUDIO_N) + 12 * K,
+            "ops": 2 * AUDIO_D * pairs_verified,
+            "extra": {"tile_traffic_model_ms": tile_rows / PEAK_BYTES_PER_S * 1e3,
+                      "tiles_joined": tiles - tiles_pruned, "bands_joined": bands,
+                      "pairs_verified": pairs_verified}}
 
 
 def main(argv=None) -> int:
@@ -328,8 +535,8 @@ def main(argv=None) -> int:
           "candidates_selected_b64": answers[64].stats.candidates_selected,
           "median_batch_ms": {str(B): batch_ms[B] for B in BATCHES},
           "queries_per_s": {str(B): B / batch_ms[B] * 1e3 for B in BATCHES}})
-    emit({"phase": "profile",
-          **profile_search(torch, index, queries, batch_ms[max(BATCHES)])})
+    emit({"phase": "profile", "B": max(BATCHES),
+          **profile_call(torch, lambda: index.search(queries, K), batch_ms[max(BATCHES)])})
 
     # -- the unfused path (n < 8192) ----------------------------------------
     small = make_clustered_twin(4096, DIM, args.seed + 2)
@@ -357,6 +564,10 @@ def main(argv=None) -> int:
           "launches": unfused_counts["launches"], "ids_identical_to_plain": True,
           "rows_max_abs_err": rows_err})
 
+    # -- the quantized path and closest pair ----------------------------------
+    adc = quant_phase(torch, dev, data, queries, exact, args.seed)
+    join = cp_phase(torch, dev, args.seed)
+
     # -- per-kernel times at the main path's shapes (B = 64) ------------------
     B, n, m, d = 64, impl.n, impl.m, impl.d
     x_proj = impl.projected
@@ -364,12 +575,14 @@ def main(argv=None) -> int:
     entries = []
 
     def entry(name, path, source, replaces, launches, err, fn, plain, library,
-              bytes_moved, ops_count):
+              bytes_moved, ops_count, plain_ms=None):
         t_bound, by = bound(bytes_moved, ops_count)
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "path": path, "launches": launches, "max_abs_err": err,
-            "ms": time_ms(torch, fn), "plain_ms": time_ms(torch, plain, reps=3, warmup=1),
+            "ms": time_ms(torch, fn),
+            "plain_ms": plain_ms if plain_ms is not None else time_ms(torch, plain, reps=3,
+                                                                     warmup=1),
             "bound_ms": t_bound, "bound_by": by,
             "library_ms": None if library is None else time_ms(torch, library, reps=3,
                                                                warmup=1)})
@@ -406,6 +619,12 @@ def main(argv=None) -> int:
           lambda: ref.pairwise_sq_dist(qs, rows),
           lambda: torch.cdist(qs[:, None, :], rows).squeeze(1) ** 2,
           4 * (Bs * d + Bs * Ts * d + Bs * Ts), 3 * Bs * Ts * d)
+    entry("adc_dist", "quant", csrc + "adc.cu", "src/repro/kernels/adc.py:36",
+          adc["launches"], adc["err"], adc["fn"], adc["plain"], adc["library"],
+          adc["bytes"], adc["ops"])
+    entry("pair_join", "cp", csrc + "pair_join.cu", "src/repro/kernels/pair_join.py:61",
+          join["launches"], join["err"], join["fn"], None, None, join["bytes"],
+          join["ops"], plain_ms=join["plain_ms"])
     # the algorithm's own traffic (repro/obs/roofline.py's models), beside
     # the one-read bounds above, and what verify's bound counts
     extra = {
@@ -413,7 +632,8 @@ def main(argv=None) -> int:
                           / PEAK_BYTES_PER_S * 1e3},
         "verify_topk": {"traffic_model_ms": 4 * (B * T * d + B * d + 4 * B * K)
                         / PEAK_BYTES_PER_S * 1e3,
-                        "candidate_reads": B * T, "unique_rows": uniq}}
+                        "candidate_reads": B * T, "unique_rows": uniq},
+        "pair_join": join["extra"]}
     for e in entries:
         e.update(extra.get(e["name"], {}))
     emit({"kernels": entries})

@@ -8,6 +8,16 @@ JAX index answers takes that index's arrays as numpy:
     ti = repro_torch.index.FlatBackend.from_arrays(
         data, np.asarray(ji.impl.family.a), np.asarray(ji.impl.projected))
 
+A quantized index also carries its codec and codes across: PQ encoding
+is an argmin whose near-ties can fall either way between XLA's and
+torch's summation orders, so a port index that must answer what a JAX
+``flat-pq`` index answers takes the JAX codes too:
+
+    codec = codec_from_arrays(centroids=np.asarray(ji.codec.centroids),
+                              d=ji.codec.d)
+    ti = repro_torch.index.FlatPQBackend.from_arrays(
+        data, a, projected, config, codec=codec, codes=np.asarray(ji.codes))
+
 This module imports nothing of JAX; the caller hands over numpy arrays.
 """
 from __future__ import annotations
@@ -19,8 +29,9 @@ from .core.estimator import solve_parameters
 from .core.flat_index import FlatIndex
 from .core.hashing import ProjectionFamily
 from .device import as_tensor, resolve_device
+from .quant.codec import PQCodec, SQ8Codec
 
-__all__ = ["flat_index_from_arrays"]
+__all__ = ["flat_index_from_arrays", "codec_from_arrays"]
 
 
 def flat_index_from_arrays(data: np.ndarray, a: np.ndarray,
@@ -46,3 +57,26 @@ def flat_index_from_arrays(data: np.ndarray, a: np.ndarray,
                              f"{tuple(data_t.shape)} and m={family.m}")
     return FlatIndex(data=data_t, projected=proj, family=family,
                      params=solve_parameters(c, m=family.m))
+
+
+def codec_from_arrays(*, scale: np.ndarray | None = None,
+                      offset: np.ndarray | None = None,
+                      centroids: np.ndarray | None = None, d: int | None = None,
+                      device: str | torch.device = "cuda") -> SQ8Codec | PQCodec:
+    """The port's codec from a JAX codec's arrays: ``centroids`` (S, V,
+    ds) and ``d`` for PQ, or ``scale`` and ``offset`` (d,) for SQ8."""
+    dev = resolve_device(device)
+    if centroids is not None:
+        cents = as_tensor(centroids, dev)
+        if cents.ndim != 3 or d is None or not 1 <= d <= cents.shape[0] * cents.shape[2]:
+            raise ValueError(f"PQ needs centroids (S, V, ds) and d ≤ S·ds, got "
+                             f"{tuple(cents.shape)} and d={d}")
+        return PQCodec(centroids=cents, d=int(d))
+    if scale is None or offset is None:
+        raise ValueError("codec_from_arrays needs centroids and d (PQ) or "
+                         "scale and offset (SQ8)")
+    scale_t, offset_t = as_tensor(scale, dev), as_tensor(offset, dev)
+    if scale_t.ndim != 1 or scale_t.shape != offset_t.shape:
+        raise ValueError(f"SQ8 needs scale and offset of one shape (d,), got "
+                         f"{tuple(scale_t.shape)} and {tuple(offset_t.shape)}")
+    return SQ8Codec(scale=scale_t, offset=offset_t)

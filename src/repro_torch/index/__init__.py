@@ -6,11 +6,14 @@
     res = index.search(queries, k=10)     # (B, k) int32 / float32 numpy
     res.stats.candidates_selected         # unified work accounting
 
+    pairs = index.cp_search(10)           # closest pairs (CpSearchResult)
+    pq = build_index(data, IndexConfig(backend="flat-pq"))  # PQ codes + ADC
+
 ``device`` defaults to the card and raises where CUDA is absent; pass
-``device="cpu"`` for the plain PyTorch versions.  The flat backend is
-the one ported so far.
+``device="cpu"`` for the plain PyTorch versions.  The flat and flat-pq
+backends are the ones ported so far.
 """
-from .backends import BaseIndex, FlatBackend  # noqa: F401
+from .backends import BaseIndex, FlatBackend, FlatPQBackend  # noqa: F401
 from .config import IndexConfig  # noqa: F401
 from .registry import (  # noqa: F401
     KNOWN_CAPABILITIES,

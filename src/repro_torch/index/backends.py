@@ -2,14 +2,18 @@
 
 The port has the flat backend: the dense estimate → select → verify
 pipeline on the card, with the fused pipeline (radius-threshold select,
-gather-free verify) from n = 8192 on.  Quantized storage and closest
-pair are not ported yet and raise ``NotImplementedError``.
+gather-free verify) from n = 8192 on, closest pair through the pair
+join, and quantized storage (SQ8 or PQ codes with an ADC rerank tier);
+``flat-pq`` is the flat backend with PQ pre-wired.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
+from ..core.cp_fused import cp_fused_search
 from ..core.flat_index import (
     FlatIndex,
     ann_query,
@@ -18,11 +22,12 @@ from ..core.flat_index import (
     candidate_budget,
 )
 from ..device import resolve_device
+from ..quant import quant_ann_query, quant_cp_search, train_codec
 from .config import IndexConfig
 from .registry import register_backend
 from .types import CpSearchResult, SearchResult, WorkStats
 
-__all__ = ["BaseIndex", "FlatBackend"]
+__all__ = ["BaseIndex", "FlatBackend", "FlatPQBackend"]
 
 
 class BaseIndex:
@@ -86,17 +91,20 @@ class BaseIndex:
     # -- CP --------------------------------------------------------------
 
     def cp_search(self, k: int) -> CpSearchResult:
-        raise NotImplementedError(
-            f"repro_torch backend {self.backend_name!r}: closest-pair search "
-            "is not ported yet; it comes with the closest-pair slice "
-            "(ROADMAP queue A item 4)")
+        if "cp" not in self.capabilities:
+            raise NotImplementedError(
+                f"backend {self.backend_name!r} does not support closest-pair")
+        return self._cp_search(int(k))
+
+    def _cp_search(self, k: int) -> CpSearchResult:
+        raise NotImplementedError
 
     def __repr__(self) -> str:
         return (f"{type(self).__name__}(backend={self.backend_name!r}, "
                 f"n={self.n}, d={self.d}, device={self.device})")
 
 
-@register_backend("flat", capabilities=("ann",))
+@register_backend("flat", capabilities=("ann", "cp"))
 class FlatBackend(BaseIndex):
     """The dense pipeline on the card, batched.
 
@@ -106,36 +114,50 @@ class FlatBackend(BaseIndex):
     ``options={"fused": True/False}`` pins either pipeline (identical
     answers on ties-free data).  ``options={"force": "plain"}`` runs the
     kernels' plain PyTorch versions on the card.
+
+    ``cp_search`` sorts the points by the build-time projection's first
+    coordinate and runs the pair join with Algorithm 4's γ·t·ub filter;
+    ``options={"cp_gamma": γ}`` scales the filter.
+
+    With ``options={"quant": "sq8"|"pq"}`` a codec is trained at build
+    time and every point encoded; queries rerank the T candidates by ADC
+    distance on the codes before exact-verifying the best ``rerank``
+    rows (default max(4k, T/3, 64)).  Codec options nest under the
+    codec's name (``{"pq": {"m_codebooks": 32}}``); ``store_raw=False``
+    drops the float rows and answers from the ADC estimates.  CP joins
+    the decoded codes and re-verifies ``cp_rerank`` estimated pairs.
     """
 
     def __init__(self, data: np.ndarray, config: IndexConfig | None = None, *,
                  device: str | torch.device = "cuda",
-                 impl: FlatIndex | None = None):
+                 impl: FlatIndex | None = None, codec=None,
+                 codes: np.ndarray | None = None):
         self._given_impl = impl
+        self._given_codec = codec
+        self._given_codes = codes
         super().__init__(data, config, device=device)
 
     @classmethod
     def from_arrays(cls, data: np.ndarray, a: np.ndarray,
                     projected: np.ndarray | None = None,
                     config: IndexConfig | None = None, *,
-                    device: str | torch.device = "cuda") -> "FlatBackend":
+                    device: str | torch.device = "cuda", codec=None,
+                    codes: np.ndarray | None = None) -> "FlatBackend":
         """A facade over ``data`` with the projection A given, e.g. the
         JAX index's ``family.a`` (and, optionally, its ``projected``), so
-        it answers what the JAX facade answers on the same data."""
+        it answers what the JAX facade answers on the same data.  A
+        quantized index also takes the codec (``convert.
+        codec_from_arrays``) and, optionally, the JAX index's codes."""
         from ..convert import flat_index_from_arrays
 
         config = config or IndexConfig()
         impl = flat_index_from_arrays(data, a, projected, c=config.c,
                                       m=config.m, device=device)
-        return cls(data, config, device=device, impl=impl)
+        return cls(data, config, device=device, impl=impl, codec=codec,
+                   codes=codes)
 
     def _build(self) -> None:
         cfg = self.config
-        if cfg.options.get("quant") is not None:
-            raise NotImplementedError(
-                "repro_torch: quantized storage (options['quant']) is not "
-                "ported yet; it comes with the quant slice (ROADMAP queue A "
-                "item 5)")
         self.force = cfg.options.get("force")
         if self.force not in (None, "plain"):
             raise ValueError(f"options['force'] must be None or 'plain', "
@@ -147,6 +169,29 @@ class FlatBackend(BaseIndex):
         else:
             self.impl = build_flat_index(self.data, m=cfg.m, seed=cfg.seed,
                                          c=cfg.c, device=self.device)
+        rerank = cfg.options.get("rerank")
+        self.rerank = None if rerank is None else int(rerank)
+        self.store_raw = bool(cfg.options.get("store_raw", True))
+        self._cp_recon = None
+        self.codec = self._given_codec
+        qname = cfg.options.get("quant")
+        if self.codec is None and qname is not None:
+            copts = dict(cfg.options.get(qname) or {})
+            seed = copts.pop("seed", cfg.seed)  # codec-level seed wins
+            self.codec = train_codec(str(qname), self.data, seed=seed,
+                                     device=self.device, **copts)
+        if self.codec is None:
+            self.codes = None
+            return
+        if self._given_codes is not None:
+            self.codes = torch.from_numpy(
+                np.array(self._given_codes, dtype=np.uint8)).to(self.device)
+        else:
+            self.codes = self.codec.encode(self.impl.data)
+        if not self.store_raw:  # the codes are the point storage now
+            self.impl = dataclasses.replace(
+                self.impl, data=torch.zeros((0, self.d), device=self.device))
+            self.data = np.empty((0, self.d), dtype=np.float32)
 
     def _record_select(self, counts: np.ndarray) -> int:
         """Keep the last batch's per-query select survivor counts and
@@ -163,13 +208,72 @@ class FlatBackend(BaseIndex):
         fused = (self.fused if self.fused is not None
                  else self.n >= 8192) and k <= 128
         qt = torch.from_numpy(q).to(self.device)
-        ids, _, cnt = ann_query(self.impl, qt, k=k, T=T, fused=fused,
-                                force=self.force, with_count=True)
-        # canonical answer floats; the pipeline's d² only ranked candidates
-        dd = answer_distances(self.impl.data, ids, qt)
+        if self.codec is None:
+            ids, _, cnt = ann_query(self.impl, qt, k=k, T=T, fused=fused,
+                                    force=self.force, with_count=True)
+            # canonical answer floats; the pipeline's d² only ranked candidates
+            dd = answer_distances(self.impl.data, ids, qt)
+            return SearchResult(
+                ids.cpu().numpy(), dd.cpu().numpy(),
+                stats=WorkStats(rounds=B, candidates_verified=B * T,
+                                candidates_selected=self._record_select(
+                                    cnt.cpu().numpy())),
+            )
+        rerank = (self.rerank if self.rerank is not None
+                  else max(4 * k, T // 3, 64))
+        R = min(max(rerank, k), T)
+        ids, dd, cnt = quant_ann_query(
+            self.impl, self.codec, self.codes, qt, k=k, T=T, R=R,
+            store_raw=self.store_raw, force=self.force, fused=fused,
+            with_count=True)
         return SearchResult(
             ids.cpu().numpy(), dd.cpu().numpy(),
-            stats=WorkStats(rounds=B, candidates_verified=B * T,
-                            candidates_selected=self._record_select(
-                                cnt.cpu().numpy())),
+            stats=WorkStats(
+                rounds=B,
+                candidates_verified=B * R if self.store_raw else 0,
+                candidates_selected=self._record_select(cnt.cpu().numpy()),
+                point_distance_computations=B * T,  # the ADC rerank tier
+            ),
         )
+
+    def _cp_search(self, k: int) -> CpSearchResult:
+        cfg = self.config
+        gamma = float(cfg.options.get("cp_gamma", 1.0))
+        key = self.impl.projected[:, 0]
+        if self.codec is None:
+            r = cp_fused_search(self.impl.data, k, m=cfg.m, c=cfg.cp_c,
+                                gamma=gamma, force=self.force, key=key)
+            return CpSearchResult(
+                r.pairs, r.distances,
+                stats=WorkStats(candidates_verified=r.pairs_verified,
+                                pairs_verified=r.pairs_verified,
+                                tiles_pruned=r.tiles_pruned),
+            )
+        if self.store_raw and self._cp_recon is None:
+            # the codes never change: decode once; a codes-only index
+            # keeps the decode transient, per call
+            self._cp_recon = self.codec.decode(self.codes)
+        R = cfg.options.get("cp_rerank")
+        pairs, dd, est, verified, pruned = quant_cp_search(
+            self.codec, self.codes, key, k,
+            raw=self.impl.data if self.store_raw else None,
+            R=None if R is None else int(R), c=cfg.cp_c, m=cfg.m,
+            gamma=gamma, force=self.force, recon=self._cp_recon)
+        return CpSearchResult(
+            pairs, dd,
+            stats=WorkStats(candidates_verified=verified,
+                            point_distance_computations=est,
+                            pairs_verified=verified if self.store_raw else est,
+                            tiles_pruned=pruned),
+        )
+
+
+@register_backend("flat-pq", capabilities=("ann", "quant", "cp"))
+class FlatPQBackend(FlatBackend):
+    """The flat pipeline with PQ codes and the ADC rerank pre-wired: PQ
+    is trained at build time unless the config names a codec."""
+
+    def _build(self) -> None:
+        if "quant" not in self.config.options:
+            self.config = self.config.with_options(quant="pq")
+        super()._build()

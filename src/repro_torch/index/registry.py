@@ -12,8 +12,8 @@ and callers never import them directly:
     index = build_index(data, IndexConfig(backend="flat"))   # on the card
     res = index.search(queries, k=10)
 
-Only the port's own backends register; the port has the flat backend
-so far (ROADMAP queue A lists the rest).
+Only the port's own backends register; the port has ``flat`` and
+``flat-pq`` so far (ROADMAP queue A lists the rest).
 """
 from __future__ import annotations
 

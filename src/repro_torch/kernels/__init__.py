@@ -7,6 +7,9 @@ kernels (sources in ``csrc/``, built by ``_build`` at first use):
                   index-ordered compaction of the T = βn + k budget
   verify        — gather-free VERIFY: exact distances on candidate ids
                   and a streaming top-k answer
+  adc           — the quantized RERANK: asymmetric distances from uint8
+                  codes and per-query tables
+  pair_join     — closest pair: the band-major pruned self-join
 ops    — dispatch: CUDA tensors launch the kernels, CPU tensors take the
          plain versions
 ref    — the plain PyTorch versions (the semantics contract)

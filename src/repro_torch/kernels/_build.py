@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_torch_kernels.so"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_L, _D = ctypes.c_longlong, ctypes.c_double
 # name → (restype, argtypes) of every C entry the wrappers call
 SIGNATURES = {
     "rt_error_string": (ctypes.c_char_p, [_I]),
@@ -44,6 +45,9 @@ SIGNATURES = {
     "verify_topk_launch": (_I, [_P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _P]),
     "verify_topk_blocks_per_sm": (_I, [_I]),
+    "adc_dist_launch": (_I, [_P, _L, _P, _P, _I, _I, _I, _I, _P]),
+    "pair_join_bands_launch": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _I, _D,
+                                    _P, _P, _P, _P, _P, _P, _P, _P]),
 }
 
 _lock = threading.Lock()

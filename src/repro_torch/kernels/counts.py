@@ -6,7 +6,7 @@ its path went through: ``reset()``, drive the path, ``snapshot()``.
 ``ROUTES`` counts the dispatch rules of ``ops`` that answer with a
 plain PyTorch version on any device (the reference's own routing, not
 a fallback): the degenerate-budget sort and the overflow reroute of
-``radius_select``, and ``verify_topk`` at k > 128.
+``radius_select``, and ``verify_topk`` and ``pair_join`` at k > 128.
 """
 from __future__ import annotations
 
@@ -17,12 +17,15 @@ LAUNCHES: dict[str, int] = {
     "pairwise_sq_dist_rows": 0,  # per-query (B, N, d) form, difference form
     "radius_select": 0,          # one count per call: 16 CUDA launches
     "verify_topk": 0,            # one count per call: partial + merge launches
+    "adc_dist": 0,               # one count per call: one launch
+    "pair_join": 0,              # one count per call: two launches per band
 }
 
 ROUTES: dict[str, int] = {
     "radius_select.sort": 0,       # T_pad >= N: nothing to skip
     "radius_select.overflow": 0,   # survivors > T_pad: exact sort instead
     "verify_topk.k_over_128": 0,   # beyond the kernel's answer width
+    "pair_join.k_over_128": 0,     # beyond the kernel's pair heap
 }
 
 

@@ -33,33 +33,6 @@ constexpr int kBuf = 2048;  // (d², position) slots sorted at a time
 constexpr int kMaxK = 128;
 constexpr int kRowsInFlight = 4;  // candidate rows each warp reads at once
 
-// (va, pa) sorts after (vb, pb): by distance, then by candidate position.
-__device__ __forceinline__ bool after(float va, int pa, float vb, int pb) {
-  return va > vb || (va == vb && pa > pb);
-}
-
-// Ascending bitonic sort of the kBuf pairs; ends with a barrier.
-__device__ void sort_pairs(float* v, int* p) {
-  for (int size = 2; size <= kBuf; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < kBuf / 2; t += kThreads) {
-        const int i = 2 * t - (t & (stride - 1));
-        const int j = i + stride;
-        const bool up = (i & size) == 0;
-        const float vi = v[i], vj = v[j];
-        const int pi = p[i], pj = p[j];
-        if (after(vi, pi, vj, pj) == up) {
-          v[i] = vj;
-          v[j] = vi;
-          p[i] = pj;
-          p[j] = pi;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
 __global__ void __launch_bounds__(kThreads, 4)
 verify_partial_kernel(const float* __restrict__ data, const float* __restrict__ q,
                       const int* __restrict__ cand, float* __restrict__ part_v,
@@ -117,7 +90,7 @@ verify_partial_kernel(const float* __restrict__ data, const float* __restrict__ 
       s_p[t] = INT_MAX;
     }
     __syncthreads();
-    sort_pairs(s_v, s_p);
+    rt::sort_pairs<kThreads>(s_v, s_p, kBuf);
   }
   float* ov = part_v + (static_cast<long long>(b) * S + split) * k;
   int* op = part_p + (static_cast<long long>(b) * S + split) * k;
@@ -150,7 +123,7 @@ verify_merge_kernel(const float* __restrict__ part_v, const int* __restrict__ pa
       s_p[k + t] = t < cnt ? pp[base + t] : INT_MAX;
     }
     __syncthreads();
-    sort_pairs(s_v, s_p);
+    rt::sort_pairs<kThreads>(s_v, s_p, kBuf);
   }
   __syncthreads();
   for (int i = tid; i < k; i += kThreads) {

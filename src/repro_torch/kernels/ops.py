@@ -10,13 +10,15 @@ from __future__ import annotations
 
 import torch
 
+from . import adc as _adc
 from . import counts, ref
+from . import pair_join as _pair_join
 from . import pairwise_dist as _pairwise
 from . import select as _select
 from . import verify as _verify
 
 __all__ = ["pairwise_sq_dist", "default_select_seed", "radius_select",
-           "verify_topk"]
+           "verify_topk", "adc_dist", "pair_join"]
 
 
 def _plain(force: str | None, *tensors: torch.Tensor) -> bool:
@@ -117,3 +119,36 @@ def verify_topk(data: torch.Tensor, q: torch.Tensor, cand: torch.Tensor, k: int,
     return _verify.verify_topk(data.to(torch.float32).contiguous(),
                                q.to(torch.float32).contiguous(),
                                cand.to(torch.int32).contiguous(), k)
+
+
+def adc_dist(codes: torch.Tensor, lut: torch.Tensor, *,
+             force: str | None = None) -> torch.Tensor:
+    """Asymmetric distances: codes (N, S) or per-query (B, N, S) × LUTs
+    (B, S, V) → (B, N).  The kernel reads the codes as uint8."""
+    if _plain(force, codes, lut):
+        return ref.adc_dist(codes, lut)
+    return _adc.adc_dist(codes.to(torch.uint8).contiguous(),
+                         lut.to(torch.float32).contiguous())
+
+
+def pair_join(x: torch.Tensor, key: torch.Tensor, k: int, *, thresh2: float,
+              force: str | None = None):
+    """Top-k closest pairs of x's rows by pruned blockwise self-join.
+
+    x (n, d) sorted ascending by key (n,) → (d² (k,) ascending, pi (k,),
+    pj (k,), stats (3,) int64 = [pairs_verified, tiles_pruned,
+    bands_joined]); pi < pj are row POSITIONS in the sorted order,
+    (+inf, −1, −1) past the real pair count.  ``thresh2`` = (γ·t)² is
+    Algorithm 4's radius filter as tile masking; ``float('inf')``
+    disables pruning.  k > 128 is past the kernel's pair heap and takes
+    the plain version on every device, as the reference routes it
+    (ops.py:268).
+    """
+    if k > _pair_join.MAX_K:
+        counts.route("pair_join.k_over_128")
+        return ref.pair_join(x, key, k, thresh2=thresh2)
+    if _plain(force, x, key):
+        return ref.pair_join(x, key, k, thresh2=thresh2)
+    return _pair_join.pair_join(x.to(torch.float32).contiguous(),
+                                key.to(torch.float32).contiguous(), k,
+                                thresh2=float(thresh2))

@@ -11,6 +11,11 @@ and ``chip_smoke.py`` can hold the CUDA kernel against it on the card:
                           bisection, index-ordered compaction)
   verify_topk           ← repro/kernels/verify.py (difference form, as
                           repro/kernels/ref.py:234-253)
+  adc_dist              ← repro/kernels/adc.py (LUT sums over code slots,
+                          in slot order)
+  pair_join             ← repro/kernels/pair_join.py (the band-major
+                          pruned self-join, as the numpy oracle
+                          repro/kernels/ref.py:164-231 walks it)
 
 ``topk_smallest`` is the stable sort that stands in for every
 ``lax.top_k`` outside a kernel: it keeps the lowest-index tie-break.
@@ -20,7 +25,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["pairwise_sq_dist", "topk_smallest", "select_rungs",
-           "radius_select_kernel", "verify_topk"]
+           "radius_select_kernel", "verify_topk", "adc_dist", "pair_join"]
 
 _INF = float("inf")
 
@@ -29,6 +34,10 @@ _INF = float("inf")
 _SELECT_RUNGS = 16
 _SELECT_ITERS = 14
 _SELECT_C2 = 2.25
+
+# The join's tile side (the TPU kernel's default block_n,
+# repro/kernels/pair_join.py:222); csrc/pair_join.cu's kTile is the same.
+PAIR_JOIN_TILE = 128
 
 
 def pairwise_sq_dist(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -144,3 +153,102 @@ def verify_topk(data: torch.Tensor, q: torch.Tensor, cand: torch.Tensor, k: int
     ids = torch.gather(cand, 1, sel.to(torch.int64))
     ids = torch.where(torch.isinf(vals), -1, ids)
     return vals, ids.to(torch.int32)
+
+
+def adc_dist(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """Asymmetric distances from code slots and per-query tables.
+
+    codes (N, S) shared by the batch, or per-query (B, N, S), values in
+    [0, V); lut (B, S, V) float32.  Returns (B, N) float32 with
+    out[b, n] = Σ_s lut[b, s, codes[..., n, s]], summed in slot order
+    s = 0..S−1 from 0, the order the CUDA kernel adds in.
+    """
+    lut = lut.to(torch.float32)
+    B, S, _ = lut.shape
+    if codes.shape[-1] != S:
+        raise ValueError(f"adc_dist: codes {tuple(codes.shape)} for lut {tuple(lut.shape)}")
+    N = codes.shape[-2]
+    out = torch.zeros((B, N), dtype=torch.float32, device=lut.device)
+    for s in range(S):
+        col = codes[..., s].to(torch.int64)  # (N,) or (B, N)
+        out = out + torch.gather(lut[:, s, :], 1, col.expand(B, N))
+    return out
+
+
+def _pair_join_block(n: int) -> int:
+    """The tile side of the join: PAIR_JOIN_TILE, but no more than n
+    rounded up to 8 and no less than 8 (repro/kernels/ref.py:185)."""
+    return max(min(PAIR_JOIN_TILE, n + (-n) % 8 if n else 8), 8)
+
+
+def pair_join(x: torch.Tensor, key: torch.Tensor, k: int, *, thresh2: float
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Top-k closest pairs of x's rows by the band-major pruned self-join.
+
+    x (n, d) sorted ascending by key (n,).  Tiles (i, i + b) of bN rows
+    are visited band by band; a tile is skipped when its key gap
+    key[j·bN] − key[end of block i] is positive and its square exceeds
+    thresh2 · ub², ub² being the k-th smallest pair d² seen so far.
+    Unskipped tiles compute norm-trick float32 d², clamped at 0, for the
+    pairs gj > gi.  The gap test runs on the host in double, as the
+    numpy oracle does, from key copied to the host once.
+
+    Returns (d² (k,) ascending float32, pi (k,) int32, pj (k,) int32,
+    stats (3,) int64 = [pairs_verified, tiles_pruned, bands_joined]),
+    on x's device; pi < pj are row positions in the sorted order, and
+    slots past the real pair count are (+inf, −1, −1).  Ties go to the
+    earliest pair in traversal order.  ``bands_joined`` counts the bands
+    with at least one joined tile (the reference reports the first two).
+    """
+    x = x.to(torch.float32)
+    key_h = key.detach().to("cpu", torch.float32).numpy()
+    n = x.shape[0]
+    dev = x.device
+    bN = _pair_join_block(n)
+    n_ti = max(-(-n // bN), 1)
+    norms = (x * x).sum(1)
+    thresh2 = float(thresh2)
+
+    vals = torch.empty((0,), dtype=torch.float32, device=dev)  # traversal order
+    pis = torch.empty((0,), dtype=torch.int64, device=dev)
+    pjs = torch.empty((0,), dtype=torch.int64, device=dev)
+    ub2 = _INF
+    pairs_verified = tiles_pruned = bands_joined = 0
+    for b in range(n_ti):
+        joined = False
+        for i in range(n_ti - b):
+            j = i + b
+            si, sj = i * bN, j * bN
+            ei, ej = min(si + bN, n), min(sj + bN, n)
+            gap = float(key_h[sj] - key_h[ei - 1])  # float32 difference
+            if gap > 0.0 and gap * gap > thresh2 * ub2:
+                tiles_pruned += 1
+                continue
+            joined = True
+            d2 = torch.clamp_min(norms[si:ei, None] + norms[None, sj:ej]
+                                 - 2.0 * (x[si:ei] @ x[sj:ej].T), 0.0)
+            gi = torch.arange(si, ei, device=dev)[:, None].expand(d2.shape)
+            gj = torch.arange(sj, ej, device=dev)[None, :].expand(d2.shape)
+            sel = (gj > gi).reshape(-1)  # row-major: the tile's flatten order
+            mi, mj = ei - si, ej - sj
+            pairs_verified += mi * (mi - 1) // 2 if i == j else mi * mj
+            vals = torch.cat([vals, d2.reshape(-1)[sel]])
+            pis = torch.cat([pis, gi.reshape(-1)[sel]])
+            pjs = torch.cat([pjs, gj.reshape(-1)[sel]])
+            if vals.numel() > 4096 + k:  # keep the running pool bounded
+                keep = torch.sort(torch.sort(vals, stable=True).indices[: 2 * k]).values
+                vals, pis, pjs = vals[keep], pis[keep], pjs[keep]
+            if vals.numel() >= k:
+                ub2 = float(torch.kthvalue(vals.cpu(), k).values)
+        bands_joined += joined
+    order = torch.sort(vals, stable=True).indices[:k]
+    m = order.numel()
+    out_v = torch.full((k,), _INF, dtype=torch.float32, device=dev)
+    out_i = torch.full((k,), -1, dtype=torch.int32, device=dev)
+    out_j = torch.full((k,), -1, dtype=torch.int32, device=dev)
+    out_v[:m] = vals[order]
+    out_i[:m] = pis[order].to(torch.int32)
+    out_j[:m] = pjs[order].to(torch.int32)
+    stats = torch.tensor([pairs_verified, tiles_pruned, bands_joined],
+                         dtype=torch.int64, device=dev)
+    return out_v, out_i, out_j, stats

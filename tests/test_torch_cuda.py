@@ -12,7 +12,11 @@ counts, copied values); verify's ids agree exactly and its d² to rtol
 1e-5 (both sum the difference form, in another order); pairwise to
 rtol 1e-5 and an atol of 1e-4 (the norm trick's cancellation at |q|²
 + |x|² of a few hundred, with the cross term summed in another order
-than cuBLAS's).
+than cuBLAS's).  adc_dist agrees exactly (both add the same table
+entries in slot order).  pair_join's pairs and counters agree exactly
+and its d² to rtol 1e-4 and an atol of 1e-6 · 2·max|x|² (the norm
+trick's rounding is a few float32 ulps of |xi|² + |xj|², and the cross
+terms are summed in another order than cuBLAS's).
 """
 import numpy as np
 import pytest
@@ -152,6 +156,118 @@ def test_flat_facade_matches_plain(cuda, n):
     else:
         assert used["pairwise_sq_dist_rows"] == 1
     assert used["pairwise_sq_dist"] == 1
+
+
+@pytest.mark.parametrize("B,N,S,V,per_query", [
+    (1, 100, 16, 256, False), (5, 3001, 16, 256, False), (64, 4099, 16, 256, True),
+    (3, 500, 7, 100, True), (2, 300, 96, 256, False), (4, 2048, 32, 256, True),
+])
+def test_adc_matches_plain(cuda, B, N, S, V, per_query):
+    rng = np.random.default_rng(B + N + S)
+    shape = (B, N, S) if per_query else (N, S)
+    codes = torch.from_numpy(rng.integers(0, V, shape).astype(np.uint8)).to(cuda)
+    lut = torch.from_numpy(rng.random((B, S, V)).astype(np.float32)).to(cuda)
+    before = counts.LAUNCHES["adc_dist"]
+    got = ops.adc_dist(codes, lut)
+    torch.cuda.synchronize()
+    assert counts.LAUNCHES["adc_dist"] == before + 1
+    assert torch.equal(got, ops.adc_dist(codes, lut, force="plain"))
+
+
+def test_adc_unaligned_codes(cuda):
+    """A view that starts one byte in takes the kernel's byte loads."""
+    rng = np.random.default_rng(3)
+    raw = torch.from_numpy(rng.integers(0, 256, 700 * 16 + 1).astype(np.uint8)).to(cuda)
+    codes = raw[1:].view(700, 16)
+    lut = torch.from_numpy(rng.random((3, 16, 256)).astype(np.float32)).to(cuda)
+    from repro_torch.kernels.adc import adc_dist
+
+    assert torch.equal(adc_dist(codes, lut), ref.adc_dist(codes, lut))
+
+
+def _sorted_rows(x, seed):
+    rng = np.random.default_rng(seed)
+    key = x @ rng.normal(size=(x.shape[1],)).astype(np.float32)
+    order = np.argsort(key, kind="stable")
+    return x[order], key[order].astype(np.float32)
+
+
+def _pair_join_case(name):
+    rng = np.random.default_rng(len(name))
+    if name == "two_clusters":  # 40 apart on one axis: |x|² stays small, so the
+        # norm trick's rounding stays far below the gaps between pair distances
+        x = np.concatenate([rng.normal(size=(256, 8)), rng.normal(size=(256, 8))])
+        x[256:, 0] += 40.0
+        x = x.astype(np.float32)
+        order = np.argsort(x[:, 0], kind="stable")
+        return x[order], x[order, 0].copy(), 10, 16.0
+    n, d, k, t2 = {"single_tile": (64, 8, 5, np.inf), "partial_tile": (100, 12, 1, 9.0),
+                   "live_pruning": (300, 16, 10, 16.0), "ragged": (513, 24, 16, 16.0),
+                   "fewer_pairs_than_k": (4, 6, 10, np.inf), "k_128": (1000, 32, 128, 16.0),
+                   "many_bands": (6000, 48, 10, 16.0), "gamma_0": (700, 16, 10, 0.0)}[name]
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    return (*_sorted_rows(x, n), k, t2)
+
+
+@pytest.mark.parametrize("name", ["single_tile", "partial_tile", "live_pruning", "ragged",
+                                  "two_clusters", "fewer_pairs_than_k", "k_128",
+                                  "many_bands", "gamma_0"])
+def test_pair_join_matches_plain(cuda, name):
+    xs, ks, k, t2 = _pair_join_case(name)
+    x, key = torch.from_numpy(xs).to(cuda), torch.from_numpy(ks).to(cuda)
+    before = counts.LAUNCHES["pair_join"]
+    gv, gi, gj, gs = ops.pair_join(x, key, k, thresh2=t2)
+    torch.cuda.synchronize()
+    assert counts.LAUNCHES["pair_join"] == before + 1
+    wv, wi, wj, ws = ops.pair_join(x, key, k, thresh2=t2, force="plain")
+    assert torch.equal(gi, wi) and torch.equal(gj, wj)
+    assert gs.tolist() == ws.tolist()
+    atol = 1e-6 * 2 * float((x * x).sum(1).max())
+    torch.testing.assert_close(gv, wv, rtol=1e-4, atol=atol)
+    if name == "two_clusters":
+        assert gs[1] > 0  # cross-cluster tiles pruned
+
+
+@pytest.mark.parametrize("backend,options", [
+    ("flat", {}), ("flat-pq", {}), ("flat", {"quant": "sq8"}),
+    ("flat-pq", {"store_raw": False}),
+])
+def test_cp_and_quant_facades_match_plain(cuda, backend, options):
+    """cp_search, and search on the quantized backends, on the card:
+    kernels against plain versions on one index."""
+    from repro_torch.core.cp_fused import cp_fused_search
+    from repro_torch.index import IndexConfig, build_index
+
+    rng = np.random.default_rng(17)
+    data = (rng.normal(size=(20, 64)) * 4)[rng.integers(0, 20, 9000)]
+    data = (data + rng.normal(size=(9000, 64)) * 0.5).astype(np.float32)
+    q = (data[rng.integers(0, 9000, 7)] + 0.1 * rng.normal(size=(7, 64))).astype(np.float32)
+    kern = build_index(data, IndexConfig(backend=backend, options=options), device=cuda)
+    plain = build_index(data, IndexConfig(backend=backend,
+                                          options={**options, "force": "plain"}), device=cuda)
+    counts.reset()
+    ck = kern.cp_search(10)
+    used = counts.snapshot()
+    cp_plain = plain.cp_search(10)
+    np.testing.assert_array_equal(ck.pairs, cp_plain.pairs)
+    np.testing.assert_allclose(ck.distances, cp_plain.distances, rtol=1e-6)
+    assert ck.stats == cp_plain.stats
+    if kern.codec is None:
+        assert used["launches"]["pair_join"] == 1
+        full = cp_fused_search(kern.impl.data, 10, gamma=1e6, key=kern.impl.projected[:, 0])
+        assert set(map(tuple, ck.pairs.tolist())) == set(map(tuple, full.pairs.tolist()))
+        return
+    assert used["routes"]["pair_join.k_over_128"] == 1  # R = 1024 > 128
+    counts.reset()
+    rk = kern.search(q, 10)
+    used = counts.snapshot()["launches"]
+    rp = plain.search(q, 10)
+    np.testing.assert_array_equal(rk.indices, rp.indices)
+    np.testing.assert_allclose(rk.distances, rp.distances, rtol=1e-6)
+    assert rk.stats == rp.stats
+    assert used["radius_select"] >= 1 and used["pairwise_sq_dist"] == 1
+    if backend == "flat-pq":
+        assert used["adc_dist"] == 1
 
 
 def test_wrappers_reject_cpu_tensors(cuda):

@@ -59,29 +59,39 @@ def test_importing_the_port_loads_no_jax():
 
 
 @pytest.mark.parametrize("entry", ["build_index", "build_flat_index", "FlatBackend",
-                                   "flat_index_from_arrays"])
+                                   "flat_index_from_arrays", "flat-pq", "cp_fused_search",
+                                   "train_codec", "codec_from_arrays"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device works here")
-    from repro_torch.convert import flat_index_from_arrays
+    from repro_torch.convert import codec_from_arrays, flat_index_from_arrays
     from repro_torch.core import build_flat_index
-    from repro_torch.index import FlatBackend, build_index
+    from repro_torch.core.cp_fused import cp_fused_search
+    from repro_torch.index import FlatBackend, IndexConfig, build_index
+    from repro_torch.quant import train_codec
 
     data = np.random.default_rng(0).normal(size=(64, 8)).astype(np.float32)
     call = {"build_index": lambda: build_index(data),
             "build_flat_index": lambda: build_flat_index(data),
             "FlatBackend": lambda: FlatBackend(data),
             "flat_index_from_arrays": lambda: flat_index_from_arrays(
-                data, np.ones((8, 15), np.float32), m=15)}[entry]
+                data, np.ones((8, 15), np.float32), m=15),
+            "flat-pq": lambda: build_index(data, IndexConfig(backend="flat-pq")),
+            "cp_fused_search": lambda: cp_fused_search(data, 5),
+            "train_codec": lambda: train_codec("sq8", data),
+            "codec_from_arrays": lambda: codec_from_arrays(
+                scale=np.ones(8, np.float32), offset=np.zeros(8, np.float32))}[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
 
 
 def _wrapper_calls():
-    from repro_torch.kernels import pairwise_dist, select, verify
+    from repro_torch.kernels import adc, pair_join, pairwise_dist, select, verify
 
     z = torch.zeros
     return {
+        "adc_dist": lambda: adc.adc_dist(torch.zeros(4, 3, dtype=torch.uint8), z(2, 3, 8)),
+        "pair_join": lambda: pair_join.pair_join(z(9, 3), z(9), 2, thresh2=1.0),
         "pairwise_sq_dist": lambda: pairwise_dist.pairwise_sq_dist(z(2, 3), z(4, 3)),
         "pairwise_sq_dist_rows": lambda: pairwise_dist.pairwise_sq_dist_rows(
             z(2, 3), z(2, 4, 3)),
@@ -115,7 +125,7 @@ def test_build_targets_sm90a_under_an_ignored_directory():
     ignored = {line.strip() for line in (ROOT / ".gitignore").read_text().splitlines()}
     assert ignored & {"build/", "/build/", "build"}
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
-        "common.cu", "pairwise_dist.cu", "select.cu", "verify.cu"]
+        "adc.cu", "common.cu", "pair_join.cu", "pairwise_dist.cu", "select.cu", "verify.cu"]
 
 
 def test_build_without_nvcc_raises():
