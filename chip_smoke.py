@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flat ANN, quantized and closest-pair paths on
-one NVIDIA GPU, and check them.
+"""Drive the PyTorch port's flat ANN, quantized, closest-pair and streaming
+paths on one NVIDIA GPU, and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -14,7 +14,10 @@ Phases, each printing one JSON line:
   parity   each CUDA kernel against its plain PyTorch version, on the
            same tensors, at the shapes the main path gives it and at edge
            shapes (padding, k > Tc, ties, seeds outside the ladder, an
-           overflowing tie cluster).
+           overflowing tie cluster; topk at k = 1 and 128, short and
+           ragged rows, equal values, rows with fewer than k finite
+           entries, k > 128 through radius_select; project_dist at a
+           ragged N, d = 4096 and B = 1).
   fused    the main path: ``index.search`` at B = 1, 16 and 64, k = 10,
            with every launch count set to 0 before and read after; ids
            identical to the plain path's; recall@10 against an exact
@@ -39,8 +42,27 @@ Phases, each printing one JSON line:
            recall@10 against an exact float64 brute force on the card;
            the median cp_search time; a profile; then one ``flat-pq``
            cp_search (R = 1024 > 128 takes the plain join's route).
+  stream   a streaming index (``segment_backend="flat"``, delta_threshold
+           32,768, max_segments 4) over the Deep1M twin, churned for 24
+           rounds (4,096 inserts from the same mixture, 32 deletes of
+           churned rows; round 0 also deletes 64 seed rows; one eager
+           flush() after round 20): after rounds
+           8, 16 and 24, ``index.search`` at B = 1, 16, 64 with the counts
+           read around it (topk_smallest and the three float kernels must
+           launch), ids identical to a ``use_kernels=False`` twin fed the
+           same operations, recall@10 against an exact float64 brute force
+           over the live rows, the median batch time, segments, delta
+           size, flushes and compactions; then one traced B = 64 search
+           (segment / delta / merge split) and a profile.
+  stream_cp  the Audio twin inserted into a streaming index in batches of
+           8,192 (delta_threshold 16,384): ``cp_search(10)``, pairs and
+           counters identical to the ``use_kernels=False`` twin's, CP
+           recall@10 against the exact pairs.
+  project  ``ops.project_dist`` on the Deep1M twin with its own A (256 ×
+           15) and B = 64 projected queries, against its plain version.
   kernels  the line {"kernels": [...]}: per kernel its launches on its
-           path, its time, its plain version's, one PyTorch library
+           path, its time by CUDA events and its device time by
+           torch.profiler, its plain version's time, one PyTorch library
            call's, and its bound on the card from this run's inputs.
 
 Then the card's name and power limit as nvidia-smi prints them, and last
@@ -71,6 +93,12 @@ N_POINTS, DIM = 1_000_000, 256  # Deep1M (paper Table 3)
 AUDIO_N, AUDIO_D = 54_387, 192  # Audio (paper Table 3)
 K = 10
 BATCHES = (1, 16, 64)
+STREAM_ROUNDS, STREAM_BATCH, STREAM_THRESHOLD = 24, 4096, 32768
+STREAM_CHECKPOINTS = (8, 16, 24)
+# a flush seals the whole delta, and churn deletes shrink it, so the
+# threshold alone seals twice in 24 rounds (after rounds 9 and 18); one
+# eager flush() gives the third seal and the count-triggered compaction
+STREAM_FLUSH_AFTER = (20,)
 
 
 def emit(obj) -> None:
@@ -83,14 +111,18 @@ def check(ok, what: str) -> None:
 
 
 def make_clustered_twin(n: int, d: int, seed: int, clusters: int = 60,
-                        active: int = 12) -> np.ndarray:
+                        active: int = 12, rows_seed: int | None = None) -> np.ndarray:
     """Clustered Gaussian mixture with low-rank spread inside each
     cluster (local intrinsic dimension ≈ ``active``), the recipe of the
-    repo's Deep twin (benchmarks/datasets.py), at full scale."""
+    repo's Deep twin (benchmarks/datasets.py), at full scale.  The
+    mixture comes from ``seed``; ``rows_seed`` draws other rows of the
+    same mixture."""
     rng = np.random.default_rng(seed)
     centers = rng.normal(size=(clusters, d)).astype(np.float32) * 6.0
     basis = rng.normal(size=(clusters, active, d)).astype(np.float32)
     basis /= np.linalg.norm(basis, axis=-1, keepdims=True)
+    if rows_seed is not None:
+        rng = np.random.default_rng(rows_seed)
     asg = rng.integers(0, clusters, n)
     coeff = rng.standard_normal((n, active), dtype=np.float32)
     pts = rng.standard_normal((n, d), dtype=np.float32)
@@ -126,6 +158,24 @@ def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, reps: int = 5) -> float:
+    """Device time of one ``fn()`` by torch.profiler: the summed device
+    time of its kernels and copies over ``reps`` calls (after a warm-up
+    call), per call.  Beside the event time it shows how much of a
+    launch-bound call is host work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(evt, "self_device_time_total", 0) or 0
+                   for evt in prof.key_averages() if evt.cpu_time_total == 0)
+    return total_us / 1e3 / reps
 
 
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
@@ -167,6 +217,14 @@ def profile_call(torch, fn, wall_ms: float) -> dict:
             "idle_share": max(0.0, 1.0 - busy / wall_ms), "by_kernel": rows[:16]}
 
 
+def exact_knn(torch, x, q, k: int) -> np.ndarray:
+    """Rows of the k nearest rows of x to each query, in float64 on the
+    card."""
+    x64, q64 = x.double(), q.double()
+    d2 = (q64 * q64).sum(1, keepdim=True) + (x64 * x64).sum(1)[None] - 2.0 * q64 @ x64.T
+    return torch.topk(d2, k, largest=False).indices.cpu().numpy()
+
+
 def exact_closest_pairs(torch, x, k: int, rows: int = 2048) -> set:
     """The k closest pairs of x's rows (i < j), by blocks of rows on the
     card in float64."""
@@ -187,9 +245,11 @@ def exact_closest_pairs(torch, x, k: int, rows: int = 2048) -> set:
     return {tuple(pair) for pair in p[top].tolist()}
 
 
-def edge_parity(torch, dev, ref, ops, kpair, ksel, kver) -> int:
+def edge_parity(torch, dev, ref, ops, kpair, ksel, kver, ktopk, kproj) -> int:
     """The kernels against their plain versions at the edge shapes of the
     CPU tests; returns the number of cases checked."""
+    from repro_torch.kernels import counts
+
     g = torch.Generator(device=dev).manual_seed(7)
     cases = 0
     for B in (1, 5):
@@ -242,6 +302,45 @@ def edge_parity(torch, dev, ref, ops, kpair, ksel, kver) -> int:
         wv, wi = ref.verify_topk(data, q, cand, k)
         check(torch.equal(gi, wi) and torch.allclose(gv, wv, rtol=1e-5, atol=1e-5),
               f"verify_topk edge ({B}, {n}, {d}, {Tc}, {k}, {pad})")
+        cases += 1
+    # topk: k = 1 and 128, a row shorter than one 2,048-key buffer, rows
+    # not a multiple of it, equal values, a row with two finite entries;
+    # tolerance: exact, values bit for bit
+    for B, N, k, kind in ((3, 5000, 1, "rand"), (5, 9000, 128, "rand"),
+                          (4, 700, 10, "rand"), (2, 3 * 2049 + 5, 33, "rand"),
+                          (3, 4100, 16, "equal"), (3, 3000, 8, "few_finite")):
+        dd = torch.rand((B, N), generator=g, device=dev)
+        if kind == "equal":
+            dd.fill_(7.0)
+        elif kind == "few_finite":  # the sort answers 0, 1, ... in the +inf slots
+            dd[0] = float("inf")
+            dd[0, 5], dd[0, N - 1] = 2.0, 1.0
+        gv, gi = ktopk.topk_smallest(dd, k)
+        wv, wi = ref.topk_smallest(dd, k)
+        check(torch.equal(gi, wi) and torch.equal(gv.view(torch.int32), wv.view(torch.int32)),
+              f"topk_smallest edge ({B}, {N}, {k}, {kind})")
+        if kind == "few_finite":
+            check(gi[0, :4].tolist() == [N - 1, 5, 0, 1], "topk_smallest: +inf slots")
+        cases += 1
+    dd = torch.rand((4, 20000), generator=g, device=dev)
+    routed = counts.ROUTES["topk_smallest.k_over_128"]
+    gv, gi = ops.topk_smallest(dd, 300)
+    wv, wi = ref.topk_smallest(dd, 300)
+    check(counts.ROUTES["topk_smallest.k_over_128"] == routed + 1,
+          "topk_smallest at k = 300 did not take the radius_select route")
+    check(torch.equal(gi, wi) and torch.equal(gv, wv), "topk_smallest k = 300")
+    cases += 1
+    # project_dist: N not a multiple of the 128-point tile, d = 4096 (A
+    # staged in 128 slabs), B = 1, B past the 64 staged queries, m = 16, 20
+    for B, N, d, m in ((5, 1000, 64, 15), (1, 4099, 4096, 15), (7, 777, 33, 16),
+                       (70, 3000, 96, 20)):
+        x = torch.randn((N, d), generator=g, device=dev)
+        a = torch.randn((d, m), generator=g, device=dev)
+        qp = torch.randn((B, d), generator=g, device=dev) @ a
+        got = kproj.project_dist(x, a, qp)
+        tol = 1e-5 * ((qp * qp).sum(1)[:, None] + ((x @ a) ** 2).sum(1)[None]) + 1e-6
+        check(bool(((got - ref.project_dist(x, a, qp)).abs() <= tol).all()),
+              f"project_dist edge ({B}, {N}, {d}, {m})")
         cases += 1
     return cases
 
@@ -407,7 +506,8 @@ def cp_phase(torch, dev, seed: int) -> dict:
           "pairs_verified": pq_res.stats.candidates_verified,
           "tiles_pruned": pq_res.stats.tiles_pruned})
     tile_rows = 2 * 128 * AUDIO_D * 4 * (tiles - tiles_pruned)
-    return {"launches": used["launches"]["pair_join"], "err": join_err,
+    return {"audio": audio, "exact": exact,
+            "launches": used["launches"]["pair_join"], "err": join_err,
             "fn": lambda: kjoin.pair_join(xs, ks, K, thresh2=thresh2),
             "plain_ms": join_plain_ms, "library": None,
             "bytes": 4 * (AUDIO_N * AUDIO_D + AUDIO_N) + 12 * K,
@@ -415,6 +515,184 @@ def cp_phase(torch, dev, seed: int) -> dict:
             "extra": {"tile_traffic_model_ms": tile_rows / PEAK_BYTES_PER_S * 1e3,
                       "tiles_joined": tiles - tiles_pruned, "bands_joined": bands,
                       "pairs_verified": pairs_verified}}
+
+
+
+def stream_phase(torch, dev, data, queries, seed: int, *, rounds: int = STREAM_ROUNDS,
+                 batch: int = STREAM_BATCH, threshold: int = STREAM_THRESHOLD,
+                 checkpoints=STREAM_CHECKPOINTS, flush_after=STREAM_FLUSH_AFTER,
+                 batches=BATCHES) -> dict:
+    """The streaming index on the card over the Deep1M twin: churn,
+    searches at the checkpoints held to a use_kernels=False twin, recall,
+    times, a traced split and a profile.  Returns what the kernels line
+    needs of the topk kernel."""
+    from repro_torch.index import IndexConfig, build_index
+    from repro_torch.kernels import counts, ops
+    from repro_torch.obs import trace
+
+    cfg = IndexConfig(backend="streaming", seed=seed, options={
+        "segment_backend": "flat", "delta_threshold": threshold, "max_segments": 4})
+    t0 = time.perf_counter()
+    index = build_index(data, cfg, device=dev)
+    twin = build_index(data, cfg.with_options(use_kernels=False), device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_seed, d = data.shape
+    fresh = make_clustered_twin(rounds * batch, d, seed, rows_seed=seed + 5)
+    rng = np.random.default_rng(seed + 6)
+    qB = {B: queries[:B] for B in batches}
+    churn_s, used, batch_ms = 0.0, None, {}
+    for r in range(rounds):
+        t0 = time.perf_counter()
+        rows = fresh[r * batch:(r + 1) * batch]
+        ids = index.insert(rows)
+        check(np.array_equal(ids, twin.insert(rows)), f"stream round {r}: insert ids differ")
+        live = index.live_ids()
+        kill = rng.choice(live[live >= n_seed], 32, replace=False)
+        if r == 0:  # tombstones in the seed segment: it searches at k + 64
+            kill = np.concatenate([kill, rng.choice(n_seed, 64, replace=False)])
+        check(index.delete(kill) == twin.delete(kill) == kill.size,
+              f"stream round {r}: deletes differ")
+        if r + 1 in flush_after:
+            index.flush()
+            twin.flush()
+        churn_s += time.perf_counter() - t0
+        if r + 1 not in checkpoints:
+            continue
+        counts.reset()
+        answers = {B: index.search(qB[B], K) for B in batches}
+        used = counts.snapshot()
+        for name in ("pairwise_sq_dist", "radius_select", "verify_topk"):
+            check(used["launches"][name] > 0, f"stream path never launched {name}")
+        # one topk launch per search for the merge, one more for a non-empty delta
+        topk_per_search = 2 if index.delta_size else 1
+        check(used["launches"]["topk_smallest"] == topk_per_search * len(batches),
+              f"stream path launched topk_smallest {used['launches']['topk_smallest']} "
+              f"times, expected {topk_per_search} a search")
+        for B in batches:
+            check(np.array_equal(answers[B].indices, twin.search(qB[B], K).indices),
+                  f"stream after round {r + 1} at B={B}: ids differ from the plain twin's")
+        check((index.segment_count, index.delta_size, index.n_flushes, index.n_compactions)
+              == (twin.segment_count, twin.delta_size, twin.n_flushes, twin.n_compactions),
+              f"stream after round {r + 1}: state differs from the plain twin's")
+        live = index.live_ids()
+        x = torch.from_numpy(index.get_vectors(live)).to(dev)
+        exact = live[exact_knn(torch, x, torch.from_numpy(queries).to(dev), K)]
+        del x
+        got = answers[max(batches)].indices
+        recall = float(np.mean([len(set(got[i]) & set(exact[i])) / K
+                                for i in range(len(got))]))
+        check(recall > 0.5, f"stream recall@10 {recall} after round {r + 1}")
+        for B in batches:
+            batch_ms[B] = time_ms(torch, lambda: index.search(qB[B], K), reps=5, warmup=1)
+        emit({"phase": "stream", "round": r + 1, "n_live": index.n,
+              "segments": index.segment_count,
+              "segment_sizes": [s.size for s in index.segments],
+              "segment_dead": [s.dead for s in index.segments],
+              "delta": index.delta_size, "flushes": index.n_flushes,
+              "compactions": index.n_compactions, "launches": used["launches"],
+              "routes": used["routes"], "ids_identical_to_plain": True,
+              "recall_at_10": recall, "queries_for_recall": len(got),
+              "median_batch_ms": {str(B): batch_ms[B] for B in batches},
+              "queries_per_s": {str(B): B / batch_ms[B] * 1e3 for B in batches},
+              "build_seconds": build_s, "churn_seconds": churn_s})
+    check(index.n_flushes >= 3 and index.n_compactions >= 1,
+          f"stream: {index.n_flushes} flushes, {index.n_compactions} compactions")
+    del twin
+
+    # one traced search at the largest batch: the wall split by span
+    B = max(batches)
+    with trace.trace() as tr:
+        index.search(qB[B], K)
+    root = tr.spans[0]
+    emit({"phase": "stream_trace", "B": B, "wall_ms": root.duration_s * 1e3,
+          "spans": [{"name": sp.name, "ms": sp.duration_s * 1e3,
+                     **{k: v for k, v in sp.attrs.items() if k in ("size", "dead")}}
+                    for sp in tr.spans[1:]]})
+    emit({"phase": "stream_profile", "B": B,
+          **profile_call(torch, lambda: index.search(qB[B], K), batch_ms[B])})
+
+    # the topk kernel at the delta scan's largest shape: a full delta of
+    # `threshold` rows, the moment before it is sealed
+    q = torch.from_numpy(qB[B]).to(dev)
+    d2 = ops.pairwise_sq_dist(q, torch.from_numpy(fresh[:threshold]).to(dev))
+    return {"launches": used["launches"]["topk_smallest"], "d2": d2}
+
+
+def stream_cp_phase(torch, dev, audio: np.ndarray, exact: set, seed: int,
+                    *, batch: int = 8192, threshold: int = 16384) -> None:
+    """Closest pair over a streaming index: the Audio twin inserted in
+    batches, cp_search held to the use_kernels=False twin's."""
+    from repro_torch.index import IndexConfig, build_index
+    from repro_torch.kernels import counts
+    from repro_torch.obs import trace
+
+    cfg = IndexConfig(backend="streaming", seed=seed, options={
+        "segment_backend": "flat", "delta_threshold": threshold})
+    empty = np.empty((0, audio.shape[1]), np.float32)
+    index = build_index(empty, cfg, device=dev)
+    twin = build_index(empty, cfg.with_options(use_kernels=False), device=dev)
+    for lo in range(0, audio.shape[0], batch):
+        index.insert(audio[lo:lo + batch])
+        twin.insert(audio[lo:lo + batch])
+    index.cp_search(K)  # warm-up
+    counts.reset()
+    res = index.cp_search(K)
+    used = counts.snapshot()
+    check(used["launches"]["pair_join"] > 0, "stream cp path never launched pair_join")
+    t0 = time.perf_counter()
+    plain = twin.cp_search(K)
+    plain_s = time.perf_counter() - t0
+    check(np.array_equal(res.pairs, plain.pairs),
+          "stream cp: pairs differ from the plain twin's")
+    check(res.stats == plain.stats,
+          f"stream cp: counters {res.stats} differ from the plain twin's {plain.stats}")
+    recall = len(exact & {tuple(p) for p in res.pairs.tolist()}) / K
+    check(recall >= 0.5, f"stream cp recall@10 {recall}")
+    cp_ms = time_ms(torch, lambda: index.cp_search(K), reps=5, warmup=1)
+    with trace.trace() as tr:  # host gather + upload, then the join
+        index.cp_search(K)
+    split = {sp.name: sp.duration_s * 1e3 for sp in tr.spans}
+    emit({"phase": "stream_cp", "n": index.n, "d": index.d, "segments": index.segment_count,
+          "delta": index.delta_size, "flushes": index.n_flushes,
+          "compactions": index.n_compactions, "launches": used["launches"],
+          "routes": used["routes"], "pairs_identical_to_plain": True,
+          "counters_identical_to_plain": True, "pairs_verified": res.stats.pairs_verified,
+          "tiles_pruned": res.stats.tiles_pruned, "recall_at_10": recall,
+          "median_cp_search_ms": cp_ms, "traced_split_ms": split,
+          "plain_cp_search_s": plain_s})
+
+
+def project_phase(torch, dev, x, q, seed: int, m: int = 15) -> dict:
+    """ops.project_dist on the Deep1M twin with its own A and B projected
+    queries; returns what the kernels line needs."""
+    from repro_torch.kernels import counts, ops, ref
+    from repro_torch.kernels import project_dist as kproj
+
+    g = torch.Generator(device=dev).manual_seed(seed + 6)
+    a = torch.randn((x.shape[1], m), generator=g, device=dev)
+    qp = q @ a
+    counts.reset()
+    got = ops.project_dist(x, a, qp)
+    torch.cuda.synchronize()
+    used = counts.snapshot()
+    check(used["launches"]["project_dist"] == 1, "project path never launched project_dist")
+    want = ref.project_dist(x, a, qp)
+    scale = (qp * qp).sum(1)[:, None] + ((x @ a) ** 2).sum(1)[None]
+    err = float((got - want).abs().max())
+    # tolerance: the projection sums in another order than torch.matmul
+    worst = float(((got - want).abs() / (1e-5 * scale + 1e-6)).max())
+    check(worst <= 1.0, f"project_dist: |diff| up to {worst} of its tolerance")
+    del got, want, scale
+    B, N, d = q.shape[0], x.shape[0], x.shape[1]
+    emit({"phase": "project", "shape": [B, N, d, m], "launches": used["launches"],
+          "max_abs_err": err, "err_over_tol": worst})
+    return {"launches": used["launches"]["project_dist"], "err": err,
+            "fn": lambda: kproj.project_dist(x, a, qp),
+            "plain": lambda: ref.project_dist(x, a, qp),
+            "library": lambda: torch.cdist(qp, x @ a) ** 2,
+            "bytes": 4 * (N * d + d * m + B * m + B * N),
+            "ops": 2 * N * d * m + 2 * B * N * m}
 
 
 def main(argv=None) -> int:
@@ -435,7 +713,9 @@ def main(argv=None) -> int:
     from repro_torch.index import IndexConfig, build_index
     from repro_torch.kernels import _build, counts, ops, ref
     from repro_torch.kernels import pairwise_dist as kpair
+    from repro_torch.kernels import project_dist as kproj
     from repro_torch.kernels import select as ksel
+    from repro_torch.kernels import topk as ktopk
     from repro_torch.kernels import verify as kver
 
     dev = torch.device("cuda")
@@ -494,7 +774,7 @@ def main(argv=None) -> int:
     check(torch.allclose(ver[0], ver_plain[0], rtol=1e-5, atol=1e-5),
           f"verify_topk: d² max |diff| {ver_err}")
     del ver_plain
-    n_edge = edge_parity(torch, dev, ref, ops, kpair, ksel, kver)
+    n_edge = edge_parity(torch, dev, ref, ops, kpair, ksel, kver, ktopk, kproj)
     emit({"phase": "parity", "edge_cases": n_edge, "kernels": {
         "pairwise_sq_dist": {"shape": [64, impl.n, impl.m], "max_abs_err": pw_err,
                              "tol": pw_tol},
@@ -517,11 +797,7 @@ def main(argv=None) -> int:
                               fused=True, force="plain")[0].cpu().numpy()
         check(np.array_equal(answers[B].indices, ids_plain),
               f"fused path at B={B}: kernel ids differ from the plain path's")
-    x64 = impl.data.double()
-    qd = q64.double()
-    exact = torch.topk((qd * qd).sum(1, keepdim=True) + (x64 * x64).sum(1)[None]
-                       - 2.0 * qd @ x64.T, K, largest=False).indices.cpu().numpy()
-    del x64
+    exact = exact_knn(torch, impl.data, q64, K)
     got = answers[64].indices
     recall = float(np.mean([len(set(got[i]) & set(exact[i])) / K for i in range(64)]))
     check(recall > 0.5, f"recall@10 {recall} on the fused path")
@@ -568,6 +844,11 @@ def main(argv=None) -> int:
     adc = quant_phase(torch, dev, data, queries, exact, args.seed)
     join = cp_phase(torch, dev, args.seed)
 
+    # -- the streaming index, and the fused projection ------------------------
+    stream = stream_phase(torch, dev, data, queries, args.seed)
+    stream_cp_phase(torch, dev, join.pop("audio"), join.pop("exact"), args.seed)
+    proj = project_phase(torch, dev, impl.data, q64, args.seed)
+
     # -- per-kernel times at the main path's shapes (B = 64) ------------------
     B, n, m, d = 64, impl.n, impl.m, impl.d
     x_proj = impl.projected
@@ -580,7 +861,7 @@ def main(argv=None) -> int:
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "path": path, "launches": launches, "max_abs_err": err,
-            "ms": time_ms(torch, fn),
+            "ms": time_ms(torch, fn), "device_ms": device_ms(torch, fn),
             "plain_ms": plain_ms if plain_ms is not None else time_ms(torch, plain, reps=3,
                                                                      warmup=1),
             "bound_ms": t_bound, "bound_by": by,
@@ -625,6 +906,22 @@ def main(argv=None) -> int:
     entry("pair_join", "cp", csrc + "pair_join.cu", "src/repro/kernels/pair_join.py:61",
           join["launches"], join["err"], join["fn"], None, None, join["bytes"],
           join["ops"], plain_ms=join["plain_ms"])
+    d2_delta = stream["d2"]
+    Bt, Nt = d2_delta.shape
+    tv, ti = ktopk.topk_smallest(d2_delta, K)
+    pv, pi = ref.topk_smallest(d2_delta, K)
+    # tolerance: exact (pure selection; the values are copies)
+    check(torch.equal(ti, pi) and torch.equal(tv, pv),
+          "topk_smallest: values or indices differ from the plain version")
+    entry("topk_smallest", "stream", csrc + "topk.cu", "src/repro/kernels/topk.py:27",
+          stream["launches"], float((tv - pv).abs().max()),
+          lambda: ktopk.topk_smallest(d2_delta, K),
+          lambda: ref.topk_smallest(d2_delta, K),
+          lambda: torch.topk(d2_delta, K, largest=False),
+          4 * Bt * Nt + 8 * Bt * K, Bt * Nt)
+    entry("project_dist", "project", csrc + "project_dist.cu",
+          "src/repro/kernels/project_dist.py:30", proj["launches"], proj["err"],
+          proj["fn"], proj["plain"], proj["library"], proj["bytes"], proj["ops"])
     # the algorithm's own traffic (repro/obs/roofline.py's models), beside
     # the one-read bounds above, and what verify's bound counts
     extra = {

@@ -34,15 +34,19 @@ from .quant.codec import PQCodec, SQ8Codec
 __all__ = ["flat_index_from_arrays", "codec_from_arrays"]
 
 
-def flat_index_from_arrays(data: np.ndarray, a: np.ndarray,
+def flat_index_from_arrays(data: np.ndarray | torch.Tensor, a: np.ndarray,
                            projected: np.ndarray | None = None, *,
                            c: float = 1.5, m: int | None = None,
                            device: str | torch.device = "cuda") -> FlatIndex:
     """A :class:`FlatIndex` over ``data`` (n, d) with projection ``a``
     (d, m); ``projected`` (n, m) is taken as given when passed (the JAX
-    index's own ``data @ a``), else computed here."""
+    index's own ``data @ a``), else computed here.  A ``data`` tensor
+    already on ``device`` is used without a copy."""
     dev = resolve_device(device)
-    data_t = as_tensor(data, dev)
+    if isinstance(data, torch.Tensor):
+        data_t = data.to(device=dev, dtype=torch.float32).contiguous()
+    else:
+        data_t = as_tensor(data, dev)
     family = ProjectionFamily.from_numpy(a, dev)
     if family.d != data_t.shape[1]:
         raise ValueError(f"a is ({family.d}, {family.m}) for data of d={data_t.shape[1]}")

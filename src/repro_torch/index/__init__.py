@@ -8,10 +8,13 @@
 
     pairs = index.cp_search(10)           # closest pairs (CpSearchResult)
     pq = build_index(data, IndexConfig(backend="flat-pq"))  # PQ codes + ADC
+    st = build_index(data, IndexConfig(backend="streaming",
+                                       options={"segment_backend": "flat"}))
+    st.insert(rows); st.delete(ids); st.flush()   # a mutable index
 
 ``device`` defaults to the card and raises where CUDA is absent; pass
-``device="cpu"`` for the plain PyTorch versions.  The flat and flat-pq
-backends are the ones ported so far.
+``device="cpu"`` for the plain PyTorch versions.  The flat, flat-pq and
+streaming backends are the ones ported so far.
 """
 from .backends import BaseIndex, FlatBackend, FlatPQBackend  # noqa: F401
 from .config import IndexConfig  # noqa: F401

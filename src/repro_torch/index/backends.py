@@ -36,11 +36,15 @@ class BaseIndex:
     backend_name = "base"
     capabilities: frozenset = frozenset()
 
-    def __init__(self, data: np.ndarray, config: IndexConfig | None = None, *,
+    def __init__(self, data: np.ndarray | torch.Tensor,
+                 config: IndexConfig | None = None, *,
                  device: str | torch.device = "cuda"):
         self.config = config or IndexConfig()
         self.device = resolve_device(device)
-        self.data = np.asarray(data, dtype=np.float32)
+        # rows handed over as a tensor (a streaming segment's, already
+        # on the device) stay one; anything else is host float32
+        self.data = (data if isinstance(data, torch.Tensor)
+                     else np.asarray(data, dtype=np.float32))
         if self.data.ndim != 2:
             raise ValueError(f"data must be (n, d), got {self.data.shape}")
         self.n, self.d = self.data.shape
@@ -112,8 +116,10 @@ class FlatBackend(BaseIndex):
     index is large enough for the threshold passes to beat the sort
     (n ≥ 8192, the reference's policy) and k ≤ 128;
     ``options={"fused": True/False}`` pins either pipeline (identical
-    answers on ties-free data).  ``options={"force": "plain"}`` runs the
-    kernels' plain PyTorch versions on the card.
+    answers on ties-free data).  ``options={"force": "plain"}``, or
+    ``options={"use_kernels": False}`` as the reference names it, runs
+    the kernels' plain PyTorch versions on the card; an explicit
+    ``force`` wins.
 
     ``cp_search`` sorts the points by the build-time projection's first
     coordinate and runs the pair join with Algorithm 4's γ·t·ub filter;
@@ -138,14 +144,16 @@ class FlatBackend(BaseIndex):
         super().__init__(data, config, device=device)
 
     @classmethod
-    def from_arrays(cls, data: np.ndarray, a: np.ndarray,
+    def from_arrays(cls, data: np.ndarray | torch.Tensor, a: np.ndarray,
                     projected: np.ndarray | None = None,
                     config: IndexConfig | None = None, *,
                     device: str | torch.device = "cuda", codec=None,
                     codes: np.ndarray | None = None) -> "FlatBackend":
         """A facade over ``data`` with the projection A given, e.g. the
         JAX index's ``family.a`` (and, optionally, its ``projected``), so
-        it answers what the JAX facade answers on the same data.  A
+        it answers what the JAX facade answers on the same data.
+        ``data`` may be a tensor on ``device``, which the index then
+        holds without a copy.  A
         quantized index also takes the codec (``convert.
         codec_from_arrays``) and, optionally, the JAX index's codes."""
         from ..convert import flat_index_from_arrays
@@ -158,7 +166,11 @@ class FlatBackend(BaseIndex):
 
     def _build(self) -> None:
         cfg = self.config
+        # explicit dispatch, else derived from use_kernels as the
+        # reference does (repro/index/backends.py:305-307)
         self.force = cfg.options.get("force")
+        if self.force is None and not cfg.options.get("use_kernels", True):
+            self.force = "plain"
         if self.force not in (None, "plain"):
             raise ValueError(f"options['force'] must be None or 'plain', "
                              f"got {self.force!r}")
@@ -178,7 +190,9 @@ class FlatBackend(BaseIndex):
         if self.codec is None and qname is not None:
             copts = dict(cfg.options.get(qname) or {})
             seed = copts.pop("seed", cfg.seed)  # codec-level seed wins
-            self.codec = train_codec(str(qname), self.data, seed=seed,
+            host = (self.data.cpu().numpy() if isinstance(self.data, torch.Tensor)
+                    else self.data)  # the trainers are numpy's
+            self.codec = train_codec(str(qname), host, seed=seed,
                                      device=self.device, **copts)
         if self.codec is None:
             self.codes = None
@@ -193,10 +207,13 @@ class FlatBackend(BaseIndex):
                 self.impl, data=torch.zeros((0, self.d), device=self.device))
             self.data = np.empty((0, self.d), dtype=np.float32)
 
-    def _record_select(self, counts: np.ndarray) -> int:
-        """Keep the last batch's per-query select survivor counts and
-        return their sum for ``WorkStats.candidates_selected``."""
+    def _record_select(self, counts: np.ndarray, T: int) -> int:
+        """Keep the last batch's per-query select survivor counts and the
+        budget T they were selected under (the streaming index's drift
+        monitor reads both off its segments), and return the counts' sum
+        for ``WorkStats.candidates_selected``."""
         self.last_select_counts = np.asarray(counts, dtype=np.int64)
+        self.last_select_budget = int(T)
         return int(self.last_select_counts.sum())
 
     def _search(self, q: np.ndarray, k: int) -> SearchResult:
@@ -217,7 +234,7 @@ class FlatBackend(BaseIndex):
                 ids.cpu().numpy(), dd.cpu().numpy(),
                 stats=WorkStats(rounds=B, candidates_verified=B * T,
                                 candidates_selected=self._record_select(
-                                    cnt.cpu().numpy())),
+                                    cnt.cpu().numpy(), T)),
             )
         rerank = (self.rerank if self.rerank is not None
                   else max(4 * k, T // 3, 64))
@@ -231,7 +248,7 @@ class FlatBackend(BaseIndex):
             stats=WorkStats(
                 rounds=B,
                 candidates_verified=B * R if self.store_raw else 0,
-                candidates_selected=self._record_select(cnt.cpu().numpy()),
+                candidates_selected=self._record_select(cnt.cpu().numpy(), T),
                 point_distance_computations=B * T,  # the ADC rerank tier
             ),
         )

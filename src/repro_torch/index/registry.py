@@ -12,8 +12,8 @@ and callers never import them directly:
     index = build_index(data, IndexConfig(backend="flat"))   # on the card
     res = index.search(queries, k=10)
 
-Only the port's own backends register; the port has ``flat`` and
-``flat-pq`` so far (ROADMAP queue A lists the rest).
+Only the port's own backends register; the port has ``flat``,
+``flat-pq`` and ``streaming`` so far (ROADMAP queue A lists the rest).
 """
 from __future__ import annotations
 
@@ -95,5 +95,7 @@ def build_index(data, config: IndexConfig | None = None, *,
 
 
 def _ensure_builtin_backends() -> None:
-    # backends.py registers on import; deferred to avoid a cycle
+    # backends.py / repro_torch.stream register on import; deferred to
+    # avoid a cycle
     from . import backends  # noqa: F401
+    from .. import stream  # noqa: F401

@@ -10,6 +10,10 @@ kernels (sources in ``csrc/``, built by ``_build`` at first use):
   adc           — the quantized RERANK: asymmetric distances from uint8
                   codes and per-query tables
   pair_join     — closest pair: the band-major pruned self-join
+  topk          — row-wise k ≤ 128 smallest: the streaming index's
+                  delta scan and fan-out merge
+  project_dist  — the fused projection + projected distances (x @ A
+                  never written out)
 ops    — dispatch: CUDA tensors launch the kernels, CPU tensors take the
          plain versions
 ref    — the plain PyTorch versions (the semantics contract)

@@ -48,6 +48,9 @@ SIGNATURES = {
     "adc_dist_launch": (_I, [_P, _L, _P, _P, _I, _I, _I, _I, _P]),
     "pair_join_bands_launch": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _I, _D,
                                     _P, _P, _P, _P, _P, _P, _P, _P]),
+    "topk_blocks_per_sm": (_I, []),
+    "topk_smallest_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "project_dist_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -3,10 +3,12 @@
 Each kernel wrapper adds one to its entry of ``LAUNCHES`` where it
 launches its kernel, and nowhere else, so a run can show which kernels
 its path went through: ``reset()``, drive the path, ``snapshot()``.
-``ROUTES`` counts the dispatch rules of ``ops`` that answer with a
-plain PyTorch version on any device (the reference's own routing, not
-a fallback): the degenerate-budget sort and the overflow reroute of
-``radius_select``, and ``verify_topk`` and ``pair_join`` at k > 128.
+``ROUTES`` counts the dispatch rules of ``ops`` that take another way
+than the call's own kernel (the reference's own routing, not a
+fallback): the degenerate-budget sort and the overflow reroute of
+``radius_select``, ``verify_topk`` and ``pair_join`` at k > 128 (their
+plain versions, on any device), and ``topk_smallest`` at k > 128, which
+answers through ``radius_select``.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ LAUNCHES: dict[str, int] = {
     "verify_topk": 0,            # one count per call: partial + merge launches
     "adc_dist": 0,               # one count per call: one launch
     "pair_join": 0,              # one count per call: two launches per band
+    "topk_smallest": 0,          # one count per call: one launch, or two (splits + merge)
+    "project_dist": 0,           # one count per call: one launch
 }
 
 ROUTES: dict[str, int] = {
@@ -26,6 +30,7 @@ ROUTES: dict[str, int] = {
     "radius_select.overflow": 0,   # survivors > T_pad: exact sort instead
     "verify_topk.k_over_128": 0,   # beyond the kernel's answer width
     "pair_join.k_over_128": 0,     # beyond the kernel's pair heap
+    "topk_smallest.k_over_128": 0,  # beyond the kernel's k: radius_select
 }
 
 

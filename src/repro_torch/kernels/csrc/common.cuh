@@ -27,28 +27,48 @@ __device__ __forceinline__ bool after(float va, int pa, float vb, int pb) {
   return va > vb || (va == vb && pa > pb);
 }
 
-// Ascending bitonic sort of len (a power of two) (value, position) pairs
-// in shared memory by a block of kThreads threads; ends with a barrier.
-template <int kThreads>
-__device__ __forceinline__ void sort_pairs(float* v, int* p, int len) {
+// The bitonic network over len (a power of two) slots in shared memory,
+// walked by a block of kThreads threads: at each step swap(i, j, up) must
+// order slots i < j ascending when up, descending otherwise.  Ends with a
+// barrier.
+template <int kThreads, typename Swap>
+__device__ __forceinline__ void bitonic(int len, Swap swap) {
   for (int size = 2; size <= len; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
       for (int t = threadIdx.x; t < len / 2; t += kThreads) {
         const int i = 2 * t - (t & (stride - 1));
-        const int j = i + stride;
-        const bool up = (i & size) == 0;
-        const float vi = v[i], vj = v[j];
-        const int pi = p[i], pj = p[j];
-        if (after(vi, pi, vj, pj) == up) {
-          v[i] = vj;
-          v[j] = vi;
-          p[i] = pj;
-          p[j] = pi;
-        }
+        swap(i, i + stride, (i & size) == 0);
       }
       __syncthreads();
     }
   }
+}
+
+// Ascending sort of len (value, position) pairs by value, then position.
+template <int kThreads>
+__device__ __forceinline__ void sort_pairs(float* v, int* p, int len) {
+  bitonic<kThreads>(len, [=](int i, int j, bool up) {
+    const float vi = v[i], vj = v[j];
+    const int pi = p[i], pj = p[j];
+    if (after(vi, pi, vj, pj) == up) {
+      v[i] = vj;
+      v[j] = vi;
+      p[i] = pj;
+      p[j] = pi;
+    }
+  });
+}
+
+// Ascending sort of len 64-bit keys.
+template <int kThreads>
+__device__ __forceinline__ void sort_keys(unsigned long long* key, int len) {
+  bitonic<kThreads>(len, [=](int i, int j, bool up) {
+    const unsigned long long a = key[i], b = key[j];
+    if ((a > b) == up) {
+      key[i] = b;
+      key[j] = a;
+    }
+  });
 }
 
 }  // namespace rt

@@ -14,11 +14,14 @@ from . import adc as _adc
 from . import counts, ref
 from . import pair_join as _pair_join
 from . import pairwise_dist as _pairwise
+from . import project_dist as _project
 from . import select as _select
+from . import topk as _topk
 from . import verify as _verify
 
-__all__ = ["pairwise_sq_dist", "default_select_seed", "radius_select",
-           "verify_topk", "adc_dist", "pair_join"]
+__all__ = ["pairwise_sq_dist", "project_dist", "topk_smallest",
+           "default_select_seed", "radius_select", "verify_topk", "adc_dist",
+           "pair_join"]
 
 
 def _plain(force: str | None, *tensors: torch.Tensor) -> bool:
@@ -45,6 +48,37 @@ def pairwise_sq_dist(q: torch.Tensor, x: torch.Tensor, *,
     if x.ndim == 3:
         return _pairwise.pairwise_sq_dist_rows(q, x)
     return _pairwise.pairwise_sq_dist(q, x)
+
+
+def project_dist(x: torch.Tensor, a: torch.Tensor, qp: torch.Tensor, *,
+                 force: str | None = None) -> torch.Tensor:
+    """Fused (x @ a) projected distances to qp: (N, d), (d, m), (B, m) →
+    (B, N) squared distances, the projection never written out."""
+    if _plain(force, x, a, qp):
+        return ref.project_dist(x, a, qp)
+    return _project.project_dist(x.to(torch.float32).contiguous(),
+                                 a.to(torch.float32).contiguous(),
+                                 qp.to(torch.float32).contiguous())
+
+
+def topk_smallest(d: torch.Tensor, k: int, *, force: str | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row-wise k smallest (values, indices int32) of d (B, N), ascending,
+    ties to the lowest index.
+
+    k > 128 is past the kernel's width and answers through
+    ``radius_select``, on any device, as the reference routes it
+    (ops.py:180-181).
+    """
+    N = d.shape[1]
+    if not 1 <= k <= N:
+        raise ValueError(f"topk_smallest: k={k} out of range for N={N}")
+    if k > _topk.MAX_K:
+        counts.route("topk_smallest.k_over_128")
+        return radius_select(d, k, force=force)
+    if _plain(force, d):
+        return ref.topk_smallest(d, k)
+    return _topk.topk_smallest(d.to(torch.float32).contiguous(), k)
 
 
 def default_select_seed(d: torch.Tensor, T: int, *, stride: int = 8) -> torch.Tensor:

@@ -7,6 +7,10 @@ and ``chip_smoke.py`` can hold the CUDA kernel against it on the card:
   pairwise_sq_dist      ← repro/kernels/pairwise_dist.py (norm trick,
                           clamp at 0; difference form for gathered rows,
                           as repro/kernels/ref.py:26-30)
+  project_dist          ← repro/kernels/project_dist.py (x @ A, then the
+                          norm trick, as repro/kernels/ref.py:37-45)
+  topk_smallest         ← repro/kernels/topk.py (a stable sort: the
+                          contract of lax.top_k, repro/kernels/ref.py:69-75)
   radius_select_kernel  ← repro/kernels/select.py (rung ladder,
                           bisection, index-ordered compaction)
   verify_topk           ← repro/kernels/verify.py (difference form, as
@@ -17,14 +21,14 @@ and ``chip_smoke.py`` can hold the CUDA kernel against it on the card:
                           pruned self-join, as the numpy oracle
                           repro/kernels/ref.py:164-231 walks it)
 
-``topk_smallest`` is the stable sort that stands in for every
+``topk_smallest`` is also the stable sort that stands in for every
 ``lax.top_k`` outside a kernel: it keeps the lowest-index tie-break.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["pairwise_sq_dist", "topk_smallest", "select_rungs",
+__all__ = ["pairwise_sq_dist", "project_dist", "topk_smallest", "select_rungs",
            "radius_select_kernel", "verify_topk", "adc_dist", "pair_join"]
 
 _INF = float("inf")
@@ -57,9 +61,17 @@ def pairwise_sq_dist(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(qn + xn[None, :] - 2.0 * (q @ x.T), 0.0)
 
 
+def project_dist(x: torch.Tensor, a: torch.Tensor, qp: torch.Tensor) -> torch.Tensor:
+    """Squared projected distances |x·a − qp|²: x (N, d), a (d, m), qp
+    (B, m) → (B, N) float32, i.e. ``pairwise_sq_dist(qp, x @ a)``; the
+    kernel's point is that x @ a never goes to device memory."""
+    return pairwise_sq_dist(qp, x.to(torch.float32) @ a.to(torch.float32))
+
+
 def topk_smallest(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """k smallest per row of d (B, N), ascending, ties to the lowest
-    index.  Returns (values (B, k) float32, indices (B, k) int32)."""
+    index (+inf entries included; NaN sorts last).  Returns (values
+    (B, k) float32, indices (B, k) int32)."""
     vals, idx = torch.sort(d.to(torch.float32), dim=1, stable=True)
     return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32).contiguous()
 

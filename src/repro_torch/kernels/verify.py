@@ -10,6 +10,7 @@ kernel uses the norm trick.  The plain version is
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -24,17 +25,24 @@ MAX_K = 128
 _MAX_D = 8192  # the query row lives in the block's dynamic shared memory
 
 
-def _splits(lib, B: int, Tc: int, d: int, device: torch.device) -> int:
+@functools.cache
+def _wave(device: torch.device, d: int) -> int:
+    """Blocks of the kernel at width d one wave of ``device`` holds: the
+    occupancy query and the SM count, asked once per (device, d)."""
+    with torch.cuda.device(device):
+        per_sm = _build.load().verify_topk_blocks_per_sm(d)
+    if per_sm < 1:
+        raise RuntimeError(f"verify_topk: no block of the kernel fits an SM at d={d}")
+    return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _splits(B: int, Tc: int, d: int, device: torch.device) -> int:
     """Splits of Tc per query: as many blocks as the card holds in one
     wave (a second, part-filled wave would double the time), but no
     split shorter than 256 candidates."""
     if Tc == 0:
         return 1
-    per_sm = lib.verify_topk_blocks_per_sm(d)
-    if per_sm < 1:
-        raise RuntimeError(f"verify_topk: no block of the kernel fits an SM at d={d}")
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    S = max(1, min(per_sm * sms // B, math.ceil(Tc / 256)))
+    S = max(1, min(_wave(device, d) // B, math.ceil(Tc / 256)))
     return math.ceil(Tc / math.ceil(Tc / S))  # no empty split
 
 
@@ -60,7 +68,7 @@ def verify_topk(data: torch.Tensor, q: torch.Tensor, cand: torch.Tensor, k: int
     if B == 0:
         return vals, ids
     lib = _build.load()
-    S = _splits(lib, B, Tc, d, data.device)
+    S = _splits(B, Tc, d, data.device)
     part_v = torch.empty((B, S, k), dtype=torch.float32, device=data.device)
     part_p = torch.empty((B, S, k), dtype=torch.int32, device=data.device)
     err = lib.verify_topk_launch(

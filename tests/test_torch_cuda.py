@@ -16,7 +16,13 @@ than cuBLAS's).  adc_dist agrees exactly (both add the same table
 entries in slot order).  pair_join's pairs and counters agree exactly
 and its d² to rtol 1e-4 and an atol of 1e-6 · 2·max|x|² (the norm
 trick's rounding is a few float32 ulps of |xi|² + |xj|², and the cross
-terms are summed in another order than cuBLAS's).
+terms are summed in another order than cuBLAS's).  topk_smallest
+agrees exactly, values and indices (pure selection: the values are
+copies).  project_dist agrees to |Δ| ≤ 1e-5·(|qp|² + |x·A|²) + 1e-6
+(the projection is summed in another order than cuBLAS's).  The
+streaming index's answers agree in ids; their d² to rtol 1e-5 and an
+atol of 1e-6·(max|q|² + max|x|²), since the delta scan answers the
+norm trick's d², as the reference's delta does.
 """
 import numpy as np
 import pytest
@@ -277,3 +283,113 @@ def test_wrappers_reject_cpu_tensors(cuda):
         pairwise_sq_dist(torch.zeros(2, 3), torch.zeros(4, 3))
     assert pairwise_sq_dist(torch.zeros(2, 3, device=cuda),
                             torch.zeros(4, 3, device=cuda)).shape == (2, 4)
+
+
+def _topk_input(name, device):
+    g = torch.Generator(device=device).manual_seed(len(name))
+    B, N, k = {"delta_scan": (64, 32768, 10), "merge": (64, 47, 10), "k_1": (3, 5000, 1),
+               "k_128": (5, 9000, 128), "short_row": (4, 700, 10),
+               "ragged": (2, 2049 * 3 + 5, 33), "all_equal": (3, 4100, 16),
+               "few_finite": (3, 3000, 8), "nan_and_zeros": (2, 2500, 20),
+               "k_equals_N": (2, 40, 40)}[name]
+    d = torch.rand((B, N), generator=g, device=device)
+    if name == "all_equal":
+        d = torch.full((B, N), 7.0, device=device)
+    elif name == "few_finite":
+        d[0] = float("inf")
+        d[0, [5, 2999]] = torch.tensor([2.0, 1.0], device=device)
+    elif name == "nan_and_zeros":
+        d[0, ::7] = 0.0
+        d[0, 3::11] = -0.0
+        d[1, ::5] = float("nan")
+        d[1, :40] = float("inf")
+    return d, k
+
+
+@pytest.mark.parametrize("name", ["delta_scan", "merge", "k_1", "k_128", "short_row",
+                                  "ragged", "all_equal", "few_finite", "nan_and_zeros",
+                                  "k_equals_N"])
+def test_topk_matches_plain(cuda, name):
+    d, k = _topk_input(name, cuda)
+    before = counts.LAUNCHES["topk_smallest"]
+    gv, gi = ops.topk_smallest(d, k)
+    torch.cuda.synchronize()
+    assert counts.LAUNCHES["topk_smallest"] == before + 1
+    wv, wi = ops.topk_smallest(d, k, force="plain")
+    assert torch.equal(gi, wi)
+    assert torch.equal(gv.view(torch.int32), wv.view(torch.int32))  # bit for bit
+
+
+def test_topk_k_over_128_takes_radius_select(cuda):
+    d = torch.rand((4, 20000), device=cuda)
+    before = dict(counts.snapshot()["launches"]), dict(counts.ROUTES)
+    gv, gi = ops.topk_smallest(d, 300)
+    assert counts.ROUTES["topk_smallest.k_over_128"] == before[1]["topk_smallest.k_over_128"] + 1
+    assert counts.LAUNCHES["radius_select"] == before[0]["radius_select"] + 1
+    assert counts.LAUNCHES["topk_smallest"] == before[0]["topk_smallest"]
+    wv, wi = ops.topk_smallest(d, 300, force="plain")
+    assert torch.equal(gi, wi) and torch.equal(gv, wv)
+
+
+@pytest.mark.parametrize("B,N,d,m", [(64, 100_003, 256, 15), (1, 4099, 4096, 15),
+                                     (7, 777, 33, 16), (70, 5000, 96, 20), (3, 100, 8, 1)])
+def test_project_dist_matches_plain(cuda, B, N, d, m):
+    g = torch.Generator(device=cuda).manual_seed(B + N + d + m)
+    x = torch.randn((N, d), generator=g, device=cuda)
+    a = torch.randn((d, m), generator=g, device=cuda)
+    qp = torch.randn((B, d), generator=g, device=cuda) @ a
+    before = counts.LAUNCHES["project_dist"]
+    got = ops.project_dist(x, a, qp)
+    torch.cuda.synchronize()
+    assert counts.LAUNCHES["project_dist"] == before + 1
+    want = ops.project_dist(x, a, qp, force="plain")
+    tol = 1e-5 * ((qp * qp).sum(1)[:, None] + ((x @ a) ** 2).sum(1)[None]) + 1e-6
+    assert bool(((got - want).abs() <= tol).all())
+
+
+def test_flat_use_kernels_false_launches_nothing(cuda):
+    from repro_torch.index import IndexConfig, build_index
+
+    rng = np.random.default_rng(5)
+    data = rng.normal(size=(9000, 32)).astype(np.float32)
+    index = build_index(data, IndexConfig(backend="flat", options={"use_kernels": False}),
+                        device=cuda)
+    counts.reset()
+    index.search(data[:5] + 0.01, 10)
+    index.cp_search(5)
+    assert not any(counts.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("segment_backend", ["flat", "flat-pq"])
+def test_streaming_facade_matches_plain_twin(cuda, segment_backend):
+    """The streaming index on the card against a use_kernels=False twin
+    fed the same operations: ids, pairs and counters identical."""
+    from repro_torch.index import IndexConfig, build_index
+
+    rng = np.random.default_rng(23)
+    centers = rng.normal(size=(20, 64)) * 4
+    data = (centers[rng.integers(0, 20, 9000)] + rng.normal(size=(9000, 64)) * 0.5
+            ).astype(np.float32)
+    opts = {"segment_backend": segment_backend, "delta_threshold": 1024, "max_segments": 3}
+    kern = build_index(data[:6000], IndexConfig(backend="streaming", options=opts),
+                       device=cuda)
+    plain = build_index(data[:6000], IndexConfig(
+        backend="streaming", options={**opts, "use_kernels": False}), device=cuda)
+    q = (data[rng.integers(0, 9000, 7)] + 0.1 * rng.normal(size=(7, 64))).astype(np.float32)
+    counts.reset()
+    for lo in range(6000, 9000, 700):
+        for index in (kern, plain):
+            index.insert(data[lo:lo + 700])
+            index.delete(np.arange(lo - 600, lo - 590))
+        rk, rp = kern.search(q, 10), plain.search(q, 10)
+        np.testing.assert_array_equal(rk.indices, rp.indices)
+        # the delta answers sqrt of its norm-trick d², as the reference's
+        # does: a few float32 ulps of |q|² + |x|², as for the pairwise kernel
+        atol = 1e-6 * float((q ** 2).sum(1).max() + (data ** 2).sum(1).max())
+        np.testing.assert_allclose(rk.distances ** 2, rp.distances ** 2, rtol=1e-5,
+                                   atol=atol)
+    assert kern.n_flushes == plain.n_flushes >= 2 and kern.n_compactions >= 1
+    assert kern.delta_size > 0 and counts.LAUNCHES["topk_smallest"] > 0
+    ck, cp = kern.cp_search(10), plain.cp_search(10)
+    np.testing.assert_array_equal(ck.pairs, cp.pairs)
+    assert ck.stats == cp.stats

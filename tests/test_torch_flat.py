@@ -153,12 +153,56 @@ def test_build_index_on_cpu_answers_well():
 
 
 def test_unported_features_raise_naming_their_slice():
-    """CP and quantized storage are ported; the host and stream backends
-    are not registered in the port yet."""
+    """CP, quantized storage and the streaming index are ported; the
+    host and sharded backends are not registered in the port yet."""
     data = make_clustered(200, 8, seed=20)
     index = build_index(data, IndexConfig(backend="flat", options={"quant": "sq8"}),
                         device="cpu")
     assert index.cp_search(5).pairs.shape == (5, 2)
-    for name in ("pmtree", "streaming", "sharded-flat"):
-        with pytest.raises(KeyError, match="registered in repro_torch: flat, flat-pq"):
+    for name in ("pmtree", "sharded-flat"):
+        with pytest.raises(KeyError,
+                           match="registered in repro_torch: flat, flat-pq, streaming"):
             build_index(data, IndexConfig(backend=name), device="cpu")
+
+
+@pytest.mark.parametrize("options,force", [
+    ({"use_kernels": False}, "plain"),
+    ({"use_kernels": True}, None),
+    ({}, None),
+    ({"use_kernels": False, "force": "plain"}, "plain"),
+])
+def test_use_kernels_option_sets_the_dispatch(monkeypatch, options, force):
+    """``use_kernels=False`` selects the plain versions, as the reference
+    maps it to force="ref" (repro/index/backends.py:305-307): every
+    dispatch the search makes carries force="plain", which on the card
+    launches no kernel."""
+    from repro_torch.kernels import ops
+
+    seen = []
+    real = ops._plain
+
+    def spy(f, *tensors):
+        seen.append(f)
+        return real(f, *tensors)
+
+    monkeypatch.setattr(ops, "_plain", spy)
+    data = make_clustered(9000, 16, seed=24)
+    index = build_index(data, IndexConfig(backend="flat", options=options), device="cpu")
+    assert index.force == force
+    index.search(_queries(data, 3, seed=25), 10)
+    index.cp_search(5)
+    assert seen and set(seen) == {force}
+
+
+@pytest.mark.parametrize("n,fused", [(2048, False), (9000, True)])
+def test_last_select_budget_matches_jax(n, fused):
+    """The drift monitor reads (last_select_counts, last_select_budget)
+    off a flat segment: both equal the JAX backend's after a search."""
+    data = make_clustered(n, D, seed=26)
+    ji, ti = _pair(data, {"fused": fused, "force": "interpret" if fused else "ref"},
+                   {"fused": fused})
+    q = _queries(data, 5, seed=27)
+    _same(ji.search(q, 10), ti.search(q, 10))
+    assert ti.last_select_budget == ji.last_select_budget == candidate_budget(
+        ti.impl.params, n, 10)
+    np.testing.assert_array_equal(ti.last_select_counts, ji.last_select_counts)

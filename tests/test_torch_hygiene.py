@@ -60,7 +60,8 @@ def test_importing_the_port_loads_no_jax():
 
 @pytest.mark.parametrize("entry", ["build_index", "build_flat_index", "FlatBackend",
                                    "flat_index_from_arrays", "flat-pq", "cp_fused_search",
-                                   "train_codec", "codec_from_arrays"])
+                                   "train_codec", "codec_from_arrays", "streaming",
+                                   "StreamingIndex.from_arrays"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device works here")
@@ -69,6 +70,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry):
     from repro_torch.core.cp_fused import cp_fused_search
     from repro_torch.index import FlatBackend, IndexConfig, build_index
     from repro_torch.quant import train_codec
+    from repro_torch.stream import StreamingIndex
 
     data = np.random.default_rng(0).normal(size=(64, 8)).astype(np.float32)
     call = {"build_index": lambda: build_index(data),
@@ -80,13 +82,26 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry):
             "cp_fused_search": lambda: cp_fused_search(data, 5),
             "train_codec": lambda: train_codec("sq8", data),
             "codec_from_arrays": lambda: codec_from_arrays(
-                scale=np.ones(8, np.float32), offset=np.zeros(8, np.float32))}[entry]
+                scale=np.ones(8, np.float32), offset=np.zeros(8, np.float32)),
+            "streaming": lambda: build_index(data, IndexConfig(
+                backend="streaming", options={"segment_backend": "flat"})),
+            "StreamingIndex.from_arrays": lambda: StreamingIndex.from_arrays(
+                data, np.ones((8, 15), np.float32),
+                IndexConfig(backend="streaming", options={"segment_backend": "flat"}))}[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
 
 
 def _wrapper_calls():
-    from repro_torch.kernels import adc, pair_join, pairwise_dist, select, verify
+    from repro_torch.kernels import (
+        adc,
+        pair_join,
+        pairwise_dist,
+        project_dist,
+        select,
+        topk,
+        verify,
+    )
 
     z = torch.zeros
     return {
@@ -95,7 +110,9 @@ def _wrapper_calls():
         "pairwise_sq_dist": lambda: pairwise_dist.pairwise_sq_dist(z(2, 3), z(4, 3)),
         "pairwise_sq_dist_rows": lambda: pairwise_dist.pairwise_sq_dist_rows(
             z(2, 3), z(2, 4, 3)),
+        "project_dist": lambda: project_dist.project_dist(z(4, 3), z(3, 2), z(2, 2)),
         "radius_select": lambda: select.radius_select(z(2, 9), z(2), 3, T_pad=5),
+        "topk_smallest": lambda: topk.topk_smallest(z(2, 9), 3),
         "verify_topk": lambda: verify.verify_topk(
             z(9, 3), z(2, 3), torch.zeros(2, 4, dtype=torch.int32), 2),
     }
@@ -125,7 +142,8 @@ def test_build_targets_sm90a_under_an_ignored_directory():
     ignored = {line.strip() for line in (ROOT / ".gitignore").read_text().splitlines()}
     assert ignored & {"build/", "/build/", "build"}
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
-        "adc.cu", "common.cu", "pair_join.cu", "pairwise_dist.cu", "select.cu", "verify.cu"]
+        "adc.cu", "common.cu", "pair_join.cu", "pairwise_dist.cu", "project_dist.cu",
+        "select.cu", "topk.cu", "verify.cu"]
 
 
 def test_build_without_nvcc_raises():

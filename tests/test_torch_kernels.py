@@ -11,7 +11,12 @@ in another order: BLAS against XLA); radius_select agrees exactly
 (values are copies of the input, counts are integers, and both sides
 form the thresholds with the same float32 operations); verify's ids
 agree exactly and its d² to rtol 1e-5 (the TPU kernel uses the norm
-trick, the port the difference form).
+trick, the port the difference form).  topk_smallest agrees exactly
+with the JAX oracle (values and indices, +inf entries included) and
+with the Pallas kernel on values, and on indices where the value is
+finite (the Pallas kernel repeats indices in +inf slots).
+project_dist agrees to |Δ| ≤ 1e-5·(|qp|² + |x·A|²) + 1e-6 (the
+projection is summed in another order).
 """
 import numpy as np
 import pytest
@@ -22,7 +27,9 @@ import jax.numpy as jnp
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.pairwise_dist import pairwise_sq_dist_pallas
+from repro.kernels.project_dist import project_dist_pallas
 from repro.kernels.select import radius_select_pallas
+from repro.kernels.topk import topk_smallest_pallas
 from repro.kernels.verify import verify_topk_pallas
 from repro_torch.kernels import counts, ops, ref
 
@@ -190,3 +197,101 @@ def test_verify_k_over_128_routes_to_plain():
     wv, wi = jref.verify_topk(data, q, cand, 150)
     np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
     assert counts.ROUTES["verify_topk.k_over_128"] == before + 1
+
+
+# ---------------------------------------------------------------------------
+# topk_smallest
+# ---------------------------------------------------------------------------
+
+
+def _topk_case(name):
+    rng = np.random.default_rng(len(name))
+    if name == "few_finite":  # one row with only two finite entries
+        d = (rng.normal(size=(3, 700)) ** 2).astype(np.float32)
+        d[0] = np.inf
+        d[0, [5, 600]] = [2.0, 1.0]
+        d[2, rng.permutation(700)[:500]] = np.inf
+        return d, 4
+    B, N, k = {"random": (5, 700, 10), "k_1": (3, 300, 1), "k_128": (2, 1000, 128),
+               "k_equals_N": (2, 33, 33), "ties": (4, 600, 20),
+               "all_equal": (3, 513, 16)}[name]
+    if name == "ties":
+        return rng.integers(0, 4, size=(B, N)).astype(np.float32), k
+    if name == "all_equal":
+        return np.full((B, N), 7.0, np.float32), k
+    return (rng.normal(size=(B, N)) ** 2).astype(np.float32), k
+
+
+TOPK_CASES = ["random", "k_1", "k_128", "k_equals_N", "ties", "all_equal", "few_finite"]
+
+
+@pytest.mark.parametrize("name", TOPK_CASES)
+def test_topk_matches_jax_oracle(name):
+    """Values and indices everywhere, +inf entries included."""
+    d, k = _topk_case(name)
+    gv, gi = ops.topk_smallest(_t(d), k)
+    wv, wi = jref.topk_smallest(d, k)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+    assert gv.dtype == torch.float32 and gi.dtype == torch.int32
+    if name == "few_finite":
+        assert gi.numpy()[0].tolist() == [600, 5, 0, 1]
+
+
+@pytest.mark.parametrize("name", TOPK_CASES)
+def test_topk_matches_pallas(name):
+    """Values everywhere; indices where the value is finite: for a row
+    with fewer than k finite entries the TPU kernel repeats an index in
+    the +inf slots, where the port answers the sort's."""
+    d, k = _topk_case(name)
+    gv, gi = ops.topk_smallest(_t(d), k)
+    wv, wi = topk_smallest_pallas(jnp.asarray(d), k, interpret=True)
+    wv, wi = np.asarray(wv), np.asarray(wi)
+    np.testing.assert_array_equal(gv.numpy(), wv)
+    finite = np.isfinite(wv)
+    np.testing.assert_array_equal(gi.numpy()[finite], wi[finite])
+    if name == "few_finite":
+        assert wi[0].tolist() == [600, 5, 5, 5]  # the deviation the port does not copy
+
+
+@pytest.mark.parametrize("B,N,k", [(3, 2000, 150), (2, 300, 200)])
+def test_topk_k_over_128_takes_the_radius_select_route(B, N, k):
+    d = (np.random.default_rng(N).normal(size=(B, N)) ** 2).astype(np.float32)
+    wv, wi = jops.topk_smallest(jnp.asarray(d), k, force="interpret")
+    before = dict(counts.ROUTES)
+    gv, gi = ops.topk_smallest(_t(d), k)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+    assert counts.ROUTES["topk_smallest.k_over_128"] == before["topk_smallest.k_over_128"] + 1
+    sort = counts.ROUTES["radius_select.sort"] - before["radius_select.sort"]
+    assert sort == (1 if k + 256 >= N else 0)
+
+
+def test_topk_rejects_k_out_of_range():
+    with pytest.raises(ValueError, match="out of range"):
+        ops.topk_smallest(torch.zeros(2, 5), 6)
+    with pytest.raises(ValueError, match="out of range"):
+        ops.topk_smallest(torch.zeros(2, 5), 0)
+
+
+# ---------------------------------------------------------------------------
+# project_dist
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,N,d,m", [(5, 700, 200, 15), (1, 1030, 130, 16), (7, 64, 33, 20)])
+def test_project_dist_matches_pallas(B, N, d, m):
+    """N not a multiple of the TPU kernel's 512-point tile, d not a
+    multiple of its 128-wide slab."""
+    rng = np.random.default_rng(B + N + d)
+    x = rng.normal(size=(N, d)).astype(np.float32)
+    a = rng.normal(size=(d, m)).astype(np.float32)
+    qp = (rng.normal(size=(B, d)).astype(np.float32) @ a).astype(np.float32)
+    got = ops.project_dist(_t(x), _t(a), _t(qp)).numpy()
+    assert got.shape == (B, N) and got.dtype == np.float32
+    proj = x.astype(np.float64) @ a.astype(np.float64)
+    tol = 1e-5 * ((qp.astype(np.float64) ** 2).sum(1)[:, None] + (proj ** 2).sum(1)[None]) + 1e-6
+    for want in (project_dist_pallas(jnp.asarray(x), jnp.asarray(a), jnp.asarray(qp),
+                                     interpret=True),
+                 jref.project_dist(x, a, qp)):
+        assert (np.abs(got - np.asarray(want)) <= tol).all()
