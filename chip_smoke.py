@@ -14,7 +14,9 @@ Phases, each printing one JSON line:
   parity   each CUDA kernel against its plain PyTorch version, on the
            same tensors, at the shapes the main path gives it and at edge
            shapes (padding, k > Tc, ties, seeds outside the ladder, an
-           overflowing tie cluster; topk at k = 1 and 128, short and
+           overflowing tie cluster; radius_select on collapsed brackets,
+           values near FLT_MAX, +inf and NaN entries and small integers;
+           topk at k = 1 and 128, short and
            ragged rows, equal values, rows with fewer than k finite
            entries, k > 128 through radius_select; project_dist at a
            ragged N, d = 4096 and B = 1).
@@ -63,7 +65,9 @@ Phases, each printing one JSON line:
   kernels  the line {"kernels": [...]}: per kernel its launches on its
            path, its time by CUDA events and its device time by
            torch.profiler, its plain version's time, one PyTorch library
-           call's, and its bound on the card from this run's inputs.
+           call's, and its bound on the card from this run's inputs;
+           radius_select's entry also gives each of its launches' device
+           time (the ladder, the two histogram passes, the compaction).
 
 Then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -85,6 +89,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+# a pause between two traced calls, longer than any gap inside one call
+PAUSE_S = 0.005
 # NVIDIA H100 SXM data sheet: HBM3 rate and float32 rate outside the
 # tensor cores (the kernels here do float32 arithmetic on CUDA cores)
 PEAK_BYTES_PER_S = 3.35e12
@@ -160,22 +166,51 @@ def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, reps: int = 5) -> float:
-    """Device time of one ``fn()`` by torch.profiler: the summed device
-    time of its kernels and copies over ``reps`` calls (after a warm-up
-    call), per call.  Beside the event time it shows how much of a
-    launch-bound call is host work."""
+def traced_calls(torch, fn, reps: int = 5) -> list:
+    """``reps`` calls of ``fn()`` (after a warm-up call), each traced by
+    torch.profiler: per call, its kernels and copies in launch order as
+    (name, device ms).  The first launches of a trace were seen to go
+    unrecorded, so each trace runs ``fn()`` twice with a pause between
+    and keeps what follows the pause."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    runs = []
+    for _ in range(reps):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
-        torch.cuda.synchronize()
-    total_us = sum(getattr(evt, "self_device_time_total", 0) or 0
-                   for evt in prof.key_averages() if evt.cpu_time_total == 0)
-    return total_us / 1e3 / reps
+            torch.cuda.synchronize()
+            time.sleep(PAUSE_S)
+            fn()
+            torch.cuda.synchronize()
+        evts = sorted((e for e in prof.events()
+                       if e.cpu_time_total == 0 and (e.self_device_time_total or 0) > 0),
+                      key=lambda e: e.time_range.start)
+        cut = 0  # the first event after the pause (none recorded before it: 0)
+        for i in range(1, len(evts)):
+            if evts[i].time_range.start - evts[i - 1].time_range.end > 0.8 * PAUSE_S * 1e6:
+                cut = i
+        runs.append([(e.name, e.self_device_time_total / 1e3) for e in evts[cut:]])
+    return runs
+
+
+def device_ms(torch, fn, reps: int = 5) -> float:
+    """Device time of one ``fn()``: the summed device time of its kernels
+    and copies, the median over ``reps`` traced calls.  Beside the event
+    time it shows how much of a launch-bound call is host work."""
+    return statistics.median(sum(ms for _, ms in run) for run in traced_calls(torch, fn, reps))
+
+
+def launch_ms(torch, fn, match: tuple, reps: int = 5) -> list:
+    """(name, device ms) of each kernel or copy of one ``fn()`` whose name
+    holds one of ``match``, in launch order: the median over the traced
+    calls that show the most of them."""
+    runs = [[(n, ms) for n, ms in run if any(m in n for m in match)]
+            for run in traced_calls(torch, fn, reps)]
+    full = [run for run in runs if len(run) == max(map(len, runs))]
+    return [(full[0][i][0], statistics.median(run[i][1] for run in full))
+            for i in range(len(full[0]))]
 
 
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
@@ -245,6 +280,35 @@ def exact_closest_pairs(torch, x, k: int, rows: int = 2048) -> set:
     return {tuple(pair) for pair in p[top].tolist()}
 
 
+def select_edge_rows(rng) -> list:
+    """(name, d, tau0, T, T_pad) numpy rows for radius_select's edges:
+    brackets that collapse (lo == hi), values near FLT_MAX where lo + hi
+    overflows to +inf mids with real values above hi, +inf and NaN
+    entries, ties on the tree's mids."""
+    rows = []
+    d = np.zeros((2, 600), np.float32)
+    d[1] = np.inf
+    d[1, :50] = rng.uniform(1.0, 2.0, 50)
+    rows.append(("collapsed", d, np.ones(2, np.float32), 100, 200))
+    d = rng.uniform(1e38, 3.4e38, size=(6, 2000)).astype(np.float32)
+    d[:, :100] = rng.uniform(0.0, 1e37, size=(6, 100))
+    d[4, 100:600] = rng.uniform(1e38, 1.69e38, 500)
+    d[4, 600:900] = np.float32(1.703e38)
+    d[4, 900:] = rng.uniform(1.75e38, 3.4e38, 1100)
+    d[5, 100:] = np.inf
+    d[5, :100] = rng.uniform(2e38, 3.4e38, 100)
+    rows.append(("near_flt_max", d,
+                 np.array([2.9e38, 2.2e38, 1.5e38, 4e37, 1.703e38, 1e36], np.float32), 800, 1990))
+    d = (rng.normal(size=(3, 2 * 4096 + 77)) ** 2).astype(np.float32)
+    d[rng.random(d.shape) < 0.1] = np.inf
+    d[rng.random(d.shape) < 0.1] = np.nan
+    d[2, :-100] = np.inf
+    rows.append(("inf_nan", d, np.full(3, 0.02, np.float32), 150, 300))
+    d = rng.integers(0, 8, size=(3, 3000)).astype(np.float32)
+    rows.append(("small_integers", d, np.full(3, 0.35, np.float32), 300, 3000))
+    return rows
+
+
 def edge_parity(torch, dev, ref, ops, kpair, ksel, kver, ktopk, kproj) -> int:
     """The kernels against their plain versions at the edge shapes of the
     CPU tests; returns the number of cases checked."""
@@ -277,6 +341,12 @@ def edge_parity(torch, dev, ref, ops, kpair, ksel, kver, ktopk, kproj) -> int:
         want = ref.radius_select_kernel(dd, tau0, T, T_pad=T_pad)
         check(all(torch.equal(a, b) for a, b in zip(got, want)),
               f"radius_select edge ({B}, {N}, {T}, {T_pad}, {scale})")
+        cases += 1
+    for name, dd, tau0, T, T_pad in select_edge_rows(np.random.default_rng(9)):
+        dd, tau0 = torch.from_numpy(dd).to(dev), torch.from_numpy(tau0).to(dev)
+        got = ksel.radius_select(dd, tau0, T, T_pad=T_pad)
+        want = ref.radius_select_kernel(dd, tau0, T, T_pad=T_pad)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)), f"radius_select edge {name}")
         cases += 1
     tie = torch.full((1, 600), 5.0, device=dev)
     tie[0, 597:] = 0.5
@@ -922,11 +992,27 @@ def main(argv=None) -> int:
     entry("project_dist", "project", csrc + "project_dist.cu",
           "src/repro/kernels/project_dist.py:30", proj["launches"], proj["err"],
           proj["fn"], proj["plain"], proj["library"], proj["bytes"], proj["ops"])
+    # the select's launches: a memset, the ladder, a histogram pass per 7
+    # bisection steps, the compaction; each reads d once but the memset
+    sel_launches = launch_ms(torch, lambda: ksel.radius_select(d2p, tau0, T, T_pad=T_pad),
+                             ("select_", "emset"))
+    labels = {"select_ladder": "ladder", "select_pass": "pass", "select_compact": "compact"}
+    sel_passes = {}
+    for name, ms in sel_launches:
+        label = next((v for k, v in labels.items() if k in name), "memset")
+        if label == "pass":
+            label = f"pass_{sum(key.startswith('pass') for key in sel_passes)}"
+        sel_passes[label] = ms
+    kernels_run = [k for k in sel_passes if k != "memset"]
+    check(kernels_run == ["ladder", "pass_0", "pass_1", "compact"],
+          f"radius_select launched {[n for n, _ in sel_launches]}")
+    d_reads = len(kernels_run)
     # the algorithm's own traffic (repro/obs/roofline.py's models), beside
     # the one-read bounds above, and what verify's bound counts
     extra = {
-        "radius_select": {"traffic_model_ms": (16 * B * n * 4 + 2 * B * T_pad * 4)
-                          / PEAK_BYTES_PER_S * 1e3},
+        "radius_select": {"traffic_model_ms": (d_reads * B * n * 4 + 2 * B * T_pad * 4)
+                          / PEAK_BYTES_PER_S * 1e3,
+                          "d_reads": d_reads, "launch_device_ms": sel_passes},
         "verify_topk": {"traffic_model_ms": 4 * (B * T * d + B * d + 4 * B * K)
                         / PEAK_BYTES_PER_S * 1e3,
                         "candidate_reads": B * T, "unique_rows": uniq},

@@ -11,6 +11,7 @@ their rung thresholds from ``ref.select_rungs``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -20,6 +21,13 @@ from .counts import bump
 from .ref import select_rungs
 
 __all__ = ["radius_select"]
+
+
+@functools.cache
+def _rungs() -> ctypes.Array:
+    """The 16 rung factors as a host array, built once per process."""
+    factors = select_rungs().tolist()
+    return (ctypes.c_float * len(factors))(*factors)
 
 
 def radius_select(d: torch.Tensor, tau0: torch.Tensor, T: int, *, T_pad: int
@@ -39,8 +47,6 @@ def radius_select(d: torch.Tensor, tau0: torch.Tensor, T: int, *, T_pad: int
     tau0 = checked("radius_select tau0",
                    torch.clamp_min(tau0.to(torch.float32), 1e-30).contiguous(),
                    torch.float32, 1, d.device)
-    factors = select_rungs().tolist()
-    rungs = (ctypes.c_float * len(factors))(*factors)
     lib = _build.load()
     scratch = torch.empty(lib.radius_select_scratch_ints(B, N),
                           dtype=torch.int32, device=d.device)
@@ -48,7 +54,7 @@ def radius_select(d: torch.Tensor, tau0: torch.Tensor, T: int, *, T_pad: int
     idx = torch.empty((B, T_pad), dtype=torch.int32, device=d.device)
     count = torch.empty((B,), dtype=torch.int32, device=d.device)
     err = lib.radius_select_launch(
-        d.data_ptr(), tau0.data_ptr(), ctypes.cast(rungs, ctypes.c_void_p),
+        d.data_ptr(), tau0.data_ptr(), ctypes.cast(_rungs(), ctypes.c_void_p),
         B, N, T, T_pad, vals.data_ptr(), idx.data_ptr(),
         count.data_ptr(), scratch.data_ptr(), stream_of(d))
     _build.check(err, "radius_select")

@@ -84,20 +84,90 @@ def test_pairwise_rows_matches_plain(cuda, B, N, d):
                                rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("B,N,T,T_pad,seed_scale", [
-    (1, 100, 7, 71, 1.0), (7, 700, 120, 184, 1.0), (3, 20000, 2000, 2300, 1.0),
-    (2, 5000, 30, 94, 1e-9), (2, 5000, 30, 94, 1e9), (64, 9000, 900, 1156, 1.0),
+def _select_rows(kind, B, N, T, seed_scale, device):
+    """(d, tau0) for radius_select: squared normals from a torch seed, or
+    an edge row made with numpy."""
+    if kind == "squared":
+        g = torch.Generator(device=device).manual_seed(N + T)
+        d = torch.randn((B, N), generator=g, device=device) ** 2
+        return d, d.mean(1) * max(T / N, 1e-3) * seed_scale
+    rng = np.random.default_rng(N + T)
+    d = (rng.normal(size=(B, N)) ** 2).astype(np.float32)
+    tau0 = d.mean(1) * T / N * seed_scale
+    if kind == "collapsed":  # lo == hi: all zeros; an undershoot with τ0·r[15] >= dmax
+        d[0] = 0.0
+        d[1] = np.inf
+        d[1, :50] = rng.uniform(1.0, 2.0, 50)
+        tau0[:] = 1.0
+    elif kind == "near_flt_max":  # lo + hi overflows: tree mids of +inf, values
+        d = rng.uniform(1e38, 3.4e38, size=(B, N)).astype(np.float32)  # above hi,
+        d[:, :100] = rng.uniform(0.0, 1e37, size=(B, 100))  # fewer real than T
+        d[4, 100:600] = rng.uniform(1e38, 1.69e38, 500)
+        d[4, 600:900] = np.float32(1.703e38)
+        d[4, 900:] = rng.uniform(1.75e38, 3.4e38, N - 900)
+        d[5, 100:] = np.inf
+        d[5, :100] = rng.uniform(2e38, 3.4e38, 100)
+        tau0 = np.array([2.9e38, 2.2e38, 1.5e38, 4e37, 1.703e38, 1e36], np.float32)
+    elif kind == "inf_nan":  # padding and NaN are never counted
+        d[rng.random(d.shape) < 0.1] = np.inf
+        d[rng.random(d.shape) < 0.1] = np.nan
+        d[-1, : N - 100] = np.inf  # fewer real entries than T
+    elif kind == "small_integers":  # ties on the tree's mids
+        d = rng.integers(0, 8, size=(B, N)).astype(np.float32)
+        tau0 = d.mean(1) * T / N
+    return torch.from_numpy(d).to(device), torch.from_numpy(tau0.astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("B,N,T,T_pad,seed_scale,kind", [
+    (1, 100, 7, 71, 1.0, "squared"), (7, 700, 120, 184, 1.0, "squared"),
+    (3, 20000, 2000, 2300, 1.0, "squared"), (2, 5000, 30, 94, 1e-9, "squared"),
+    (2, 5000, 30, 94, 1e9, "squared"), (64, 9000, 900, 1156, 1.0, "squared"),
+    (2, 600, 100, 200, 1.0, "collapsed"), (6, 2000, 800, 1990, 1.0, "near_flt_max"),
+    (3, 2 * 4096 + 77, 150, 300, 1.0, "inf_nan"), (3, 3000, 300, 3000, 1.0, "small_integers"),
+    (2, 1, 1, 1, 1.0, "squared"), (3, 1000, 1, 65, 1.0, "squared"),
+    (2, 500, 500, 500, 1.0, "squared"),
 ])
-def test_radius_select_matches_plain(cuda, B, N, T, T_pad, seed_scale):
+def test_radius_select_matches_plain(cuda, B, N, T, T_pad, seed_scale, kind):
     from repro_torch.kernels.select import radius_select
 
-    g = torch.Generator(device=cuda).manual_seed(N + T)
-    d = torch.randn((B, N), generator=g, device=cuda) ** 2
-    tau0 = d.mean(1) * max(T / N, 1e-3) * seed_scale
+    d, tau0 = _select_rows(kind, B, N, T, seed_scale, cuda)
     got = radius_select(d, tau0, T, T_pad=T_pad)
     want = ref.radius_select_kernel(d, tau0, T, T_pad=T_pad)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def test_radius_select_launches_four_kernels(cuda):
+    """One call: the ladder, two histogram passes and the compaction.  The
+    first launches of a trace can go unrecorded, so the trace holds two
+    calls 20 ms apart and the kernels after the pause are counted."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.select import radius_select
+
+    d, tau0 = _select_rows("squared", 4, 20000, 500, 1.0, cuda)
+    radius_select(d, tau0, 500, T_pad=700)  # the build, outside the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        radius_select(d, tau0, 500, T_pad=700)
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+        radius_select(d, tau0, 500, T_pad=700)
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if e.cpu_time_total == 0 and (e.self_device_time_total or 0) > 0),
+                     key=lambda e: e.time_range.start)
+    gaps = [i for i in range(1, len(kernels))
+            if kernels[i].time_range.start - kernels[i - 1].time_range.end > 10_000]
+    second = kernels[gaps[-1]:] if gaps else kernels
+    names = [e.name for e in second]
+    launched = {name: sum(name in n for n in names)
+                for name in ("select_ladder_kernel", "select_pass_kernel",
+                             "select_compact_kernel")}
+    assert launched == {"select_ladder_kernel": 1, "select_pass_kernel": 2,
+                        "select_compact_kernel": 1}
 
 
 def test_radius_select_overflow_matches_plain(cuda):

@@ -140,6 +140,244 @@ def test_ops_radius_select_matches_jax(case):
 
 
 # ---------------------------------------------------------------------------
+# radius_select: the CUDA kernel's pass schedule (csrc/select.cu)
+# ---------------------------------------------------------------------------
+#
+# The CUDA kernel resolves the 14 bisection steps in two histogram passes
+# of 7 levels.  It cannot run here, so this model repeats its schedule in
+# PyTorch, step by step, and must agree with ref.radius_select_kernel
+# exactly: the same survivors in the same slots and the same counts.
+
+_LEVELS = 7  # bisection steps one pass resolves (select.cu's kLevels)
+_BINS = 1 << _LEVELS
+
+
+def _mid(lo, hi):
+    return 0.5 * (lo + hi)  # float32 0-d tensors: __fmul_rn(0.5f, __fadd_rn(lo, hi))
+
+
+def _ladder_bins(v, thr):
+    """Each element's rung: the first l with v <= thr[l] by a 4-step
+    binary search and one last compare; 16 where none holds."""
+    rung = torch.zeros(v.shape, dtype=torch.int64)
+    for step in (8, 4, 2, 1):
+        rung = torch.where(v <= thr[rung + step - 1], rung, rung + step)
+    return torch.where(v <= thr[rung], rung, thr.numel())
+
+
+def _tree_mids(lo, hi):
+    """The mids of the next 7 steps from (lo, hi), in heap order (1..127):
+    node i's bracket is its parent's, cut at the parent's mid."""
+    mids = torch.zeros(_BINS, dtype=torch.float32)
+    for node in range(1, _BINS):
+        depth = node.bit_length() - 1
+        a, b = lo, hi
+        for level in range(depth):
+            m = _mid(a, b)
+            if (node >> (depth - 1 - level)) & 1:
+                a = m
+            else:
+                b = m
+        mids[node] = _mid(a, b)
+    return mids
+
+
+def _pass_hist(v, real, lo, hi, mids):
+    """One pass over some elements: [below, 128 leaves, above] counts.
+    Elements <= lo lie below every mid; those > hi skip the tree; the
+    rest descend it, going left where v <= the node's mid.  Where every
+    mid is finite, the kernel guesses the leaf from v's place in (lo, hi]
+    and keeps the guess where the in-order mids (the leaves' edges) hold v."""
+    below = real & (v <= lo)
+    above = real & ~below & (v > hi)
+    x = v[real & ~below & ~above]
+    node = torch.ones(x.shape, dtype=torch.int64)
+    for _ in range(_LEVELS):
+        node = 2 * node + (x > mids[node]).to(torch.int64)
+    leaf = node - _BINS
+    if bool(torch.isfinite(mids[1:]).all()):
+        edges = torch.empty(_BINS + 1)
+        edges[0], edges[_BINS] = lo, hi
+        for n in range(1, _BINS):
+            depth = n.bit_length() - 1
+            edges[(2 * (n - (1 << depth)) + 1) << (_LEVELS - 1 - depth)] = mids[n]
+        assert torch.equal(edges[1:_BINS], torch.sort(mids[1:]).values)  # in order
+        scale = torch.tensor(float(_BINS), dtype=torch.float32) / (hi - lo)
+        guess = torch.clamp(((x - lo) * scale).to(torch.int64), 0, _BINS - 1)
+        hit = (x > edges[guess]) & (x <= edges[guess + 1])
+        leaf = torch.where(hit, guess, leaf)
+    leaves = torch.bincount(leaf, minlength=_BINS)
+    return torch.cat([below.sum().reshape(1), leaves, above.sum().reshape(1)])
+
+
+def _walk(cum, lo, hi, T):
+    """7 bisection steps read off one pass's inclusive scan `cum`
+    (130 counts): count(d <= a node's mid) is cum[its left subtree's
+    last leaf + 1]; a node whose mid is +inf counts every real element.
+    Returns the new bracket and the leaf reached."""
+    node = 1
+    for depth in range(_LEVELS):
+        mid = _mid(lo, hi)
+        first = (node - (1 << depth)) << (_LEVELS - depth)
+        c = cum[_BINS + 1] if torch.isinf(mid) else cum[first + (1 << (_LEVELS - 1 - depth))]
+        if c >= T:
+            hi, node = mid, 2 * node
+        else:
+            lo, node = mid, 2 * node + 1
+    return lo, hi, node - _BINS
+
+
+def _ladder_bracket(v, real, tau0, T):
+    """The bracket after the ladder pass, whose rung counts are the scan
+    of a 16-bin histogram (select.cu's ladder_bracket)."""
+    thr = tau0 * ref.select_rungs()
+    lad = torch.cumsum(torch.bincount(_ladder_bins(v, thr)[real], minlength=17)[:16], 0)
+    dmax = torch.clamp_min(torch.where(real, v, -float("inf")).max(), 0.0)
+    first = int(torch.nonzero(lad >= T)[0]) if bool((lad >= T).any()) else -1
+    hi = torch.minimum(thr[first] if first >= 0 else dmax, dmax)
+    lo = thr[first - 1] if first > 0 else torch.tensor(0.0)
+    if first < 0:
+        lo = thr[15]
+    return torch.minimum(lo, hi), hi
+
+
+def _histogram_select(d, tau0, T, T_pad, tile=16384):
+    """radius_select by select.cu's schedule: a 16-bin ladder pass, two
+    7-level histogram passes (the second also keeps each tile's scan),
+    and a compaction that places each tile's survivors after the counts
+    of the tiles before it.  Returns ref's triple and, per row, the passes
+    whose tree held a +inf mid while real elements lay above their hi."""
+    d = d.to(torch.float32)
+    B, N = d.shape
+    tau0 = torch.clamp_min(tau0.to(torch.float32), 1e-30)
+    vals = torch.full((B, T_pad), float("inf"))
+    idx = torch.full((B, T_pad), -1, dtype=torch.int32)
+    count = torch.zeros(B, dtype=torch.int32)
+    hazard = []
+    for b in range(B):
+        v, real = d[b], d[b] < float("inf")
+        lo, hi = _ladder_bracket(v, real, tau0[b], T)
+        row_hazard = set()
+        for p in range(2):
+            mids = _tree_mids(lo, hi)
+            if torch.isinf(mids[1:]).any() and (real & (v > hi)).any():
+                row_hazard.add(p)
+            cum = torch.cumsum(_pass_hist(v, real, lo, hi, mids), 0)
+            if p == 1:  # each tile's scan, for the compaction
+                tiles = [torch.cumsum(_pass_hist(v[s:s + tile], real[s:s + tile], lo, hi,
+                                                 mids), 0) for s in range(0, N, tile)]
+            lo, hi, leaf = _walk(cum, lo, hi, T)
+        slot = _BINS + 1 if torch.isinf(hi) else leaf + 1
+        # compaction: a tile's survivors start after the tiles before it
+        pos = 0
+        for t, s in enumerate(range(0, N, tile)):
+            keep = torch.nonzero(real[s:s + tile] & (v[s:s + tile] <= hi))[:, 0]
+            slots = pos + torch.arange(keep.numel())
+            ok = slots < T_pad
+            vals[b, slots[ok]] = v[s + keep[ok]]
+            idx[b, slots[ok]] = (s + keep[ok]).to(torch.int32)
+            pos += int(tiles[t][slot])
+        count[b] = pos
+        hazard.append(row_hazard)
+    return (vals, idx, count), hazard
+
+
+def _schedule_case(name):
+    """(d, tau0, T, T_pad) for one case, made with numpy from a seed."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    sq = lambda B, N: (rng.normal(size=(B, N)) ** 2 * 3).astype(np.float32)
+    seed = lambda d, T, s=1.0: (d.mean(1) * T / d.shape[1] * s).astype(np.float32)
+    if name == "squared_normals":
+        d = sq(3, 5000)
+        return d, seed(d, 400), 400, 520
+    if name == "rung_tie":  # 300 equal values on a rung edge, τ0·r[9]
+        d, T = sq(2, 3000), 700
+        tau0 = seed(d, T)
+        d[:, 1000:1300] = (_t(tau0) * ref.select_rungs()[9]).numpy()[:, None]
+        return d, tau0, T, 1000
+    if name == "tree_tie":  # 300 equal values on the first pass's root mid
+        d, T = sq(2, 3000), 700
+        tau0 = seed(d, T)
+        for _ in range(4):  # the cluster moves the bracket: iterate to a fixed point
+            edge = np.array([float(_mid(*_ladder_bracket(_t(d[b]), _t(d[b] < np.inf),
+                                                         _t(tau0)[b], T)))
+                             for b in range(2)], np.float32)
+            done = bool((d[:, 1000] == edge).all())
+            d[:, 1000:1300] = edge[:, None]
+        assert done
+        return d, tau0, T, 1000
+    if name == "collapsed":  # all zeros: lo == hi == 0; and an undershoot with
+        d = np.zeros((2, 600), np.float32)  # τ0·r[15] >= dmax collapses too
+        d[1] = np.inf
+        d[1, :50] = rng.uniform(1.0, 2.0, 50)
+        return d, np.array([1.0, 1.0], np.float32), 100, 200
+    if name == "small_integers":
+        d = rng.integers(0, 8, size=(3, 3000)).astype(np.float32)
+        return d, seed(d, 300), 300, 3000
+    if name == "tiny":  # values near 1e-30 (τ0's clamp), and subnormals
+        d = (np.abs(rng.normal(size=(2, 2000))) * 1e-30).astype(np.float32)
+        d[1, ::3] = 1e-40
+        return d, np.array([1e-31, 1e-38], np.float32), 200, 400
+    if name == "near_flt_max":  # lo + hi overflows: tree mids of +inf with
+        d = rng.uniform(1e38, 3.4e38, size=(6, 2000)).astype(np.float32)  # values
+        d[:, :100] = rng.uniform(0.0, 1e37, size=(6, 100))  # above hi: at the first
+        # pass's root (rows 0, 2), its right child (row 1), the second pass's
+        # third level (row 4: 300 values on hi, the path all right); row 3: hi =
+        # dmax; row 5: fewer real entries than T, so lo becomes +inf
+        d[4, 100:600] = rng.uniform(1e38, 1.69e38, 500)
+        d[4, 600:900] = np.float32(1.703e38)
+        d[4, 900:] = rng.uniform(1.75e38, 3.4e38, 1100)
+        d[5, 100:] = np.inf
+        d[5, :100] = rng.uniform(2e38, 3.4e38, 100)
+        tau0 = np.array([2.9e38, 2.2e38, 1.5e38, 4e37, 1.703e38, 1e36], np.float32)
+        return d, tau0, 800, 1990
+    if name == "inf_nan":  # padding and NaN are never counted
+        d = sq(3, 2000)
+        d[rng.random(d.shape) < 0.1] = np.inf
+        d[rng.random(d.shape) < 0.1] = np.nan
+        d[2, :1900] = np.inf  # fewer real entries than T: the ladder undershoots
+        return d, seed(np.nan_to_num(d, posinf=0.0), 150), 150, 300
+    if name == "T_1":
+        d = sq(3, 1000)
+        return d, seed(d, 1), 1, 65
+    if name == "T_N":
+        d = sq(2, 500)
+        return d, seed(d, 500), 500, 500
+    if name == "N_1":
+        return np.array([[2.5]], np.float32), np.array([1.0], np.float32), 1, 1
+    if name == "ragged_tiles":  # N not a multiple of the 16,384-element tile
+        d = sq(2, 16384 + 4096 + 77)
+        return d, seed(d, 900), 900, 1200
+    if name == "many_tiles":  # small tiles: the compaction's cross-tile offsets
+        d = sq(3, 1500)
+        return d, seed(d, 200), 200, 300
+    if name in ("undershoot", "overshoot"):  # the seed outside the ladder's reach
+        d = sq(2, 800)
+        return d, seed(d, 60, 1e-9 if name == "undershoot" else 1e9), 60, 120
+    raise KeyError(name)
+
+
+SCHEDULE_CASES = ["squared_normals", "rung_tie", "tree_tie", "collapsed", "small_integers",
+                  "tiny", "near_flt_max", "inf_nan", "T_1", "T_N", "N_1", "ragged_tiles",
+                  "many_tiles", "undershoot", "overshoot"]
+
+
+@pytest.mark.parametrize("name", SCHEDULE_CASES)
+def test_histogram_schedule_matches_serial_bisection(name):
+    """Two 7-level histogram passes give ref's 14 serial steps exactly:
+    same slots, same values, same counts (tolerance: none)."""
+    d, tau0, T, T_pad = _schedule_case(name)
+    tile = 64 if name == "many_tiles" else 16384  # select.cu's kTile
+    (gv, gi, gc), hazard = _histogram_select(_t(d), _t(tau0), T, T_pad, tile=tile)
+    wv, wi, wc = ref.radius_select_kernel(_t(d), _t(tau0), T, T_pad=T_pad)
+    np.testing.assert_array_equal(gi.numpy(), wi.numpy())
+    np.testing.assert_array_equal(gv.numpy(), wv.numpy())
+    np.testing.assert_array_equal(gc.numpy(), wc.numpy())
+    if name == "near_flt_max":  # the case reaches what it is named for, in both passes
+        assert set().union(*hazard) == {0, 1}
+
+
+# ---------------------------------------------------------------------------
 # verify_topk
 # ---------------------------------------------------------------------------
 
