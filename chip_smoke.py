@@ -16,16 +16,21 @@ Phases, each printing one JSON line:
            shapes (padding, k > Tc, ties, seeds outside the ladder, an
            overflowing tie cluster; radius_select on collapsed brackets,
            values near FLT_MAX, +inf and NaN entries and small integers;
-           topk at k = 1 and 128, short and
-           ragged rows, equal values, rows with fewer than k finite
-           entries, k > 128 through radius_select; project_dist at a
-           ragged N, d = 4096 and B = 1).
+           verify with a row in every query's list and twice in one, a
+           NaN row, B = 130 (two groups of queries) and d = 600; topk at
+           k = 1 and 128, short and ragged rows, equal values, rows with
+           fewer than k finite entries, ascending and descending rows,
+           k > 128 through radius_select; project_dist at a ragged N,
+           d = 4096 and B = 1).  verify's distance pass must read each
+           distinct candidate row once: its row count equals
+           unique(cand).
   fused    the main path: ``index.search`` at B = 1, 16 and 64, k = 10,
            with every launch count set to 0 before and read after; ids
            identical to the plain path's; recall@10 against an exact
            brute force; the median batch time.
-  profile  device time by CUDA kernel of one B = 64 search
-           (torch.profiler), and the card's idle share of the batch time.
+  profile  device time by CUDA kernel of one search at B = 1, 16 and 64
+           (torch.profiler), verify's launches (its topk kernel's
+           included) summed, and the card's idle share of the batch time.
   unfused  n = 4,096 (below the fused policy's 8,192), through the
            pairwise kernel's 2-D and per-query forms, its counts read the
            same way; ids identical to the plain path's.
@@ -34,7 +39,7 @@ Phases, each printing one JSON line:
            to 0 before and read after (adc_dist, pairwise_sq_dist,
            radius_select and verify_topk must each launch); ids identical
            to the plain path's; recall@10; the median batch time; the ADC
-           kernel against its plain version at B = 64; a profile.
+           kernel against its plain version at B = 64; profiles.
   cp       a clustered twin of the Audio set at its published shape
            (paper Table 3: n = 54,387, d = 192, float32; 40 clusters, 6
            active dimensions): ``flat`` ``cp_search(k=10)`` at cp_c = 4,
@@ -55,7 +60,7 @@ Phases, each printing one JSON line:
            same operations, recall@10 against an exact float64 brute force
            over the live rows, the median batch time, segments, delta
            size, flushes and compactions; then one traced B = 64 search
-           (segment / delta / merge split) and a profile.
+           (facade / segment / delta / merge split) and profiles.
   stream_cp  the Audio twin inserted into a streaming index in batches of
            8,192 (delta_threshold 16,384): ``cp_search(10)``, pairs and
            counters identical to the ``use_kernels=False`` twin's, CP
@@ -67,7 +72,11 @@ Phases, each printing one JSON line:
            torch.profiler, its plain version's time, one PyTorch library
            call's, and its bound on the card from this run's inputs;
            radius_select's entry also gives each of its launches' device
-           time (the ladder, the two histogram passes, the compaction).
+           time (the ladder, the two histogram passes, the compaction),
+           verify_topk's its launches' (count, scan, scatter, distance,
+           topk), its traffic model and the rows its distance pass read,
+           and topk_smallest's a second timing at verify's shape
+           (64, T, 10).
 
 Then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -166,12 +175,35 @@ def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def warm_trace(torch) -> None:
+    """Small kernels, then a pause: the first launches of a trace were
+    seen to go unrecorded, so a trace starts with these and keeps what
+    follows the pause."""
+    x = torch.zeros(256, device="cuda")
+    for _ in range(4):
+        x += 1
+    torch.cuda.synchronize()
+    time.sleep(PAUSE_S)
+
+
+def after_pause(prof) -> list:
+    """The kernels and copies of a trace (no host events) in launch order,
+    from the first one after its last pause."""
+    evts = sorted((e for e in prof.events()
+                   if e.cpu_time_total == 0 and (e.self_device_time_total or 0) > 0),
+                  key=lambda e: e.time_range.start)
+    cut = 0
+    for i in range(1, len(evts)):
+        if evts[i].time_range.start - evts[i - 1].time_range.end > 0.8 * PAUSE_S * 1e6:
+            cut = i
+    return evts[cut:]
+
+
 def traced_calls(torch, fn, reps: int = 5) -> list:
     """``reps`` calls of ``fn()`` (after a warm-up call), each traced by
     torch.profiler: per call, its kernels and copies in launch order as
-    (name, device ms).  The first launches of a trace were seen to go
-    unrecorded, so each trace runs ``fn()`` twice with a pause between
-    and keeps what follows the pause."""
+    (name, device ms).  Each trace runs ``fn()`` twice with a pause
+    between and keeps the second."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -179,19 +211,13 @@ def traced_calls(torch, fn, reps: int = 5) -> list:
     runs = []
     for _ in range(reps):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            warm_trace(torch)
             fn()
             torch.cuda.synchronize()
             time.sleep(PAUSE_S)
             fn()
             torch.cuda.synchronize()
-        evts = sorted((e for e in prof.events()
-                       if e.cpu_time_total == 0 and (e.self_device_time_total or 0) > 0),
-                      key=lambda e: e.time_range.start)
-        cut = 0  # the first event after the pause (none recorded before it: 0)
-        for i in range(1, len(evts)):
-            if evts[i].time_range.start - evts[i - 1].time_range.end > 0.8 * PAUSE_S * 1e6:
-                cut = i
-        runs.append([(e.name, e.self_device_time_total / 1e3) for e in evts[cut:]])
+        runs.append([(e.name, e.self_device_time_total / 1e3) for e in after_pause(prof)])
     return runs
 
 
@@ -205,12 +231,14 @@ def device_ms(torch, fn, reps: int = 5) -> float:
 def launch_ms(torch, fn, match: tuple, reps: int = 5) -> list:
     """(name, device ms) of each kernel or copy of one ``fn()`` whose name
     holds one of ``match``, in launch order: the median over the traced
-    calls that show the most of them."""
+    calls that show the most common number of them (a trace may miss a
+    launch, or keep a second call)."""
     runs = [[(n, ms) for n, ms in run if any(m in n for m in match)]
             for run in traced_calls(torch, fn, reps)]
-    full = [run for run in runs if len(run) == max(map(len, runs))]
+    size = statistics.mode(len(run) for run in runs)
+    full = [run for run in runs if len(run) == size]
     return [(full[0][i][0], statistics.median(run[i][1] for run in full))
-            for i in range(len(full[0]))]
+            for i in range(size)]
 
 
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
@@ -227,29 +255,69 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def profile_call(torch, fn, wall_ms: float) -> dict:
+def profile_call(torch, fn, wall_ms: float, rows: int = 16) -> dict:
     """Device time by CUDA kernel of one ``fn()`` (after a warm-up call),
     by torch.profiler, and the share of the untraced wall time
     ``wall_ms`` in which the card ran no kernel (tracing itself slows the
-    host, so the traced window overstates it)."""
+    host, so the traced window overstates it).  verify_topk answers
+    through the topk kernel from C: the one or two topk launches right
+    after a verify distance pass are verify's, listed as
+    ``verify_topk/topk_kernel``, and ``verify_topk_ms`` sums verify's
+    kernels (its two small memsets aside)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        warm_trace(torch)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total", 0) or 0
-        if dev_us > 0 and evt.cpu_time_total == 0:  # a kernel or a copy
-            rows.append({"name": evt.key[:80], "calls": evt.count, "device_ms": dev_us / 1e3})
-    rows.sort(key=lambda r: -r["device_ms"])
-    busy = sum(r["device_ms"] for r in rows)
+    by_name, verify_ms, after_verify = {}, 0.0, 0
+    for e in after_pause(prof):
+        name, ms = e.name, e.self_device_time_total / 1e3
+        name = name.replace("void ", "").replace("(anonymous namespace)::", "")
+        if "verify_" in name:
+            verify_ms += ms
+            after_verify = 2 if "verify_dist" in name else 0
+            name = name.split("(")[0]
+        elif "topk_kernel" in name and after_verify:
+            verify_ms += ms
+            after_verify -= 1
+            name = "verify_topk/topk_kernel"
+        else:
+            after_verify = 0
+        row = by_name.setdefault(name[:80], {"name": name[:80], "calls": 0, "device_ms": 0.0})
+        row["calls"] += 1
+        row["device_ms"] += ms
+    table = sorted(by_name.values(), key=lambda r: -r["device_ms"])
+    busy = sum(r["device_ms"] for r in table)
     return {"traced_wall_ms": traced_ms, "wall_ms": wall_ms, "device_busy_ms": busy,
-            "idle_share": max(0.0, 1.0 - busy / wall_ms), "by_kernel": rows[:16]}
+            "idle_share": max(0.0, 1.0 - busy / wall_ms), "verify_topk_ms": verify_ms,
+            "by_kernel": table[:rows]}
+
+
+def profiles(torch, phase: str, search, batch_ms: dict) -> None:
+    """One profile line per batch size: the full table at the largest,
+    the first rows at the others."""
+    for B in sorted(batch_ms):
+        emit({"phase": phase, "B": B, **profile_call(
+            torch, lambda: search(B), batch_ms[B], rows=16 if B == max(batch_ms) else 6)})
+
+
+def verify_traffic_bytes(n: int, d: int, B: int, Tc: int, k: int, uniq: int, E: int) -> int:
+    """What csrc/verify.cu moves for one group of queries, each array
+    counted where it crosses HBM: each distinct row once; cand read by
+    the count and by the scatter; the n counts zeroed, counted into (read
+    and written), read by two scan passes and rewritten as offsets; the
+    compact row list (id, start) written and read; dist written whole by
+    the count (ranks, +inf at padding), its ranks read by the scatter, the
+    d² written by the distance pass and the whole read by the topk kernel;
+    entries written and read; the queries and the answer."""
+    W = max(Tc, k)
+    return (4 * uniq * d + 2 * 4 * B * Tc + 6 * 4 * n + 2 * 8 * uniq
+            + 4 * B * W + 4 * E + 4 * E + 4 * B * W + 2 * 4 * E + 4 * B * d + 8 * B * k)
 
 
 def exact_knn(torch, x, q, k: int) -> np.ndarray:
@@ -357,9 +425,15 @@ def edge_parity(torch, dev, ref, ops, kpair, ksel, kver, ktopk, kproj) -> int:
     _, idx = ops.radius_select(tie, 10, T_pad=100)  # rerouted to the exact sort
     check(set(idx[0, :3].tolist()) == {597, 598, 599}, "overflow reroute")
     cases += 1
+    # verify: padding, k > Tc, exact ties, a row named by every query and
+    # twice in one list, queries past one group (B = 130), a width past
+    # the registers' (d = 600, read from global memory per entry), a NaN
+    # row; tolerance: ids exact, d² rtol 1e-5 (both sum the difference
+    # form, in another order); rows read = distinct ids a group
     rng = np.random.default_rng(8)
     for B, n, d, Tc, k, pad in ((1, 50, 8, 10, 1, 0), (7, 129, 33, 64, 10, 20),
-                                (2, 40, 12, 6, 10, 2), (16, 5000, 64, 4000, 128, 100)):
+                                (2, 40, 12, 6, 10, 2), (16, 5000, 64, 4000, 128, 100),
+                                (130, 20000, 256, 3000, 10, 0), (8, 3000, 600, 1000, 10, 0)):
         data = torch.randn((n, d), generator=g, device=dev)
         q = torch.randn((B, d), generator=g, device=dev)
         cand = torch.from_numpy(np.stack([rng.permutation(n)[:Tc] for _ in range(B)])
@@ -368,18 +442,30 @@ def edge_parity(torch, dev, ref, ops, kpair, ksel, kver, ktopk, kproj) -> int:
             cand[:, Tc - pad:] = -1
         if B == 7:  # exact ties: duplicate rows, the earlier position answers first
             data[9], data[8] = data[3], data[4]
-        gv, gi = kver.verify_topk(data, q, cand, k)
+        if B == 16:  # a row in every list, twice in the first; a NaN row
+            cand[:, 1] = 3
+            cand[0, 7] = 3
+            data[11, 5] = float("nan")
+            cand[:, 2] = 11
+        gv, gi, read = kver.verify_topk(data, q, cand, k, rows_read=True)
         wv, wi = ref.verify_topk(data, q, cand, k)
-        check(torch.equal(gi, wi) and torch.allclose(gv, wv, rtol=1e-5, atol=1e-5),
+        G = kver.group_size(B, d)
+        want_read = sum(int(torch.unique(c[c >= 0]).numel()) for c in cand.split(G))
+        check(torch.equal(gi, wi) and int(read) == want_read
+              and torch.allclose(gv, wv, rtol=1e-5, atol=1e-5, equal_nan=True),
               f"verify_topk edge ({B}, {n}, {d}, {Tc}, {k}, {pad})")
         cases += 1
-    # topk: k = 1 and 128, a row shorter than one 2,048-key buffer, rows
-    # not a multiple of it, equal values, a row with two finite entries;
-    # tolerance: exact, values bit for bit
+    # topk: k = 1 and 128, a row shorter than one 2,048-key chunk, rows
+    # not a multiple of it, equal values, a row with two finite entries,
+    # ascending and descending rows (the threshold filter's best and worst
+    # case); tolerance: exact, values bit for bit
     for B, N, k, kind in ((3, 5000, 1, "rand"), (5, 9000, 128, "rand"),
                           (4, 700, 10, "rand"), (2, 3 * 2049 + 5, 33, "rand"),
-                          (3, 4100, 16, "equal"), (3, 3000, 8, "few_finite")):
+                          (3, 4100, 16, "equal"), (3, 3000, 8, "few_finite"),
+                          (4, 50000, 10, "ascending"), (4, 50000, 10, "descending")):
         dd = torch.rand((B, N), generator=g, device=dev)
+        if kind in ("ascending", "descending"):  # no key passes / every key passes
+            dd = torch.sort(dd, 1, descending=kind == "descending").values
         if kind == "equal":
             dd.fill_(7.0)
         elif kind == "few_finite":  # the sort answers 0, 1, ... in the +inf slots
@@ -472,8 +558,7 @@ def quant_phase(torch, dev, data, queries, exact, seed: int) -> dict:
           "adc_max_abs_err": adc_err, "code_bytes": pq.codes.numel(),
           "median_batch_ms": {str(b): batch_ms[b] for b in BATCHES},
           "queries_per_s": {str(b): b / batch_ms[b] * 1e3 for b in BATCHES}})
-    emit({"phase": "quant_profile", "B": max(BATCHES),
-          **profile_call(torch, lambda: pq.search(queries, K), batch_ms[max(BATCHES)])})
+    profiles(torch, "quant_profile", lambda B: pq.search(queries[:B], K), batch_ms)
     return {"launches": used["launches"]["adc_dist"], "err": adc_err,
             "fn": lambda: kadc.adc_dist(ccodes, lut),
             "plain": lambda: ref.adc_dist(ccodes, lut),
@@ -588,6 +673,17 @@ def cp_phase(torch, dev, seed: int) -> dict:
 
 
 
+def churn_deletes(rng, index, r: int, n_seed: int) -> np.ndarray:
+    """Round r's deletes of the stream's churn: 32 rows inserted since the
+    build, and in round 0 also 64 seed rows (tombstones in the seed
+    segment: it searches at k + 64)."""
+    live = index.live_ids()
+    kill = rng.choice(live[live >= n_seed], 32, replace=False)
+    if r == 0:
+        kill = np.concatenate([kill, rng.choice(n_seed, 64, replace=False)])
+    return kill
+
+
 def stream_phase(torch, dev, data, queries, seed: int, *, rounds: int = STREAM_ROUNDS,
                  batch: int = STREAM_BATCH, threshold: int = STREAM_THRESHOLD,
                  checkpoints=STREAM_CHECKPOINTS, flush_after=STREAM_FLUSH_AFTER,
@@ -617,10 +713,7 @@ def stream_phase(torch, dev, data, queries, seed: int, *, rounds: int = STREAM_R
         rows = fresh[r * batch:(r + 1) * batch]
         ids = index.insert(rows)
         check(np.array_equal(ids, twin.insert(rows)), f"stream round {r}: insert ids differ")
-        live = index.live_ids()
-        kill = rng.choice(live[live >= n_seed], 32, replace=False)
-        if r == 0:  # tombstones in the seed segment: it searches at k + 64
-            kill = np.concatenate([kill, rng.choice(n_seed, 64, replace=False)])
+        kill = churn_deletes(rng, index, r, n_seed)
         check(index.delete(kill) == twin.delete(kill) == kill.size,
               f"stream round {r}: deletes differ")
         if r + 1 in flush_after:
@@ -675,12 +768,11 @@ def stream_phase(torch, dev, data, queries, seed: int, *, rounds: int = STREAM_R
     with trace.trace() as tr:
         index.search(qB[B], K)
     root = tr.spans[0]
-    emit({"phase": "stream_trace", "B": B, "wall_ms": root.duration_s * 1e3,
-          "spans": [{"name": sp.name, "ms": sp.duration_s * 1e3,
+    emit({"phase": "stream_trace", "B": B, "root": root.name, "wall_ms": root.duration_s * 1e3,
+          "spans": [{"name": sp.name, "parent": sp.parent, "ms": sp.duration_s * 1e3,
                      **{k: v for k, v in sp.attrs.items() if k in ("size", "dead")}}
                     for sp in tr.spans[1:]]})
-    emit({"phase": "stream_profile", "B": B,
-          **profile_call(torch, lambda: index.search(qB[B], K), batch_ms[B])})
+    profiles(torch, "stream_profile", lambda b: index.search(qB[b], K), batch_ms)
 
     # the topk kernel at the delta scan's largest shape: a full delta of
     # `threshold` rows, the moment before it is sealed
@@ -836,14 +928,18 @@ def main(argv=None) -> int:
     _, pos = ref.topk_smallest(sel[0], T)
     cand = torch.gather(sel[1], 1, pos.to(torch.int64))
 
-    ver = kver.verify_topk(impl.data, q64, cand, K)
+    ver_v, ver_i, rows_read = kver.verify_topk(impl.data, q64, cand, K, rows_read=True)
     ver_plain = ref.verify_topk(impl.data, q64, cand, K)
-    ver_ids_same = torch.equal(ver[1], ver_plain[1])
-    ver_err = float((ver[0] - ver_plain[0]).abs().max())
+    ver_ids_same = torch.equal(ver_i, ver_plain[1])
+    ver_err = float((ver_v - ver_plain[0]).abs().max())
     check(ver_ids_same, "verify_topk: ids differ from the plain version")
-    check(torch.allclose(ver[0], ver_plain[0], rtol=1e-5, atol=1e-5),
+    check(torch.allclose(ver_v, ver_plain[0], rtol=1e-5, atol=1e-5),
           f"verify_topk: d² max |diff| {ver_err}")
     del ver_plain
+    # each distinct candidate row read once: the batch is one group of queries
+    uniq = int(torch.unique(cand[cand >= 0]).numel())
+    check(kver.group_size(64, impl.d) == 64 and int(rows_read) == uniq,
+          f"verify_topk: the distance pass read {int(rows_read)} rows for {uniq} distinct ids")
     n_edge = edge_parity(torch, dev, ref, ops, kpair, ksel, kver, ktopk, kproj)
     emit({"phase": "parity", "edge_cases": n_edge, "kernels": {
         "pairwise_sq_dist": {"shape": [64, impl.n, impl.m], "max_abs_err": pw_err,
@@ -852,7 +948,8 @@ def main(argv=None) -> int:
                           "identical": sel_same, "max_abs_err": sel_err,
                           "count_min": int(sel[2].min()), "count_max": int(sel[2].max())},
         "verify_topk": {"shape": [64, T, impl.d], "k": K, "ids_identical": ver_ids_same,
-                        "max_abs_err": ver_err}}})
+                        "max_abs_err": ver_err, "rows_read": int(rows_read),
+                        "unique_rows": uniq}}})
 
     # -- the fused main path -------------------------------------------------
     counts.reset()
@@ -881,8 +978,7 @@ def main(argv=None) -> int:
           "candidates_selected_b64": answers[64].stats.candidates_selected,
           "median_batch_ms": {str(B): batch_ms[B] for B in BATCHES},
           "queries_per_s": {str(B): B / batch_ms[B] * 1e3 for B in BATCHES}})
-    emit({"phase": "profile", "B": max(BATCHES),
-          **profile_call(torch, lambda: index.search(queries, K), batch_ms[max(BATCHES)])})
+    profiles(torch, "profile", lambda B: index.search(queries[:B], K), batch_ms)
 
     # -- the unfused path (n < 8192) ----------------------------------------
     small = make_clustered_twin(4096, DIM, args.seed + 2)
@@ -922,7 +1018,6 @@ def main(argv=None) -> int:
     # -- per-kernel times at the main path's shapes (B = 64) ------------------
     B, n, m, d = 64, impl.n, impl.m, impl.d
     x_proj = impl.projected
-    uniq = int(torch.unique(cand[cand >= 0]).numel())
     entries = []
 
     def entry(name, path, source, replaces, launches, err, fn, plain, library,
@@ -983,6 +1078,22 @@ def main(argv=None) -> int:
     # tolerance: exact (pure selection; the values are copies)
     check(torch.equal(ti, pi) and torch.equal(tv, pv),
           "topk_smallest: values or indices differ from the plain version")
+    # the topk kernel at verify's shape: the d² of the B = 64 candidates in
+    # their trimmed order, as verify hands them to it
+    d2_ver = torch.stack([((impl.data[c.long()] - qb) ** 2).sum(-1) for c, qb in zip(cand, q64)])
+    tv, ti = ktopk.topk_smallest(d2_ver, K)
+    pv, pi = ref.topk_smallest(d2_ver, K)
+    check(torch.equal(ti, pi) and torch.equal(tv, pv),
+          "topk_smallest at verify's shape: values or indices differ from the plain version")
+    topk_at_verify = {"shape": list(d2_ver.shape), "k": K,
+                      "ms": time_ms(torch, lambda: ktopk.topk_smallest(d2_ver, K)),
+                      "device_ms": device_ms(torch, lambda: ktopk.topk_smallest(d2_ver, K)),
+                      "plain_ms": time_ms(torch, lambda: ref.topk_smallest(d2_ver, K), reps=3,
+                                          warmup=1),
+                      "bound_ms": bound(4 * d2_ver.numel() + 8 * 64 * K, d2_ver.numel())[0],
+                      "library_ms": time_ms(torch, lambda: torch.topk(d2_ver, K, largest=False),
+                                            reps=3, warmup=1)}
+    del d2_ver
     entry("topk_smallest", "stream", csrc + "topk.cu", "src/repro/kernels/topk.py:27",
           stream["launches"], float((tv - pv).abs().max()),
           lambda: ktopk.topk_smallest(d2_delta, K),
@@ -1007,15 +1118,34 @@ def main(argv=None) -> int:
     check(kernels_run == ["ladder", "pass_0", "pass_1", "compact"],
           f"radius_select launched {[n for n, _ in sel_launches]}")
     d_reads = len(kernels_run)
+    # verify's launches: a memset, the count, three scan kernels, the
+    # scatter, the distance pass, the topk kernel's split and merge
+    ver_launches = launch_ms(torch, lambda: kver.verify_topk(impl.data, q64, cand, K),
+                             ("verify_", "topk_kernel", "emset"))
+    ver_labels = (("verify_entries_kernel<false>", "count"), ("verify_entries_kernel<true>", "scatter"),
+                  ("tile_sum", "scan_tiles"), ("tile_scan", "scan_sums"),
+                  ("tile_write", "scan_write"), ("verify_dist", "distance"),
+                  ("topk_kernel<false, false>", "topk_splits"),
+                  ("topk_kernel<true, true>", "topk_merge"),
+                  ("topk_kernel<false, true>", "topk_one"))
+    ver_parts = {}
+    for name, ms in ver_launches:
+        label = next((v for k_, v in ver_labels if k_ in name), "memset")
+        ver_parts[label] = ver_parts.get(label, 0.0) + ms
+    check({"count", "scatter", "distance"} <= set(ver_parts),
+          f"verify_topk launched {[n for n, _ in ver_launches]}")
+    E = int((cand >= 0).sum())
     # the algorithm's own traffic (repro/obs/roofline.py's models), beside
     # the one-read bounds above, and what verify's bound counts
     extra = {
         "radius_select": {"traffic_model_ms": (d_reads * B * n * 4 + 2 * B * T_pad * 4)
                           / PEAK_BYTES_PER_S * 1e3,
                           "d_reads": d_reads, "launch_device_ms": sel_passes},
-        "verify_topk": {"traffic_model_ms": 4 * (B * T * d + B * d + 4 * B * K)
+        "verify_topk": {"traffic_model_ms": verify_traffic_bytes(n, d, B, T, K, uniq, E)
                         / PEAK_BYTES_PER_S * 1e3,
-                        "candidate_reads": B * T, "unique_rows": uniq},
+                        "candidate_reads": B * T, "unique_rows": uniq,
+                        "rows_read": int(rows_read), "launch_device_ms": ver_parts},
+        "topk_smallest": {"at_verify_shape": topk_at_verify},
         "pair_join": join["extra"]}
     for e in entries:
         e.update(extra.get(e["name"], {}))

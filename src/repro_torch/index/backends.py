@@ -22,6 +22,7 @@ from ..core.flat_index import (
     candidate_budget,
 )
 from ..device import resolve_device
+from ..obs import trace as otrace
 from ..quant import quant_ann_query, quant_cp_search, train_codec
 from .config import IndexConfig
 from .registry import register_backend
@@ -74,13 +75,17 @@ class BaseIndex:
         n_bad = int(bad_rows.sum())
         if n_bad:
             q = np.where(bad_rows[:, None], np.float32(0.0), q)
-        res = self._search(q, min(k, self.n))
-        if n_bad:
-            res = SearchResult(
-                np.where(bad_rows[:, None], np.int32(-1), res.indices),
-                np.where(bad_rows[:, None], np.float32(np.inf), res.distances),
-                stats=res.stats)
-            res.stats.queries_rejected += n_bad
+        with otrace.span("index.search", backend=self.backend_name,
+                         B=int(q.shape[0]), k=k) as sp:
+            res = self._search(q, min(k, self.n))
+            if n_bad:
+                res = SearchResult(
+                    np.where(bad_rows[:, None], np.int32(-1), res.indices),
+                    np.where(bad_rows[:, None], np.float32(np.inf), res.distances),
+                    stats=res.stats)
+                res.stats.queries_rejected += n_bad
+            if sp is not None:
+                sp.attrs["work"] = res.stats.as_dict()
         if res.k < k:  # k > n: keep the (B, k) contract via padding
             pad_i = np.full((res.batch, k), -1, dtype=np.int32)
             pad_d = np.full((res.batch, k), np.inf, dtype=np.float32)
@@ -98,7 +103,12 @@ class BaseIndex:
         if "cp" not in self.capabilities:
             raise NotImplementedError(
                 f"backend {self.backend_name!r} does not support closest-pair")
-        return self._cp_search(int(k))
+        with otrace.span("index.cp_search", backend=self.backend_name,
+                         k=int(k)) as sp:
+            res = self._cp_search(int(k))
+            if sp is not None:
+                sp.attrs["work"] = res.stats.as_dict()
+        return res
 
     def _cp_search(self, k: int) -> CpSearchResult:
         raise NotImplementedError

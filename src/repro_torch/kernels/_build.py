@@ -42,13 +42,13 @@ SIGNATURES = {
     "radius_select_scratch_ints": (ctypes.c_longlong, [_I, _I]),
     "radius_select_launch": (_I, [_P, _P, _P, _I, _I, _I, _I,
                                   _P, _P, _P, _P, _P]),
+    "verify_topk_group_size": (_I, [_I, _I]),
+    "verify_topk_scratch_bytes": (_L, [_I, _I, _I, _I, _I]),
     "verify_topk_launch": (_I, [_P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _P]),
-    "verify_topk_blocks_per_sm": (_I, [_I]),
     "adc_dist_launch": (_I, [_P, _L, _P, _P, _I, _I, _I, _I, _P]),
     "pair_join_bands_launch": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _I, _D,
                                     _P, _P, _P, _P, _P, _P, _P, _P]),
-    "topk_blocks_per_sm": (_I, []),
     "topk_smallest_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "project_dist_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }

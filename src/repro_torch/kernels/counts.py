@@ -17,8 +17,8 @@ __all__ = ["LAUNCHES", "ROUTES", "bump", "route", "reset", "snapshot"]
 LAUNCHES: dict[str, int] = {
     "pairwise_sq_dist": 0,       # 2-D form, norm trick
     "pairwise_sq_dist_rows": 0,  # per-query (B, N, d) form, difference form
-    "radius_select": 0,          # one count per call: 16 CUDA launches
-    "verify_topk": 0,            # one count per call: partial + merge launches
+    "radius_select": 0,          # one count per call: 4 CUDA launches and a memset
+    "verify_topk": 0,            # one count per call: counting sort, distances, topk
     "adc_dist": 0,               # one count per call: one launch
     "pair_join": 0,              # one count per call: two launches per band
     "topk_smallest": 0,          # one count per call: one launch, or two (splits + merge)

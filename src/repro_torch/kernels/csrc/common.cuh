@@ -10,6 +10,11 @@ namespace rt {
 
 constexpr unsigned kFullMask = 0xffffffffu;
 
+// topk.cu reads a row in chunks of 2,048 keys and splits no row into
+// pieces shorter than this (the wrapper's topk._SPLIT); the partial keys
+// of a row take ⌈N / kTopkSplitMin⌉·k slots at most.
+constexpr int kTopkSplitMin = 8192;
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
@@ -72,3 +77,11 @@ __device__ __forceinline__ void sort_keys(unsigned long long* key, int len) {
 }
 
 }  // namespace rt
+
+// The row-wise k smallest of d (B, N) into out_v / out_i (topk.cu), on
+// `stream`; part is scratch of B·⌈N / kTopkSplitMin⌉·k keys.  Where ids
+// (B, ids_width) is given, out_i answers ids[b, column], or −1 for an
+// infinite value, in place of the column.  Returns a cudaError_t.
+int rt_topk_launch(const float* d, float* out_v, int* out_i, unsigned long long* part,
+                   const int* ids, int ids_width, int B, int N, int k, int S_cap,
+                   cudaStream_t stream);

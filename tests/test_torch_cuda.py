@@ -208,6 +208,113 @@ def test_verify_exact_ties_go_to_earliest_position(cuda):
     assert int(gi[0, 0]) == 9 and int(gi[1, 0]) == 3
 
 
+def _verify_card_case(name, device):
+    """(data, q, cand, k) on the card: the batch sizes of the main path
+    and a batch past one group of queries, row widths the distance pass
+    takes in registers (15, 100: not a multiple of 32, 256), past them
+    (600), and the counting sort's edges."""
+    rng = np.random.default_rng(len(name) * 31)
+    B, n, d, Tc, k = {"B1": (1, 20000, 256, 9000, 10), "B16": (16, 20000, 256, 9000, 10),
+                      "B64": (64, 20000, 256, 9000, 10), "B130": (130, 20000, 256, 3000, 10),
+                      "d15": (16, 5000, 15, 2000, 10), "d100": (16, 5000, 100, 2000, 10),
+                      "d600": (8, 3000, 600, 1000, 10)}.get(name, (12, 3000, 64, 400, 10))
+    data = rng.normal(size=(n, d)).astype(np.float32)
+    q = rng.normal(size=(B, d)).astype(np.float32)
+    cand = np.stack([rng.permutation(n)[:Tc] for _ in range(B)]).astype(np.int32)
+    if name == "hot_row":  # one row named by every query
+        cand[cand == 77] = 78
+        cand[:, 5] = 77
+    elif name == "duplicates":  # a row twice in one query's list: both answer
+        q[0] = data[5] + 0.01
+        cand[0][cand[0] == 5] = 6
+        cand[0, [3, 300]] = 5
+    elif name == "all_padding":
+        cand[2] = -1
+        cand[4, 1:] = -1
+    elif name == "tc_below_k":
+        cand, k = cand[:, :6], 10
+        cand[1, 4:] = -1
+    elif name == "k_1":
+        k = 1
+    elif name == "k_128":
+        k = 128
+    elif name == "exact_ties":  # equal rows: the earlier position answers first
+        data[9], data[8] = data[3], data[4]
+        q[:] = data[3] + 0.01
+        cand[np.isin(cand, [3, 4, 8, 9])] = 10
+        cand[:, :4] = [9, 3, 8, 4]
+    elif name == "nan_row":  # NaN d² sorts after +inf and keeps its id
+        data[17, 2] = np.nan
+        cand[cand == 17] = 18
+        cand[:, 0] = 17
+        cand[1, 5:] = -1
+        k = 128
+    return tuple(torch.from_numpy(a).to(device) for a in (data, q, cand)) + (k,)
+
+
+VERIFY_CARD_CASES = ["B1", "B16", "B64", "B130", "d15", "d100", "d600", "hot_row",
+                     "duplicates", "all_padding", "tc_below_k", "k_1", "k_128", "exact_ties",
+                     "nan_row"]
+
+
+@pytest.mark.parametrize("name", VERIFY_CARD_CASES)
+def test_verify_schedule_cases_match_plain(cuda, name):
+    """ids identical to the plain version's, d² to rtol 1e-5 (NaN where it
+    has NaN); one launch count for verify and none for topk, whose kernel
+    verify runs from C; each distinct row read once a group of queries."""
+    from repro_torch.kernels import verify as kver
+
+    data, q, cand, k = _verify_card_case(name, cuda)
+    before = dict(counts.LAUNCHES)
+    gv, gi, rows_read = kver.verify_topk(data, q, cand, k, rows_read=True)
+    torch.cuda.synchronize()
+    assert counts.LAUNCHES["verify_topk"] == before["verify_topk"] + 1
+    assert counts.LAUNCHES["topk_smallest"] == before["topk_smallest"]
+    wv, wi = ref.verify_topk(data, q, cand, k)
+    assert torch.equal(gi, wi)
+    torch.testing.assert_close(gv, wv, rtol=1e-5, atol=1e-5, equal_nan=True)
+    G = kver.group_size(q.shape[0], data.shape[1])
+    assert int(rows_read) == sum(int(torch.unique(c[c >= 0]).numel()) for c in cand.split(G))
+    if name == "B130":
+        assert G < 130  # the case crosses query groups
+    if name == "duplicates":
+        assert gi[0, :2].tolist() == [5, 5]
+    if name == "exact_ties":
+        assert gi[:, :2].tolist() == [[9, 3]] * cand.shape[0]
+
+
+def test_verify_launches_its_schedule(cuda):
+    """One group: the count, three scan kernels, the scatter, the distance
+    pass and the topk kernel's two launches (one memset before)."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.verify import verify_topk
+
+    data, q, cand, k = _verify_card_case("B64", cuda)
+    verify_topk(data, q, cand, k)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        verify_topk(data, q, cand, k)
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+        verify_topk(data, q, cand, k)
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if e.cpu_time_total == 0 and (e.self_device_time_total or 0) > 0),
+                     key=lambda e: e.time_range.start)
+    gaps = [i for i in range(1, len(kernels))
+            if kernels[i].time_range.start - kernels[i - 1].time_range.end > 10_000]
+    names = [e.name for e in (kernels[gaps[-1]:] if gaps else kernels)]
+    launched = {name: sum(name in n for n in names)
+                for name in ("verify_entries_kernel", "verify_tile_", "verify_dist_kernel",
+                             "topk_kernel")}
+    assert launched == {"verify_entries_kernel": 2, "verify_tile_": 3,
+                        "verify_dist_kernel": 1, "topk_kernel": 2}
+    assert not any("select_" in n for n in names)
+
+
 @pytest.mark.parametrize("n", [2048, 9000])
 def test_flat_facade_matches_plain(cuda, n):
     """The whole flat path on the card: kernels against plain versions."""
@@ -361,8 +468,24 @@ def _topk_input(name, device):
                "k_128": (5, 9000, 128), "short_row": (4, 700, 10),
                "ragged": (2, 2049 * 3 + 5, 33), "all_equal": (3, 4100, 16),
                "few_finite": (3, 3000, 8), "nan_and_zeros": (2, 2500, 20),
-               "k_equals_N": (2, 40, 40)}[name]
+               "k_equals_N": (2, 40, 40), "verify_shape": (64, 96704, 10),
+               "ascending": (4, 50000, 10), "descending": (4, 50000, 10),
+               "over_one_split": (3, 8192 + 3, 128), "signed_zeros": (2, 20000, 32),
+               "nan_inf": (3, 20000, 12)}[name]
     d = torch.rand((B, N), generator=g, device=device)
+    if name == "ascending":
+        d = torch.sort(d, 1).values
+    elif name == "descending":  # every key passes the threshold: sorts every chunk
+        d = torch.sort(d, 1, descending=True).values
+    elif name == "signed_zeros":
+        d[0, ::7] = 0.0
+        d[0, 3::11] = -0.0
+        d[1, 5::13] = -0.0
+    elif name == "nan_inf":
+        d[0, ::3] = float("nan")
+        d[1, :19990] = float("nan")
+        d[1, 19995:] = float("inf")
+        d[2, ::2] = float("inf")
     if name == "all_equal":
         d = torch.full((B, N), 7.0, device=device)
     elif name == "few_finite":
@@ -378,7 +501,8 @@ def _topk_input(name, device):
 
 @pytest.mark.parametrize("name", ["delta_scan", "merge", "k_1", "k_128", "short_row",
                                   "ragged", "all_equal", "few_finite", "nan_and_zeros",
-                                  "k_equals_N"])
+                                  "k_equals_N", "verify_shape", "ascending", "descending",
+                                  "over_one_split", "signed_zeros", "nan_inf"])
 def test_topk_matches_plain(cuda, name):
     d, k = _topk_input(name, cuda)
     before = counts.LAUNCHES["topk_smallest"]

@@ -206,3 +206,34 @@ def test_last_select_budget_matches_jax(n, fused):
     assert ti.last_select_budget == ji.last_select_budget == candidate_budget(
         ti.impl.params, n, 10)
     np.testing.assert_array_equal(ti.last_select_counts, ji.last_select_counts)
+
+
+@pytest.mark.parametrize("call", ["search", "cp_search"])
+def test_facade_span_roots_match_jax(call):
+    """Traced, the port's facade opens the reference's root span with its
+    attrs: ``index.search`` (backend, B, k and the batch's WorkStats as
+    ``work``) and ``index.cp_search`` (backend, k, work).  The stage and
+    kernel spans below it (``ann.*``, ``cp.*``, ``kernel.*``) come with
+    the rest of obs, so only the roots are compared."""
+    from repro.obs import trace as jtrace
+    from repro_torch.obs import trace
+
+    x = np.random.default_rng(0).standard_normal((2000, 16)).astype(np.float32)
+    ji, ti = _pair(x, {"force": "ref"})
+    q = _queries(x, 3, seed=1)
+    run = (lambda index: index.search(q, 5)) if call == "search" else (
+        lambda index: index.cp_search(5))
+    with jtrace.trace() as jtr:
+        run(ji)
+    with trace.trace() as ttr:
+        res = run(ti)
+    jroots = [s for s in jtr.spans if s.parent == -1]
+    troots = [s for s in ttr.spans if s.parent == -1]
+    assert [s.name for s in troots] == [s.name for s in jroots] == ["index." + call]
+    jattrs, tattrs = jroots[0].attrs, troots[0].attrs
+    assert sorted(tattrs) == sorted(jattrs)
+    assert {k: v for k, v in tattrs.items() if k != "work"} == {
+        k: v for k, v in jattrs.items() if k != "work"}
+    assert tattrs["work"] == res.stats.as_dict()
+    assert sorted(tattrs["work"]) == sorted(jattrs["work"])
+    assert not trace.enabled()

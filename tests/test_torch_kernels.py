@@ -438,6 +438,149 @@ def test_verify_k_over_128_routes_to_plain():
 
 
 # ---------------------------------------------------------------------------
+# verify_topk: the CUDA kernel's schedule (csrc/verify.cu)
+# ---------------------------------------------------------------------------
+#
+# The CUDA kernel sorts a batch's (query, position) entries by row id with
+# a counting sort (count with ranks, scan, scatter), reads each distinct
+# row once per group of queries, writes each d² at its (query, position)
+# of a (B, max(Tc, k)) buffer of +inf, and answers through topk_smallest.
+# This model repeats that schedule step by step; it must give ref's ids
+# exactly and its d² to rtol 1e-5 (both sum the difference form, in
+# float32, in another order), and read each distinct row once a group.
+
+
+def _verify_schedule(data, q, cand, k, group):
+    """(d² (B, k), ids (B, k), rows read) by csrc/verify.cu's schedule."""
+    n, d = data.shape
+    B, Tc = cand.shape
+    W = max(Tc, k)
+    x, qt = _t(data), _t(q)
+    dist = np.empty((B, W), np.float32)
+    rows_read = 0
+    for g0 in range(0, B, group):
+        G = min(group, B - g0)
+        ids = np.full((G, W), -1, np.int64)
+        ids[:, :Tc] = cand[g0:g0 + G]
+        ids[(ids < 0) | (ids >= n)] = -1
+        e = (g0 + np.arange(G))[:, None] * W + np.arange(W)[None, :]
+        ids, e = ids.reshape(-1), e.reshape(-1)
+        real = ids >= 0
+        dist.reshape(-1)[e[~real]] = np.inf  # padding: +inf for good
+        # 1. count: each entry takes the next rank of its row (the atomics'
+        # order is any order; here the entries' own)
+        counts = np.zeros(n, np.int64)
+        rank = np.zeros(ids.size, np.int64)
+        for i in np.flatnonzero(real):
+            rank[i] = counts[ids[i]]
+            counts[ids[i]] += 1
+        # 2. scan: each row's offset, and the compact list of non-empty rows
+        offset = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        rows = np.flatnonzero(counts)
+        starts = np.append(offset[rows], counts.sum())
+        # 3. scatter: each entry at its row's offset plus its rank
+        entries = np.full(counts.sum(), -1, np.int64)
+        entries[offset[ids[real]] + rank[real]] = e[real]
+        assert (entries >= 0).all()  # every slot filled once
+        # 4. distance: one read of each non-empty row, d² for its entries
+        for j, r in enumerate(rows):
+            ent = entries[starts[j]:starts[j + 1]]
+            rows_read += 1
+            d2 = ((x[r][None, :] - qt[ent // W]) ** 2).sum(-1)
+            dist.reshape(-1)[ent] = d2.numpy()
+    # 5. answer: the k smallest by (d², position), positions mapped to ids
+    vals, sel = ref.topk_smallest(_t(dist), k)
+    padded = np.full((B, W), -1, np.int64)
+    padded[:, :Tc] = cand
+    ids = np.take_along_axis(padded, sel.numpy().astype(np.int64), 1)
+    ids = np.where(np.isinf(vals.numpy()), -1, ids)
+    return vals.numpy(), ids.astype(np.int32), rows_read
+
+
+def _verify_schedule_case(name):
+    """(data, q, cand, k, group) for the schedule's edges."""
+    if name.startswith("existing_"):
+        B, n, d, Tc, k, pad = {
+            "existing_1": (1, 50, 8, 10, 1, 0), "existing_2": (3, 300, 24, 80, 10, 0),
+            "existing_3": (7, 129, 33, 64, 10, 20), "existing_4": (2, 40, 12, 6, 10, 2),
+            "existing_5": (4, 513, 96, 200, 1, 0)}[name]
+        data, q, cand = _verify_inputs(B, n, d, Tc, pad, seed=B * 100 + n + Tc)
+        return data, q, cand, k, 3
+    rng = np.random.default_rng(len(name))
+    data = rng.normal(size=(300, 16)).astype(np.float32)
+    q = rng.normal(size=(6, 16)).astype(np.float32)
+    cand = np.stack([rng.permutation(300)[:40] for _ in range(6)]).astype(np.int32)
+    k, group = 10, 4
+    if name == "hot_row":  # one row named by every query
+        cand[:, 7] = 123
+        cand[:, 7 - np.arange(6) % 3] = 123
+        cand = np.where((cand == 123) & (np.arange(40)[None] != 7), (cand + 1) % 300, cand)
+        cand[:, 7] = 123
+    elif name == "duplicates":  # a row twice in one query's list: both entries answer
+        q[0] = data[5] + 0.01
+        cand[0, [3, 30]] = 5
+    elif name == "all_padding":
+        cand[2] = -1
+        cand[4, 1:] = -1
+    elif name == "tc_below_k":
+        cand, k = cand[:, :6], 10
+        cand[1, 4:] = -1
+    elif name == "k_1":
+        k = 1
+    elif name == "k_128":
+        cand = np.stack([rng.permutation(300)[:200] for _ in range(6)]).astype(np.int32)
+        k = 128
+    elif name == "exact_ties":  # equal rows: the earlier position answers first
+        data[9], data[8] = data[3], data[4]
+        q[:] = data[3] + 0.01
+        cand[:, :4] = [[9, 3, 8, 4]] * 6
+        cand[3, :4] = [3, 9, 4, 8]
+    elif name == "nan_row":  # NaN d² sorts after +inf and keeps its id
+        data[17, 2] = np.nan
+        others = np.delete(np.arange(300), 17)
+        cand = np.stack([rng.permutation(others)[:40] for _ in range(6)]).astype(np.int32)
+        cand[:, 0] = 17
+        cand[1, 5:] = -1
+        k = 40
+    elif name == "one_group":
+        group = 6
+    return data, q, cand, k, group
+
+
+VERIFY_SCHEDULE_CASES = ["existing_1", "existing_2", "existing_3", "existing_4", "existing_5",
+                         "hot_row", "duplicates", "all_padding", "tc_below_k", "k_1", "k_128",
+                         "exact_ties", "nan_row", "one_group"]
+
+
+@pytest.mark.parametrize("name", VERIFY_SCHEDULE_CASES)
+def test_verify_schedule_matches_plain(name):
+    """The counting-sort schedule gives ref.verify_topk's ids exactly and
+    its d² to rtol 1e-5, and the JAX kernel's (in interpret mode; the
+    NaN row aside: the TPU kernel's norm trick answers it otherwise).
+    Each distinct row is read once a group of queries."""
+    data, q, cand, k, group = _verify_schedule_case(name)
+    gv, gi, read = _verify_schedule(data, q, cand, k, group)
+    wv, wi = ref.verify_topk(_t(data), _t(q), _t(cand), k)
+    np.testing.assert_array_equal(gi, wi.numpy())
+    np.testing.assert_allclose(gv, wv.numpy(), **TOL)
+    n = data.shape[0]
+    want_read = sum(np.unique(c[(c >= 0) & (c < n)]).size
+                    for c in np.split(cand, range(group, cand.shape[0], group)))
+    assert read == want_read
+    if name != "nan_row":
+        pv, pi = verify_topk_pallas(jnp.asarray(data), jnp.asarray(q), jnp.asarray(cand), k,
+                                    interpret=True)
+        np.testing.assert_array_equal(gi, np.asarray(pi))
+        np.testing.assert_allclose(gv, np.asarray(pv), **TOL)
+    if name == "duplicates":
+        assert gi[0, :2].tolist() == [5, 5]
+    if name == "nan_row":
+        assert np.isnan(gv[0]).sum() == 1 and gi[0][np.isnan(gv[0])].tolist() == [17]
+    if name == "hot_row":
+        assert read < sum(np.unique(c[c >= 0]).size for c in cand)  # 123 once a group
+
+
+# ---------------------------------------------------------------------------
 # topk_smallest
 # ---------------------------------------------------------------------------
 
@@ -510,6 +653,138 @@ def test_topk_rejects_k_out_of_range():
         ops.topk_smallest(torch.zeros(2, 5), 6)
     with pytest.raises(ValueError, match="out of range"):
         ops.topk_smallest(torch.zeros(2, 5), 0)
+
+
+# ---------------------------------------------------------------------------
+# topk_smallest: the CUDA kernel's threshold-filter schedule (csrc/topk.cu)
+# ---------------------------------------------------------------------------
+#
+# Each block reads its split in chunks, keys (value bits made monotone,
+# column) compared with a threshold as they are read; only keys at or
+# below it enter the buffer, which is sorted when it could not take
+# another chunk and at the split's end.  This model repeats the schedule
+# with the kernel's constants (and with smaller ones, so that small rows
+# cross several chunks and splits) and must agree with ref.topk_smallest
+# bit for bit.
+
+_PAD = np.uint64(0xFFFFFFFFFFFFFFFF)
+
+
+def _topk_keys(v):
+    """topk.cu's topk_key over a float32 row: (monotone bits, column)."""
+    bits = v.view(np.uint32).copy()
+    bits[bits == 0x80000000] = 0  # −0.0 ties with +0.0
+    bits = np.where(bits & 0x80000000, ~bits, bits | np.uint32(0x80000000))
+    bits[np.isnan(v)] = 0xFFFFFFFF  # NaN after +inf
+    return (bits.astype(np.uint64) << np.uint64(32)) | np.arange(v.size, dtype=np.uint64)
+
+
+def _topk_split(keys, k, threads, per, stats):
+    """One block's loop over its split's keys: the k smallest, padded."""
+    chunk = threads * per
+    buf, thr = [], _PAD
+    for base in range(0, keys.size, chunk):
+        c = np.full(chunk, _PAD, np.uint64)
+        c[:min(chunk, keys.size - base)] = keys[base:base + chunk]
+        if base == 0 and keys.size > threads:  # k-th of the threads' minima
+            thr = np.sort(c.reshape(per, threads).min(0))[k - 1]
+        kept = c[(c <= thr) & (c != _PAD)]
+        buf.extend(kept.tolist())
+        assert len(buf) <= 2 * chunk  # the shared buffer never overflows
+        if len(buf) > chunk or base + chunk >= keys.size:
+            stats["sorted"] += len(buf)
+            buf = sorted(buf)[:k]
+            if len(buf) == k:
+                thr = np.uint64(buf[k - 1])
+    return np.array(buf + [int(_PAD)] * (k - len(buf)), np.uint64)
+
+
+def _topk_schedule(d, k, *, threads=256, per=8, split_min=8192, wave=1056):
+    """(values, indices, stats) by topk.cu's grid: S splits of a row, then
+    the same loop over the S·k partial keys."""
+    B, N = d.shape
+    S = min(-(-N // split_min), max(1, wave // B))
+    R = max(-(-N // S), min(split_min, N))
+    S = -(-N // R)
+    stats = {"sorted": 0, "keys": B * N}
+    vals = np.empty((B, k), np.float32)
+    idx = np.empty((B, k), np.int32)
+    for b in range(B):
+        keys = _topk_keys(d[b])
+        parts = [_topk_split(keys[s * R:(s + 1) * R], k, threads, per, stats) for s in range(S)]
+        final = parts[0] if S == 1 else _topk_split(np.concatenate(parts), k, threads, per,
+                                                    stats)
+        assert (final != _PAD).all()
+        cols = (final & np.uint64(0xFFFFFFFF)).astype(np.int64)
+        vals[b], idx[b] = d[b, cols], cols
+    return vals, idx, stats
+
+
+def _topk_schedule_case(name):
+    """(d, k, small): small runs the model with 32 threads of 4 keys and
+    splits of 256, so short rows cross chunks and splits."""
+    rng = np.random.default_rng(len(name) + 7)
+    if name == "ascending":
+        return np.sort(rng.random((3, 3000)).astype(np.float32), 1), 10, True
+    if name == "descending":  # every key enters the buffer
+        return -np.sort(-rng.random((3, 3000)).astype(np.float32), 1), 10, True
+    if name == "all_equal":
+        return np.full((2, 2000), 3.0, np.float32), 16, True
+    if name == "few_finite":
+        d = np.full((3, 1500), np.inf, np.float32)
+        d[0, [700, 3]] = [2.0, 1.0]
+        d[1, ::100] = rng.random(15).astype(np.float32)
+        return d, 20, True
+    if name == "signed_zeros":
+        d = rng.random((2, 1200)).astype(np.float32)
+        d[0, ::7] = 0.0
+        d[0, 3::11] = -0.0
+        d[1, 5::13] = -0.0
+        return d, 32, True
+    if name == "nan_inf":
+        d = rng.random((3, 1000)).astype(np.float32)
+        d[0, ::3] = np.nan
+        d[1, :990] = np.nan
+        d[1, 995:] = np.inf
+        d[2, ::2] = np.inf
+        return d, 12, True
+    if name == "k_1":
+        return (rng.normal(size=(4, 2000)) ** 2).astype(np.float32), 1, True
+    if name == "k_128":
+        return (rng.normal(size=(2, 20000)) ** 2).astype(np.float32), 128, False
+    if name == "over_one_buffer":  # the kernel's own constants: N just past a split
+        return (rng.normal(size=(2, 8192 + 3)) ** 2).astype(np.float32), 10, False
+    if name == "merge_shape":  # the stream merge's (B, tens): one split, no minima
+        return rng.random((5, 47)).astype(np.float32), 10, False
+    raise KeyError(name)
+
+
+TOPK_SCHEDULE_CASES = ["ascending", "descending", "all_equal", "few_finite", "signed_zeros",
+                       "nan_inf", "k_1", "k_128", "over_one_buffer", "merge_shape"]
+
+
+@pytest.mark.parametrize("name", TOPK_SCHEDULE_CASES)
+def test_topk_threshold_schedule_matches_sort(name):
+    """The threshold filter and its sorts give the stable sort's answer
+    bit for bit (ref, and the JAX oracle but where −0.0 and +0.0 meet:
+    lax.top_k puts −0.0 first, the stable sort ties them); on an
+    ascending row almost no key reaches a sort."""
+    d, k, small = _topk_schedule_case(name)
+    consts = dict(threads=32, per=4, split_min=256, wave=16) if small else {}
+    gv, gi, stats = _topk_schedule(d, k, **consts)
+    wv, wi = ref.topk_smallest(_t(d), k)
+    np.testing.assert_array_equal(gi, wi.numpy())
+    np.testing.assert_array_equal(gv.view(np.int32), wv.numpy().view(np.int32))
+    jv, ji = jref.topk_smallest(d, k)
+    if name == "signed_zeros":
+        assert not np.array_equal(gi, np.asarray(ji))  # the deviation, ROADMAP §C
+        assert (np.asarray(jv) == gv).all()  # the same values, −0.0 == +0.0
+    else:
+        np.testing.assert_array_equal(gi, np.asarray(ji))
+    if name == "ascending":
+        assert stats["sorted"] < stats["keys"] / 10
+    if name == "descending":
+        assert stats["sorted"] > stats["keys"] / 2
 
 
 # ---------------------------------------------------------------------------

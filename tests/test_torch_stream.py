@@ -456,10 +456,46 @@ def test_traced_search_splits_into_segment_delta_and_merge():
     with trace.trace() as tr:
         ti.search(_queries(data, 4, seed=27), K)
     names = [s.name for s in tr.spans]
-    assert names == ["stream.search", "stream.segment", "stream.delta", "stream.merge"]
-    assert all(s.parent == 0 for s in tr.spans[1:])
-    assert tr.spans[1].attrs["size"] == 2000 and tr.spans[2].attrs["size"] == 40
+    # the facade's root, then the stream's split; the sealed segment's
+    # own flat facade opens its index.search inside stream.segment
+    assert names == ["index.search", "stream.search", "stream.segment", "index.search",
+                     "stream.delta", "stream.merge"]
+    assert [s.parent for s in tr.spans] == [-1, 0, 1, 2, 1, 1]
+    assert tr.spans[0].attrs["backend"] == "streaming"
+    assert tr.spans[2].attrs["size"] == 2000 and tr.spans[4].attrs["size"] == 40
     assert not trace.enabled()
+
+
+def test_traced_search_spans_match_jax():
+    """The port's span tree is the reference's without the stage and
+    kernel spans (``ann.*``, ``kernel.*``), which come with the rest of
+    obs."""
+    from repro.obs import trace as jtrace
+
+    data = make_clustered(2000, D, seed=25)
+    ji, ti = _pair(data)
+    extra = make_clustered(40, D, seed=26)
+    ji.insert(extra)
+    ti.insert(extra)
+    q = _queries(data, 4, seed=27)
+    with jtrace.trace() as jtr:
+        ji.search(q, K)
+    with trace.trace() as ttr:
+        ti.search(q, K)
+
+    def tree(spans, keep):
+        kept = [i for i, s in enumerate(spans) if keep(s.name)]
+
+        def parent(i):  # the nearest kept ancestor
+            p = spans[i].parent
+            while p != -1 and p not in kept:
+                p = spans[p].parent
+            return kept.index(p) if p != -1 else -1
+
+        return [(spans[i].name, parent(i)) for i in kept]
+
+    want = tree(jtr.spans, lambda name: name.startswith(("index.", "stream.")))
+    assert tree(ttr.spans, lambda name: True) == want
 
 
 def test_cpu_run_launches_no_kernel():
