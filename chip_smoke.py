@@ -45,7 +45,10 @@ Phases, each printing one JSON line:
            active dimensions): ``flat`` ``cp_search(k=10)`` at cp_c = 4,
            γ = 1, counts read around it; pairs and counters identical to
            the plain path's; the pair_join kernel against its plain
-           version on the sorted rows (pairs, counters, bands joined);
+           version on the sorted rows (pairs, counters, bands joined),
+           one CUDA launch a call (counted from a trace) and no host sync
+           (``torch.cuda.set_sync_debug_mode("error")``), a repeat call
+           bit for bit;
            recall@10 against an exact float64 brute force on the card;
            the median cp_search time; a profile; then one ``flat-pq``
            cp_search (R = 1024 > 128 takes the plain join's route).
@@ -75,8 +78,11 @@ Phases, each printing one JSON line:
            time (the ladder, the two histogram passes, the compaction),
            verify_topk's its launches' (count, scan, scatter, distance,
            topk), its traffic model and the rows its distance pass read,
-           and topk_smallest's a second timing at verify's shape
-           (64, T, 10).
+           pair_join's its CUDA launches and host syncs a call, its
+           launch's device time, the time of its tile phases and of its
+           plan-and-fold phases by the card's clock, its groups of bands
+           and the tiles it computed and merged, and topk_smallest's a
+           second timing at verify's shape (64, T, 10).
 
 Then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -246,6 +252,24 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def host_syncs(torch, fn) -> int:
+    """Host syncs one ``fn()`` makes, as PyTorch's sync debug mode sees
+    them (a warning each)."""
+    import warnings
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
 
 
 def nvidia_smi() -> str:
@@ -627,12 +651,42 @@ def cp_phase(torch, dev, seed: int) -> dict:
           "pair_join: pair set differs from the plain version's")
     join_identical = torch.equal(ki, pi) and torch.equal(kj, pj)
     pairs_verified, tiles_pruned, bands = kstats.tolist()
+
+    # one cooperative launch and no host sync a call, and a repeat call
+    # bit for bit; the sweep's own account of its phases by the card's clock
+    def join():
+        return kjoin.pair_join(xs, ks, K, thresh2=thresh2)
+
+    *again, sweep = kjoin.pair_join(xs, ks, K, thresh2=thresh2, sweep=True)
+    check(all(torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                          b.view(torch.int32) if b.dtype == torch.float32 else b)
+              for a, b in zip((kv, ki, kj, kstats), again)),
+          "pair_join: a repeat call differs from the first, bit for bit")
+    tile_ns, fold_ns, groups, tiles_computed, merges = sweep.tolist()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        join()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = host_syncs(torch, join)
+    check(syncs == 0, f"pair_join: {syncs} host syncs a call")
+    traced = traced_calls(torch, join)
+    kernels = [[(n, ms) for n, ms in run if "emcpy" not in n and "emset" not in n]
+               for run in traced]
+    cuda_launches = statistics.mode(len(run) for run in kernels)
+    check(cuda_launches == 1 and all("pair_join_kernel" in run[0][0]
+                                     for run in kernels if len(run) == 1),
+          f"pair_join: {[[n for n, _ in run] for run in kernels]} CUDA launches a call")
+    launch_device_ms = statistics.median(run[0][1] for run in kernels if len(run) == 1)
     n_ti = -(-AUDIO_N // 128)
     tiles = n_ti * (n_ti + 1) // 2
     emit({"phase": "cp", "n": AUDIO_N, "d": AUDIO_D, "k": K, "cp_c": cfg.cp_c, "gamma": 1.0,
           "thresh2": thresh2, "launches": used["launches"], "routes": used["routes"],
           "pairs_identical_to_plain": True, "counters_identical_to_plain": True,
           "join_positions_identical_to_plain": join_identical,
+          "join_repeat_identical": True, "join_cuda_launches": cuda_launches,
+          "join_host_syncs": syncs,
           "pairs_verified": pairs_verified, "tiles_pruned": tiles_pruned, "tiles": tiles,
           "bands_joined": bands, "bands": n_ti, "all_pairs": AUDIO_N * (AUDIO_N - 1) // 2,
           "recall_at_10": recall, "median_cp_search_ms": cp_ms,
@@ -669,7 +723,12 @@ def cp_phase(torch, dev, seed: int) -> dict:
             "ops": 2 * AUDIO_D * pairs_verified,
             "extra": {"tile_traffic_model_ms": tile_rows / PEAK_BYTES_PER_S * 1e3,
                       "tiles_joined": tiles - tiles_pruned, "bands_joined": bands,
-                      "pairs_verified": pairs_verified}}
+                      "pairs_verified": pairs_verified, "cuda_launches": cuda_launches,
+                      "host_syncs": syncs, "launch_device_ms": launch_device_ms,
+                      "tile_phase_ms": tile_ns / 1e6, "fold_phase_ms": fold_ns / 1e6,
+                      "groups": groups, "tiles_computed": tiles_computed,
+                      "extra_tiles": tiles_computed - (tiles - tiles_pruned),
+                      "merges": merges}}
 
 
 

@@ -18,6 +18,7 @@ probability ≤ 2Φ(−γt).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -41,10 +42,12 @@ class CpFusedResult:
     tiles_pruned: int  # tiles skipped by the γ·t·ub filter
 
 
+@functools.lru_cache(maxsize=64)
 def cp_threshold2(c: float, m: int, gamma: float,
                   alpha1: float = 1.0 / math.e) -> float:
     """(γ·t)², the squared radius-filter multiplier of Algorithm 4; t
-    from the Eq. 10 solve at (c, m, α₁)."""
+    from the Eq. 10 solve at (c, m, α₁), solved once per argument set
+    (the solve is host work the card would wait on every call)."""
     t = solve_parameters(c, m=m, alpha1=alpha1).t
     return float(gamma * t) ** 2
 
@@ -103,19 +106,25 @@ def cp_fused_search(
     xs, ks = data[order].contiguous(), key[order].contiguous()
     thresh2 = cp_threshold2(c, m, gamma)
     _, pi, pj, stats = kops.pair_join(xs, ks, kk, thresh2=thresh2, force=force)
-    stats = stats.tolist()
 
+    # no host read until the answer: the join's padding slots (−1) map to
+    # row 0 and sort last as NaN, then one copy brings everything back
     real = pi >= 0
-    ids_a = order[pi[real].to(torch.int64)]
-    ids_b = order[pj[real].to(torch.int64)]
+    ids_a = order[pi.clamp_min(0).to(torch.int64)]
+    ids_b = order[pj.clamp_min(0).to(torch.int64)]
     pairs = torch.stack([torch.minimum(ids_a, ids_b), torch.maximum(ids_a, ids_b)], 1)
     # the join ranks pairs by norm-trick distances, which cancel exactly
     # where closest pairs live (near-duplicates): recompute the k winners
     # in the difference form and re-sort
     diff = data[pairs[:, 0]] - data[pairs[:, 1]]
-    dists = torch.sqrt((diff * diff).sum(1))
+    dists = torch.where(real, torch.sqrt((diff * diff).sum(1)), float("nan"))
     resort = torch.sort(dists, stable=True).indices
-    return CpFusedResult(pairs=pairs[resort].to(torch.int32).cpu().numpy(),
-                         distances=dists[resort].cpu().numpy(),
-                         pairs_verified=int(stats[0]),
-                         tiles_pruned=int(stats[1]))
+    host = torch.cat([pairs[resort].to(torch.int64).reshape(-1),
+                      dists[resort].view(torch.int32).to(torch.int64),
+                      stats, real.sum().reshape(1)]).cpu().numpy()
+    m = int(host[-1])
+    pairs_h = host[:2 * kk].reshape(kk, 2)[:m].astype(np.int32)
+    dists_h = host[2 * kk:3 * kk].astype(np.int32).view(np.float32)[:m]
+    return CpFusedResult(pairs=pairs_h, distances=dists_h,
+                         pairs_verified=int(host[3 * kk]),
+                         tiles_pruned=int(host[3 * kk + 1]))

@@ -47,8 +47,8 @@ SIGNATURES = {
     "verify_topk_launch": (_I, [_P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _P]),
     "adc_dist_launch": (_I, [_P, _L, _P, _P, _I, _I, _I, _I, _P]),
-    "pair_join_bands_launch": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _I, _D,
-                                    _P, _P, _P, _P, _P, _P, _P, _P]),
+    "pair_join_scratch_bytes": (_L, [_I, _I, _I]),
+    "pair_join_launch": (_I, [_P, _P, _I, _I, _I, _I, _D, _P, _P, _P, _P, _P, _L, _P]),
     "topk_smallest_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "project_dist_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }

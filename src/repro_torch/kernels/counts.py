@@ -20,7 +20,7 @@ LAUNCHES: dict[str, int] = {
     "radius_select": 0,          # one count per call: 4 CUDA launches and a memset
     "verify_topk": 0,            # one count per call: counting sort, distances, topk
     "adc_dist": 0,               # one count per call: one launch
-    "pair_join": 0,              # one count per call: two launches per band
+    "pair_join": 0,              # one count per call: one cooperative launch
     "topk_smallest": 0,          # one count per call: one launch, or two (splits + merge)
     "project_dist": 0,           # one count per call: one launch
 }

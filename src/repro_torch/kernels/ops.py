@@ -177,6 +177,13 @@ def pair_join(x: torch.Tensor, key: torch.Tensor, k: int, *, thresh2: float,
     disables pruning.  k > 128 is past the kernel's pair heap and takes
     the plain version on every device, as the reference routes it
     (ops.py:268).
+
+    The CUDA kernel is bound by float32 multiply-adds on CUDA cores (2·d
+    flops a verified pair).  Where the TPU kernel walks its tiles in one
+    serial grid, it runs the sweep as one cooperative launch: groups of
+    bands whose candidate tiles the whole card joins under the group's
+    first ub², each folded in order by one warp, 32 tiles a ballot, with
+    no read back to the host.
     """
     if k > _pair_join.MAX_K:
         counts.route("pair_join.k_over_128")

@@ -387,14 +387,17 @@ def _pair_join_case(name):
     n, d, k, t2 = {"single_tile": (64, 8, 5, np.inf), "partial_tile": (100, 12, 1, 9.0),
                    "live_pruning": (300, 16, 10, 16.0), "ragged": (513, 24, 16, 16.0),
                    "fewer_pairs_than_k": (4, 6, 10, np.inf), "k_128": (1000, 32, 128, 16.0),
-                   "many_bands": (6000, 48, 10, 16.0), "gamma_0": (700, 16, 10, 0.0)}[name]
+                   "many_bands": (6000, 48, 10, 16.0), "gamma_0": (700, 16, 10, 0.0),
+                   "several_groups": (20000, 64, 10, 16.0),  # bands in several groups
+                   "d_not_multiple_of_4": (3000, 33, 10, 16.0)}[name]  # 4-byte copies
     x = rng.normal(size=(n, d)).astype(np.float32)
     return (*_sorted_rows(x, n), k, t2)
 
 
 @pytest.mark.parametrize("name", ["single_tile", "partial_tile", "live_pruning", "ragged",
                                   "two_clusters", "fewer_pairs_than_k", "k_128",
-                                  "many_bands", "gamma_0"])
+                                  "many_bands", "gamma_0", "several_groups",
+                                  "d_not_multiple_of_4"])
 def test_pair_join_matches_plain(cuda, name):
     xs, ks, k, t2 = _pair_join_case(name)
     x, key = torch.from_numpy(xs).to(cuda), torch.from_numpy(ks).to(cuda)
@@ -409,6 +412,26 @@ def test_pair_join_matches_plain(cuda, name):
     torch.testing.assert_close(gv, wv, rtol=1e-4, atol=atol)
     if name == "two_clusters":
         assert gs[1] > 0  # cross-cluster tiles pruned
+
+
+@pytest.mark.parametrize("name", ["many_bands", "d_not_multiple_of_4"])
+def test_pair_join_reads_nothing_back_and_repeats_bit_for_bit(cuda, name):
+    """No host sync a call, and a repeat call bit for bit: the kernel's
+    atomics decide which block computes a tile and where a key waits for
+    its sort, never the answer."""
+    xs, ks, k, t2 = _pair_join_case(name)
+    x, key = torch.from_numpy(xs).to(cuda), torch.from_numpy(ks).to(cuda)
+    ops.pair_join(x, key, k, thresh2=t2)  # builds and loads the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = ops.pair_join(x, key, k, thresh2=t2)
+        again = ops.pair_join(x, key, k, thresh2=t2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for a, b in zip(first, again):
+        assert torch.equal(a.view(torch.uint8) if a.dtype == torch.float32 else a,
+                           b.view(torch.uint8) if b.dtype == torch.float32 else b)
 
 
 @pytest.mark.parametrize("backend,options", [

@@ -788,6 +788,218 @@ def test_topk_threshold_schedule_matches_sort(name):
 
 
 # ---------------------------------------------------------------------------
+# pair_join: the schedule of csrc/pair_join.cu
+# ---------------------------------------------------------------------------
+#
+# One cooperative launch plans each group of bands under the ub² at its
+# start (the candidate tiles, in traversal order: one band while the heap
+# is not full, else bands until the group lists `target` tiles, spans
+# `max_bands` bands or meets a band that lists none), computes each
+# candidate's top-k by threshold (the k-th smallest of the threads' least
+# (d², position) keys; only keys at or below it and below the group's
+# first ub² are buffered and sorted), and folds the group in order, `warp`
+# tiles a ballot, merging by rank.  This model repeats the schedule on the
+# plain version's tile d², with the kernel's constants (256 threads of
+# 8 × 8 pairs, a warp of 32, 8 tiles a block of the H100's 264-block
+# grid, 512 bands a group) and with small ones, and must agree with
+# ref.pair_join bit for bit: d², pairs and counters.
+
+_PJ_PAD = np.uint64(0xFFFFFFFFFFFFFFFF)
+_PJ_KERNEL = dict(warp=32, target=8 * 264, side=16, max_bands=512)
+_PJ_SMALL = dict(warp=4, target=3, side=4, max_bands=2)
+
+
+def _pj_pruned(gap, thresh2, ub2):
+    """The skip test in double, as ref's host loop and the kernel make it."""
+    return gap > 0.0 and gap * gap > thresh2 * ub2
+
+
+def _pj_gap(key, n, bN, i, j):
+    return float(np.float32(key[j * bN] - key[min((i + 1) * bN, n) - 1]))
+
+
+def _pj_plan(key, n, bN, n_ti, b, ub2, thresh2, target, max_bands):
+    """plan_group: [(band, [(i, gap), ...]), ...] and the band after it."""
+    group, total = [], 0
+    while b < n_ti:
+        cands = [(i, g) for i in range(n_ti - b)
+                 for g in [_pj_gap(key, n, bN, i, i + b)] if not _pj_pruned(g, thresh2, ub2)]
+        group.append((b, cands))
+        total += len(cands)
+        b += 1
+        if not cands or not ub2 < np.inf or total >= target or len(group) == max_bands:
+            break
+    return group, b
+
+
+def _pj_tile_topk(d2, si, sj, ub2, k, side, stats):
+    """join_tile's top-k of one tile: (d² (k,), position (k,)), the
+    positions row·128 + col, (+inf, INT_MAX) past the pairs below ub2."""
+    mi, mj = d2.shape
+    full = np.full((128, 128), np.inf, np.float32)
+    full[:mi, :mj] = d2
+    rows, cols = np.arange(128)[:, None], np.arange(128)[None, :]
+    ok = (rows < mi) & (cols < mj) & (sj + cols > si + rows) & (full < np.float32(ub2))
+    pos = (rows * 128 + cols).astype(np.uint64)
+    keys = np.where(ok, (full.view(np.uint32).astype(np.uint64) << np.uint64(32)) | pos, _PJ_PAD)
+    # thread (ty, tx) holds the rows ty + side·u and the columns tx + side·v
+    least = keys.reshape(128 // side, side, 128 // side, side).min(axis=(0, 2)).ravel()
+    thr = np.sort(least)[k - 1] if k <= least.size else _PJ_PAD
+    buf = keys[(keys <= thr) & (keys != _PJ_PAD)]
+    assert buf.size <= (128 // side) ** 2 * k  # the buffer's bound: 64·k at the kernel's side
+    stats["buffered"].append(buf.size)
+    top = np.sort(buf)[:k]
+    v = np.full(k, np.inf, np.float32)
+    p = np.full(k, 2**31 - 1, np.int64)
+    v[:top.size] = (top >> np.uint64(32)).astype(np.uint32).view(np.float32)
+    p[:top.size] = (top & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    return v, p
+
+
+def _pj_merge(heap, tv, tp, i, b, bN, k):
+    """merge_tile: ranks by count_below / count_at_most, heap first on ties."""
+    hv, hi, hj = heap
+    nv, ni, nj = hv.copy(), hi.copy(), hj.copy()
+    for e in range(k):
+        ra = e + int(np.searchsorted(tv, hv[e], side="left"))
+        if ra < k:
+            nv[ra], ni[ra], nj[ra] = hv[e], hi[e], hj[e]
+        rb = e + int(np.searchsorted(hv, tv[e], side="right"))
+        if rb < k:
+            real = tp[e] != 2**31 - 1
+            nv[rb] = tv[e]
+            ni[rb] = i * bN + tp[e] // 128 if real else -1
+            nj[rb] = (i + b) * bN + tp[e] % 128 if real else -1
+    return nv, ni, nj
+
+
+def _pj_schedule(xs, ks, k, thresh2, *, warp, target, side, max_bands):
+    """(d², pi, pj, [pairs_verified, tiles_pruned, bands_joined], stats)
+    by the kernel's schedule."""
+    x = torch.from_numpy(xs)
+    norms = (x * x).sum(1)
+    n = xs.shape[0]
+    bN = ref._pair_join_block(n)
+    n_ti = -(-n // bN)
+    heap = (np.full(k, np.inf, np.float32), np.full(k, -1, np.int64), np.full(k, -1, np.int64))
+    pairs = pruned = bands = 0
+    stats = {"buffered": [], "band0_buffered": [], "merge_lanes": set(), "groups": 0,
+             "tiles": 0}
+    b, stop = 0, False
+    while not stop:
+        ub2 = float(heap[0][k - 1])
+        group, b = _pj_plan(ks, n, bN, n_ti, b, ub2, thresh2, target, max_bands)
+        stats["groups"] += 1
+        tops = {}
+        for bb, cands in group:
+            for i, _ in cands:
+                si, sj = i * bN, (i + bb) * bN
+                ei, ej = min(si + bN, n), min(sj + bN, n)
+                d2 = torch.clamp_min(norms[si:ei, None] + norms[None, sj:ej]
+                                     - 2.0 * (x[si:ei] @ x[sj:ej].T), 0.0).numpy()
+                tops[bb, i] = _pj_tile_topk(d2, si, sj, ub2, k, side, stats)
+                stats["tiles"] += 1
+                if bb == 0:
+                    stats["band0_buffered"].append(stats["buffered"][-1])
+        for bb, cands in group:  # fold_group
+            pruned += (n_ti - bb) - len(cands)
+            joined = 0
+            for c0 in range(0, len(cands), warp):
+                chunk = cands[c0:c0 + warp]
+                start = 0
+                while True:
+                    ub2_now = float(heap[0][k - 1])
+                    pr = [_pj_pruned(g, thresh2, ub2_now) for _, g in chunk]
+                    first = next((lane for lane in range(start, len(chunk))
+                                  if not pr[lane] and tops[bb, chunk[lane][0]][0][0] < ub2_now),
+                                 None)
+                    last = len(chunk) - 1 if first is None else first
+                    for lane in range(start, last + 1):
+                        if pr[lane]:
+                            pruned += 1
+                        else:
+                            joined += 1
+                            i = chunk[lane][0]
+                            mi, mj = min(bN, n - i * bN), min(bN, n - (i + bb) * bN)
+                            pairs += mi * (mi - 1) // 2 if bb == 0 else mi * mj
+                    if first is None:
+                        break
+                    i = chunk[first][0]
+                    heap = _pj_merge(heap, *tops[bb, i], i, bb, bN, k)
+                    stats["merge_lanes"].add(first)
+                    start = first + 1
+            if joined == 0:  # the stop band: every later tile is pruned
+                rest = n_ti - bb - 1
+                pruned += rest * (rest + 1) // 2
+                stop = True
+                break
+            bands += 1
+        stop = stop or b >= n_ti
+    return (heap[0], heap[1].astype(np.int32), heap[2].astype(np.int32),
+            [pairs, pruned, bands], stats)
+
+
+def _pj_case(name):
+    """(xs, ks, k, thresh2): rows sorted by key."""
+    rng = np.random.default_rng(len(name) + 11)
+
+    def sorted_rows(x):
+        key = (x @ rng.normal(size=(x.shape[1],))).astype(np.float32)
+        order = np.argsort(key, kind="stable")
+        return x[order], key[order]
+
+    if name == "two_far_clusters":
+        x = np.concatenate([rng.normal(size=(256, 8)),
+                            rng.normal(size=(256, 8)) + 500.0]).astype(np.float32)
+        order = np.argsort(x[:, 0], kind="stable")
+        return x[order], x[order, 0].copy(), 10, 16.0
+    if name == "merge_lanes":  # band 1 lists 33 tiles: a ballot of 32, then one
+        x = rng.normal(size=(34 * 128, 4)).astype(np.float32)
+        x = x[np.argsort(x[:, 0], kind="stable")]
+        for row in (32 * 128, 33 * 128):  # near-duplicates across tiles (31, 32), (32, 33)
+            x[row] = x[row - 1] + np.float32(1e-3)
+        return x, x[:, 0].copy(), 10, np.inf
+    if name == "ties":  # small integers: exact d², equal within and across tiles
+        return (*sorted_rows(rng.integers(0, 3, size=(600, 3)).astype(np.float32)), 20, 16.0)
+    n, d, k, t2 = {"band0_inf": (1200, 16, 10, 16.0), "fewer_pairs_than_k": (4, 6, 10, np.inf),
+                   "k_1": (513, 8, 1, 9.0), "k_128": (1000, 16, 128, 16.0),
+                   "thresh2_0": (700, 16, 10, 0.0), "thresh2_inf": (400, 8, 10, np.inf),
+                   "stop_band": (3000, 8, 10, 4.0), "ragged": (513, 24, 16, 16.0),
+                   "n_below_128": (100, 12, 5, 9.0)}[name]
+    return (*sorted_rows(rng.normal(size=(n, d)).astype(np.float32)), k, t2)
+
+
+PAIR_JOIN_SCHEDULE_CASES = ["band0_inf", "merge_lanes", "ties", "fewer_pairs_than_k", "k_1",
+                            "k_128", "thresh2_0", "thresh2_inf", "stop_band", "ragged",
+                            "two_far_clusters", "n_below_128"]
+
+
+@pytest.mark.parametrize("name", PAIR_JOIN_SCHEDULE_CASES)
+def test_pair_join_schedule_matches_serial_sweep(name):
+    """Group-start ub², threshold top-k and the 32-tile ballot fold give
+    ref.pair_join's answer and counters bit for bit, with the kernel's
+    constants and with small ones."""
+    xs, ks, k, t2 = _pj_case(name)
+    wv, wi, wj, ws = (t.numpy() for t in ref.pair_join(_t(xs), _t(ks), k, thresh2=t2))
+    n_ti = -(-xs.shape[0] // ref._pair_join_block(xs.shape[0]))
+    for consts in (_PJ_KERNEL, _PJ_SMALL):
+        gv, gi, gj, gs, stats = _pj_schedule(xs, ks, k, t2, **consts)
+        np.testing.assert_array_equal(gv.view(np.int32), wv.view(np.int32))
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(gj, wj)
+        assert gs == ws.tolist()
+        if consts is _PJ_KERNEL:
+            # band 0 (ub² = +inf) buffers about k keys a tile, not the tile
+            assert np.mean(stats["band0_buffered"]) <= 4 * k
+            if name == "merge_lanes":
+                assert {0, 31} <= stats["merge_lanes"]
+            if name == "stop_band":
+                assert ws[2] < n_ti - 1 and stats["groups"] > 1
+            if name == "ties":
+                assert (wv[1:] == wv[:-1]).any()
+
+
+# ---------------------------------------------------------------------------
 # project_dist
 # ---------------------------------------------------------------------------
 
