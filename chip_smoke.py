@@ -74,6 +74,10 @@ Phases, each printing one JSON line:
            path, its time by CUDA events and its device time by
            torch.profiler, its plain version's time, one PyTorch library
            call's, and its bound on the card from this run's inputs;
+           pairwise_sq_dist has an entry at each of the float path's
+           estimate shapes (B = 1, 16, 64, its launches at that B) and one
+           at the delta scan's largest (64, 32,768, 256), its launches the
+           stream's delta scans, each with its "shape";
            radius_select's entry also gives each of its launches' device
            time (the ladder, the two histogram passes, the compaction),
            verify_topk's its launches' (count, scan, scatter, distance,
@@ -766,7 +770,7 @@ def stream_phase(torch, dev, data, queries, seed: int, *, rounds: int = STREAM_R
     fresh = make_clustered_twin(rounds * batch, d, seed, rows_seed=seed + 5)
     rng = np.random.default_rng(seed + 6)
     qB = {B: queries[:B] for B in batches}
-    churn_s, used, batch_ms = 0.0, None, {}
+    churn_s, used, batch_ms, delta_scans = 0.0, None, {}, 0
     for r in range(rounds):
         t0 = time.perf_counter()
         rows = fresh[r * batch:(r + 1) * batch]
@@ -791,6 +795,13 @@ def stream_phase(torch, dev, data, queries, seed: int, *, rounds: int = STREAM_R
         check(used["launches"]["topk_smallest"] == topk_per_search * len(batches),
               f"stream path launched topk_smallest {used['launches']['topk_smallest']} "
               f"times, expected {topk_per_search} a search")
+        # pairwise: one estimate a sealed segment, one delta scan a non-empty delta
+        scans = len(batches) if index.delta_size else 0
+        check(used["launches"]["pairwise_sq_dist"]
+              == index.segment_count * len(batches) + scans,
+              f"stream path launched pairwise_sq_dist {used['launches']['pairwise_sq_dist']} "
+              f"times for {index.segment_count} segments and {scans} delta scans")
+        delta_scans += scans
         for B in batches:
             check(np.array_equal(answers[B].indices, twin.search(qB[B], K).indices),
                   f"stream after round {r + 1} at B={B}: ids differ from the plain twin's")
@@ -836,8 +847,10 @@ def stream_phase(torch, dev, data, queries, seed: int, *, rounds: int = STREAM_R
     # the topk kernel at the delta scan's largest shape: a full delta of
     # `threshold` rows, the moment before it is sealed
     q = torch.from_numpy(qB[B]).to(dev)
-    d2 = ops.pairwise_sq_dist(q, torch.from_numpy(fresh[:threshold]).to(dev))
-    return {"launches": used["launches"]["topk_smallest"], "d2": d2}
+    x_delta = torch.from_numpy(fresh[:threshold]).to(dev)
+    d2 = ops.pairwise_sq_dist(q, x_delta)
+    return {"launches": used["launches"]["topk_smallest"], "d2": d2, "q": q,
+            "x_delta": x_delta, "delta_scans": delta_scans}
 
 
 def stream_cp_phase(torch, dev, audio: np.ndarray, exact: set, seed: int,
@@ -1012,7 +1025,11 @@ def main(argv=None) -> int:
 
     # -- the fused main path -------------------------------------------------
     counts.reset()
-    answers = {B: index.search(queries[:B], K) for B in BATCHES}
+    answers, pairwise_at = {}, {}
+    for B in BATCHES:  # in turns: each B's own pairwise launches
+        before = counts.LAUNCHES["pairwise_sq_dist"]
+        answers[B] = index.search(queries[:B], K)
+        pairwise_at[B] = counts.LAUNCHES["pairwise_sq_dist"] - before
     fused_counts = counts.snapshot()
     for name in ("pairwise_sq_dist", "radius_select", "verify_topk"):
         check(fused_counts["launches"][name] > 0, f"fused path never launched {name}")
@@ -1075,7 +1092,7 @@ def main(argv=None) -> int:
     proj = project_phase(torch, dev, impl.data, q64, args.seed)
 
     # -- per-kernel times at the main path's shapes (B = 64) ------------------
-    B, n, m, d = 64, impl.n, impl.m, impl.d
+    B, n, d = 64, impl.n, impl.d
     x_proj = impl.projected
     entries = []
 
@@ -1093,13 +1110,23 @@ def main(argv=None) -> int:
                                                                warmup=1)})
 
     csrc = "src/repro_torch/kernels/csrc/"
-    entry("pairwise_sq_dist", "fused", csrc + "pairwise_dist.cu",
-          "src/repro/kernels/pairwise_dist.py:28",
-          fused_counts["launches"]["pairwise_sq_dist"], pw_err,
-          lambda: kpair.pairwise_sq_dist(qp, x_proj),
-          lambda: ref.pairwise_sq_dist(qp, x_proj),
-          lambda: torch.cdist(qp, x_proj) ** 2,
-          4 * (B * m + n * m + B * n), 2 * B * n * m + 2 * B * n)
+
+    def pairwise_entry(path, launches, qq, xx):
+        """pairwise_sq_dist at one shape, held against its plain version
+        (the norm trick's cancellation scales with |q|² + |x|²)."""
+        Bq, dq, Nx = qq.shape[0], qq.shape[1], xx.shape[0]
+        err = float((kpair.pairwise_sq_dist(qq, xx) - ref.pairwise_sq_dist(qq, xx)).abs().max())
+        tol = 1e-5 * float((qq * qq).sum(1).max() + (xx * xx).sum(1).max())
+        check(err <= tol, f"pairwise_sq_dist {(Bq, Nx, dq)}: max |diff| {err} > {tol}")
+        entry("pairwise_sq_dist", path, csrc + "pairwise_dist.cu",
+              "src/repro/kernels/pairwise_dist.py:28", launches, err,
+              lambda: kpair.pairwise_sq_dist(qq, xx), lambda: ref.pairwise_sq_dist(qq, xx),
+              lambda: torch.cdist(qq, xx) ** 2,
+              4 * (Bq * dq + Nx * dq + Bq * Nx), 2 * Bq * Nx * dq + 2 * Bq * Nx)
+        entries[-1]["shape"] = [Bq, Nx, dq]
+
+    for Bq in BATCHES:  # the float path's estimate at each batch size
+        pairwise_entry("fused", pairwise_at[Bq], qp[:Bq].contiguous(), x_proj)
     L, iters = 16, 14
     entry("radius_select", "fused", csrc + "select.cu",
           "src/repro/kernels/select.py:55",
@@ -1159,6 +1186,7 @@ def main(argv=None) -> int:
           lambda: ref.topk_smallest(d2_delta, K),
           lambda: torch.topk(d2_delta, K, largest=False),
           4 * Bt * Nt + 8 * Bt * K, Bt * Nt)
+    pairwise_entry("stream", stream["delta_scans"], stream["q"], stream["x_delta"])
     entry("project_dist", "project", csrc + "project_dist.cu",
           "src/repro/kernels/project_dist.py:30", proj["launches"], proj["err"],
           proj["fn"], proj["plain"], proj["library"], proj["bytes"], proj["ops"])

@@ -27,6 +27,55 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// Asynchronous copies from device to shared memory (cp.async): 16 or 4
+// bytes into dst, `bytes` of them read from src and the rest zero-filled
+// (0 reads nothing: src need only be a valid address).  The 16-byte form
+// wants both addresses 16-byte aligned and bypasses L1.  cp_commit closes
+// the thread's copies issued so far into a group; cp_wait_all waits for
+// all of its groups.  A barrier after the wait makes every thread's copies
+// visible to the block.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+
+constexpr int kMaxDevices = 64;
+
+// The blocks of `kernel` (threads a block, smem bytes of dynamic shared
+// memory, its limit raised to that first) that the current device holds
+// at once: blocks an SM × SMs, kept per device in cache[kMaxDevices].
+// 0 with the CUDA error in *err where a query fails or no block fits.
+inline int resident_grid(const void* kernel, int threads, size_t smem, int* cache,
+                         cudaError_t* err) {
+  int dev = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err != cudaSuccess) return 0;
+  if (dev < kMaxDevices && cache[dev] > 0) return cache[dev];
+  int per_sm = 0, sms = 0;
+  *err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+  if (*err == cudaSuccess) {
+    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  }
+  if (*err == cudaSuccess) *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (*err != cudaSuccess) return 0;
+  if (per_sm * sms < 1) {
+    *err = cudaErrorInvalidConfiguration;
+    return 0;
+  }
+  if (dev < kMaxDevices) cache[dev] = per_sm * sms;
+  return per_sm * sms;
+}
+
 // (va, pa) sorts after (vb, pb): by value, then by position.
 __device__ __forceinline__ bool after(float va, int pa, float vb, int pb) {
   return va > vb || (va == vb && pa > pb);

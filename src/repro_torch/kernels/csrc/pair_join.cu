@@ -143,25 +143,11 @@ __device__ __forceinline__ unsigned long long pair_key(float dd, int pos) {
          static_cast<unsigned int>(pos);
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
-}
-
 __device__ __forceinline__ long long global_ns() {
   long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
 }
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
 // Columns c0 .. c0 + kChunk of the rows of block i (rows 0..mi) and block j
 // into stage[2][kTile][kLd], zeros past the rows and past d.
@@ -178,9 +164,9 @@ __device__ __forceinline__ void stage_chunk(const float* x, int d, int si, int m
     const float* src = in ? x + static_cast<long long>((half ? sj : si) + r) * d + col : x;
     float* dst = stage + half * kTile * kLd + r * kLd + (kVec ? 4 * q : q);
     if constexpr (kVec) {
-      cp_async16(dst, src, in ? 16 : 0);
+      rt::cp_async16(dst, src, in ? 16 : 0);
     } else {
-      cp_async4(dst, src, in ? 4 : 0);
+      rt::cp_async4(dst, src, in ? 4 : 0);
     }
   }
 }
@@ -236,14 +222,14 @@ __device__ void join_tile(const Args& a, int w, float ub2, float* smem, Shared& 
 
   const int chunks = (a.d + kChunk - 1) / kChunk;
   stage_chunk<kVec>(a.x, a.d, si, mi, sj, mj, 0, smem);
-  cp_commit();
+  rt::cp_commit();
   for (int c = 0; c < chunks; ++c) {
-    cp_wait_all();    // this thread's copies of chunk c have landed
+    rt::cp_wait_all();  // this thread's copies of chunk c have landed
     __syncthreads();  // everyone's have, and everyone is done with chunk c − 1
     if (c + 1 < chunks) {  // into chunk c − 1's stage, in flight while c is multiplied
       stage_chunk<kVec>(a.x, a.d, si, mi, sj, mj, (c + 1) * kChunk,
                         smem + ((c + 1) & 1) * kStageFloats);
-      cp_commit();
+      rt::cp_commit();
     }
     const float* sa = smem + (c & 1) * kStageFloats;
     const float* sb = sa + kTile * kLd;
@@ -646,28 +632,9 @@ __global__ void __launch_bounds__(kThreads, 2) pair_join_kernel(const Args a) {
 // 0 with the CUDA error in *err where the query fails.
 template <bool kVec>
 int coresident(cudaError_t* err) {
-  constexpr int kMaxDevices = 64;
-  static int cache[kMaxDevices] = {0};
-  int dev = 0;
-  *err = cudaGetDevice(&dev);
-  if (*err != cudaSuccess) return 0;
-  if (dev < kMaxDevices && cache[dev] > 0) return cache[dev];
-  int per_sm = 0, sms = 0;
-  *err = cudaFuncSetAttribute(pair_join_kernel<kVec>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(kSmem));
-  if (*err == cudaSuccess) {
-    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pair_join_kernel<kVec>,
-                                                         kThreads, kSmem);
-  }
-  if (*err == cudaSuccess) *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (*err != cudaSuccess) return 0;
-  if (per_sm * sms < 1) {
-    *err = cudaErrorInvalidConfiguration;
-    return 0;
-  }
-  if (dev < kMaxDevices) cache[dev] = per_sm * sms;
-  return per_sm * sms;
+  static int cache[rt::kMaxDevices] = {0};
+  return rt::resident_grid(reinterpret_cast<const void*>(pair_join_kernel<kVec>), kThreads,
+                           kSmem, cache, err);
 }
 
 size_t align256(size_t v) { return (v + 255) & ~static_cast<size_t>(255); }

@@ -58,7 +58,15 @@ def _verify_inputs(B, n, d, Tc, pad, seed, device):
 
 
 @pytest.mark.parametrize("B,N,d", [(1, 100, 15), (5, 300, 64), (64, 4099, 15),
-                                   (9, 1000, 256)])
+                                   (9, 1000, 256),
+                                   # both sides of the narrow / wide switch
+                                   (9, 1000, 32), (9, 1000, 33),
+                                   # fewer points than a thread's 4; a stream segment
+                                   (5, 1, 15), (5, 3, 15), (64, 36_799, 15),
+                                   # queries past one staged chunk, narrow and wide
+                                   (130, 3000, 15), (130, 3001, 256),
+                                   # the delta scan after the stream's round 24
+                                   (64, 16_374, 256)])
 def test_pairwise_matches_plain(cuda, B, N, d):
     g = torch.Generator(device=cuda).manual_seed(B + N + d)
     q = torch.randn((B, d), generator=g, device=cuda)
@@ -69,6 +77,18 @@ def test_pairwise_matches_plain(cuda, B, N, d):
     assert counts.LAUNCHES["pairwise_sq_dist"] == before + 1
     torch.testing.assert_close(got, ops.pairwise_sq_dist(q, x, force="plain"),
                                rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [15, 33])
+def test_pairwise_misaligned_x_matches_plain(cuda, d):
+    """x one row in: its start is 4-byte aligned only (60 or 132 bytes
+    past an aligned one)."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q = torch.randn((7, d), generator=g, device=cuda)
+    x = torch.randn((1000, d), generator=g, device=cuda)[1:]
+    assert x.data_ptr() % 16 != 0
+    torch.testing.assert_close(ops.pairwise_sq_dist(q, x),
+                               ops.pairwise_sq_dist(q, x, force="plain"), rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.parametrize("B,N,d", [(1, 7, 15), (4, 33, 16), (16, 406, 256)])
@@ -549,7 +569,10 @@ def test_topk_k_over_128_takes_radius_select(cuda):
 
 
 @pytest.mark.parametrize("B,N,d,m", [(64, 100_003, 256, 15), (1, 4099, 4096, 15),
-                                     (7, 777, 33, 16), (70, 5000, 96, 20), (3, 100, 8, 1)])
+                                     (7, 777, 33, 16), (70, 5000, 96, 20), (3, 100, 8, 1),
+                                     # N % 4 != 0, a wide d, m = 32
+                                     (5, 1001, 64, 15), (5, 3000, 600, 15),
+                                     (9, 2000, 256, 32)])
 def test_project_dist_matches_plain(cuda, B, N, d, m):
     g = torch.Generator(device=cuda).manual_seed(B + N + d + m)
     x = torch.randn((N, d), generator=g, device=cuda)
@@ -562,6 +585,58 @@ def test_project_dist_matches_plain(cuda, B, N, d, m):
     want = ops.project_dist(x, a, qp, force="plain")
     tol = 1e-5 * ((qp * qp).sum(1)[:, None] + ((x @ a) ** 2).sum(1)[None]) + 1e-6
     assert bool(((got - want).abs() <= tol).all())
+
+
+def test_project_dist_misaligned_x_matches_plain(cuda):
+    """x one float past an aligned start: the 4-byte copies."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn((999 * 256 + 1,), generator=g, device=cuda)[1:].view(999, 256)
+    a = torch.randn((256, 15), generator=g, device=cuda)
+    qp = torch.randn((5, 256), generator=g, device=cuda) @ a
+    assert x.data_ptr() % 16 != 0
+    got = ops.project_dist(x, a, qp)
+    want = ops.project_dist(x, a, qp, force="plain")
+    tol = 1e-5 * ((qp * qp).sum(1)[:, None] + ((x @ a) ** 2).sum(1)[None]) + 1e-6
+    assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("kernel,d", [("pairwise_narrow_kernel", 15),
+                                      ("pairwise_wide_kernel", 256),
+                                      ("project_dist_kernel", 256)])
+def test_distance_wrappers_launch_one_kernel(cuda, kernel, d):
+    """Each call of pairwise_sq_dist (either schedule) or project_dist is
+    one CUDA kernel, named for its schedule."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.pairwise_dist import pairwise_sq_dist
+    from repro_torch.kernels.project_dist import project_dist
+
+    g = torch.Generator(device=cuda).manual_seed(d)
+    x = torch.randn((20_000, d), generator=g, device=cuda)
+    if kernel == "project_dist_kernel":
+        a = torch.randn((d, 15), generator=g, device=cuda)
+        qp = torch.randn((64, 15), generator=g, device=cuda)
+        call = lambda: project_dist(x, a, qp)  # noqa: E731
+    else:
+        q = torch.randn((64, d), generator=g, device=cuda)
+        call = lambda: pairwise_sq_dist(q, x)  # noqa: E731
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+        call()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if e.cpu_time_total == 0 and (e.self_device_time_total or 0) > 0),
+                     key=lambda e: e.time_range.start)
+    gaps = [i for i in range(1, len(kernels))
+            if kernels[i].time_range.start - kernels[i - 1].time_range.end > 10_000]
+    names = [e.name for e in (kernels[gaps[-1]:] if gaps else kernels)]
+    assert len(names) == 1 and kernel in names[0], names
 
 
 def test_flat_use_kernels_false_launches_nothing(cuda):

@@ -45,8 +45,8 @@ def _t(a):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("d", [15, 64])
-@pytest.mark.parametrize("N", [100, 300])
+@pytest.mark.parametrize("d", [15, 64, 256])  # 256: the stream's delta scan
+@pytest.mark.parametrize("N", [100, 300, 1001])
 @pytest.mark.parametrize("B", [1, 5])
 def test_pairwise_matches_pallas(B, N, d):
     rng = np.random.default_rng(B * 1000 + N + d)
@@ -1004,7 +1004,8 @@ def test_pair_join_schedule_matches_serial_sweep(name):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("B,N,d,m", [(5, 700, 200, 15), (1, 1030, 130, 16), (7, 64, 33, 20)])
+@pytest.mark.parametrize("B,N,d,m", [(5, 700, 200, 15), (1, 1030, 130, 16), (7, 64, 33, 20),
+                                     (3, 501, 64, 32)])
 def test_project_dist_matches_pallas(B, N, d, m):
     """N not a multiple of the TPU kernel's 512-point tile, d not a
     multiple of its 128-wide slab."""
