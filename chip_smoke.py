@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flat ANN, quantized, closest-pair and streaming
-paths on one NVIDIA GPU, and check them.
+"""Drive the PyTorch port's flat ANN, quantized, closest-pair, streaming
+and PM-tree paths on one NVIDIA GPU, and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -87,6 +87,33 @@ Phases, each printing one JSON line:
            plan-and-fold phases by the card's clock, its groups of bands
            and the tiles it computed and merged, and topk_smallest's a
            second timing at verify's shape (64, T, 10).
+  pmtree   the paper's own index on the Audio twin: ``pmtree`` at c = 1.5,
+           cp_c = 4, cp_T = 20,000 (A and the projections on the card,
+           the PM-trees, Algorithms 2 and 4 on the host), ``search`` at
+           B = 16 and ``cp_search(10)``; both trees, the ids, pairs and
+           every counter identical to a CPU twin built from the card
+           index's own A and projection; recall@10, CP recall@10 and the
+           distance ratio; build seconds, ms a query, cp_search ms, rounds
+           and distance computations, launches (none).
+  pmtree_range  ``range_mask_device`` on the card against the host DFS on
+           that ANN tree: 64 queries at Algorithm 2's first three radii
+           (t·r_min, ×c, ×c²), slots equal outside ±1e-6 (relative) of the
+           radius, the band's count, CUDA-event ms of the mask beside the
+           DFS's host ms; ``range_query_device`` at T = βn + k.
+  baselines  the nine §7 baselines built on the card: multiprobe, qalsh,
+           srs, rlsh, lscan, lsb_tree on the Audio twin at B = 8 (the
+           answer contract, mean distance ratio ≤ c, recall@10 > 0.2 but
+           for multiprobe at its default w and srs, see ANN_BASELINES),
+           lsb_tree, acp_p, mkcp, nlj ``cp_search(10)`` on its first
+           4,096 rows (k real pairs ascending, distance ratio < 2.5);
+           build and query seconds.
+  stream_pmtree  a streaming index over the Audio twin with the default
+           segment backend (pmtree): 32,768 seed rows, delta_threshold
+           8,192, 4 rounds of 4,096 inserts and 32 deletes; after each,
+           ``search`` at B = 16 held to a ``use_kernels=False`` twin (ids
+           and counters identical, d² to the delta scan's tolerance), its
+           launches (the delta scan's pairwise and topk, the merge's
+           topk), recall@10 over the live rows, ms a query.
 
 Then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -124,6 +151,23 @@ STREAM_CHECKPOINTS = (8, 16, 24)
 # threshold alone seals twice in 24 rounds (after rounds 9 and 18); one
 # eager flush() gives the third seal and the count-triggered compaction
 STREAM_FLUSH_AFTER = (20,)
+# the paper's own index on the Audio twin: cp_T as examples/quickstart.py
+# sets it; the CP baselines on a slice (nlj is an exact all-pairs join)
+PMTREE_BATCH, PMTREE_CP_T = 16, 20_000
+BASELINE_BATCH, BASELINE_CP_ROWS = 8, 4096
+# E2LSH sets the bucket width w against the distances it must catch
+# (Datar et al.: w ≈ 4R); Multi-Probe's default w = 4 suits the
+# reference's unit-scale test data, and the Audio twin's 10-NN distance
+# is ≈ 4.4 (the phase prints it), so its floor is held at w = 8; the
+# default runs beside it with its recall printed.  SRS stops at its
+# early-termination test (p_τ = 0.8107) with a c-approximate answer
+# after ≈ 20 candidates here, so it is held to its guarantee (mean
+# distance ratio ≤ c), not to a recall floor.
+ANN_BASELINES = (("multiprobe", {"w": 8.0}), ("multiprobe", {}), ("qalsh", {}),
+                 ("srs", {}), ("rlsh", {}), ("lscan", {}), ("lsb_tree", {}))
+RECALL_FLOOR_EXEMPT = (("multiprobe", {}), ("srs", {}))
+CP_BASELINES = ("lsb_tree", "acp_p", "mkcp", "nlj")
+STREAM_PM_START, STREAM_PM_BATCH, STREAM_PM_ROUNDS, STREAM_PM_THRESHOLD = 32_768, 4096, 4, 8192
 
 
 def emit(obj) -> None:
@@ -897,6 +941,306 @@ def stream_cp_phase(torch, dev, audio: np.ndarray, exact: set, seed: int,
           "plain_cp_search_s": plain_s})
 
 
+def _same_ids(res, want, what: str, d2_tol: float = 0.0) -> None:
+    """ids and every WorkStats counter identical, squared distances to
+    ``d2_tol``."""
+    check(np.array_equal(res.indices, want.indices), f"{what}: ids differ")
+    found = res.indices >= 0
+    d2 = res.distances[found].astype(np.float64) ** 2
+    err = float(np.abs(d2 - want.distances[found].astype(np.float64) ** 2).max(initial=0.0))
+    check(err <= d2_tol, f"{what}: squared distances differ by {err} > {d2_tol}")
+    check(res.stats.as_dict() == want.stats.as_dict(),
+          f"{what}: counters {res.stats} differ from {want.stats}")
+
+
+def _contract(res, x: np.ndarray, q: np.ndarray, k: int, what: str) -> None:
+    """(B, k) rows, real distances ascending, -1 / +inf only as a tail
+    (a bucket baseline may find fewer than k, as the reference's may)."""
+    found = res.indices >= 0
+    check(res.indices.shape == (q.shape[0], k), f"{what}: answer of shape {res.indices.shape}")
+    check(bool((found[:, :-1] >= found[:, 1:]).all())
+          and bool(np.isinf(res.distances[~found]).all()), f"{what}: padding inside a row")
+    check(all(bool((np.diff(dd[f]) >= 0).all()) for dd, f in zip(res.distances, found)),
+          f"{what}: distances not ascending")
+    true = np.linalg.norm(x[res.indices[found]] - np.repeat(q, k, 0)[found.ravel()], axis=-1)
+    check(np.allclose(res.distances[found], true, rtol=1e-4),
+          f"{what}: distances are not the rows' distances to the queries")
+
+
+def _recall(got: np.ndarray, exact: np.ndarray, k: int) -> float:
+    return float(np.mean([len(set(g.tolist()) & set(e.tolist())) / k
+                          for g, e in zip(got, exact)]))
+
+
+def _pair_recall(pairs: np.ndarray, exact: set, k: int) -> float:
+    return len(exact & {tuple(sorted(p)) for p in pairs.tolist()}) / k
+
+
+def pmtree_phase(torch, dev, audio: np.ndarray, exact_pairs: set, seed: int,
+                 *, batch: int = PMTREE_BATCH) -> dict:
+    """The paper's own index (``pmtree``) on the Audio twin: A and the
+    projections on the card, the PM-trees and Algorithms 2 and 4 on the
+    host; held to a CPU twin built from the card index's own A and
+    projection (ids, pairs and every counter identical); recall."""
+    import dataclasses
+
+    from repro_torch.index import IndexConfig, PMTreeBackend, build_index
+    from repro_torch.kernels import counts
+
+    t_phase = time.perf_counter()
+    cfg = IndexConfig(backend="pmtree", c=1.5, cp_c=4.0, seed=seed,
+                      options={"cp_T": PMTREE_CP_T})
+    q = make_queries(audio, batch, seed + 7)
+    counts.reset()
+    t0 = time.perf_counter()
+    index = build_index(audio, cfg, device=dev)
+    tree = index.impl.tree
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = index.search(q, K)
+    search_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cp_tree = index.cp_impl.tree
+    cp_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cp = index.cp_search(K)
+    cp_s = time.perf_counter() - t0
+    used = counts.snapshot()
+
+    twin = PMTreeBackend.from_arrays(audio, index.a, index.projected, cfg, device="cpu")
+    for name, ours, theirs in (("ANN", tree, twin.impl.tree), ("CP", cp_tree, twin.cp_impl.tree)):
+        for f in dataclasses.fields(tree):
+            check(np.array_equal(getattr(ours, f.name), getattr(theirs, f.name)),
+                  f"pmtree: the {name} tree's {f.name} differs from the CPU twin's")
+    _same_ids(res, twin.search(q, K), "pmtree search against the CPU twin")
+    cp_twin = twin.cp_search(K)
+    check(np.array_equal(cp.pairs, cp_twin.pairs)
+          and np.array_equal(cp.distances, cp_twin.distances)
+          and cp.stats.as_dict() == cp_twin.stats.as_dict(),
+          f"pmtree cp_search: {cp.stats} differs from the CPU twin's {cp_twin.stats}")
+    _contract(res, audio, q, K, "pmtree search")
+    x = torch.from_numpy(audio).to(dev)
+    recall = _recall(res.indices, exact_knn(torch, x, torch.from_numpy(q).to(dev), K), K)
+    check(recall > 0.5, f"pmtree recall@10 {recall}")
+    cp_true = np.linalg.norm(audio[cp.pairs[:, 0]] - audio[cp.pairs[:, 1]], axis=-1)
+    check(cp.pairs.shape == (K, 2) and np.allclose(cp.distances, cp_true, rtol=1e-4)
+          and bool((np.diff(cp.distances) >= 0).all()),
+          "pmtree cp_search: pairs are not k real pairs in ascending distance")
+    exact_d = np.sort([np.linalg.norm(audio[i] - audio[j]) for i, j in exact_pairs])
+    cp_ratio = float(np.mean(cp.distances / exact_d))
+    check(cp_ratio <= cfg.cp_c, f"pmtree cp_search: distance ratio {cp_ratio} > c = {cfg.cp_c}")
+    st = res.stats
+    emit({"phase": "pmtree", "n": audio.shape[0], "d": audio.shape[1], "m": cfg.m, "B": batch,
+          "k": K, "c": cfg.c, "cp_c": cfg.cp_c, "cp_T": PMTREE_CP_T,
+          "tree_nodes": tree.n_nodes, "tree_depth": tree.depth,
+          "cp_tree_nodes": cp_tree.n_nodes, "cp_tree_depth": cp_tree.depth,
+          "launches": used["launches"], "identical_to_cpu_twin": True,
+          "build_seconds": build_s, "cp_build_seconds": cp_build_s,
+          "ms_per_query": search_s * 1e3 / batch, "cp_search_ms": cp_s * 1e3,
+          "rounds": st.rounds, "candidates_verified": st.candidates_verified,
+          "node_distance_computations": st.node_distance_computations,
+          "point_distance_computations": st.point_distance_computations,
+          "recall_at_10": recall, "cp_recall_at_10": _pair_recall(cp.pairs, exact_pairs, K),
+          "cp_distance_ratio": cp_ratio, "cp_pairs_verified": cp.stats.pairs_verified,
+          "cp_nodes_examined": cp.stats.rounds,
+          "seconds": time.perf_counter() - t_phase})
+    return {"index": index}
+
+
+def pmtree_range_phase(torch, dev, index, audio: np.ndarray, seed: int,
+                       *, count: int = 64, band: float = 1e-6) -> None:
+    """The level-synchronous range mask on the card against the host DFS
+    on the Audio twin's ANN tree, at Algorithm 2's first three radii
+    (t·r_min, ×c, ×c²): slots equal outside ±``band`` (relative) of the
+    radius; CUDA-event ms of the mask beside the DFS's host ms."""
+    from repro_torch.core import candidate_budget
+    from repro_torch.core.hashing import project_to_host
+    from repro_torch.core.pmtree_query import (
+        DeviceTree,
+        range_mask_device,
+        range_query_device,
+        range_query_host,
+    )
+
+    t_phase = time.perf_counter()
+    pm = index.impl
+    tree = pm.tree
+    qp = project_to_host(pm.family, make_queries(audio, count, seed + 8))
+    qd = torch.from_numpy(qp).to(dev)
+    dt = DeviceTree.from_host(tree, dev)
+    pts64 = tree.points.astype(np.float64)
+    max_results = candidate_budget(pm.params, tree.n_points, K)
+    r0 = pm.t * pm.rmin(K)
+    rows = []
+    for radius in (r0, r0 * pm.params.c, r0 * pm.params.c ** 2):
+        range_mask_device(dt, qd[0], radius)  # warm-up
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        masks = [range_mask_device(dt, qd[j], radius) for j in range(count)]
+        end.record()
+        end.synchronize()
+        mask_ms = start.elapsed_time(end) / count
+        t0 = time.perf_counter()
+        host = [range_query_host(tree, qp[j], radius)[0] for j in range(count)]
+        host_ms = (time.perf_counter() - t0) * 1e3 / count
+        in_band = mismatched = hits = 0
+        for j in range(count):
+            got = masks[j].cpu().numpy()
+            want = np.zeros(tree.n_points, bool)
+            want[host[j]] = True
+            near = np.abs(np.linalg.norm(pts64 - qp[j], axis=-1) - radius) <= band * radius
+            in_band += int(near.sum())
+            mismatched += int((got[~near] != want[~near]).sum())
+            hits += int(want.sum())
+        check(mismatched == 0, f"pmtree_range r={radius}: {mismatched} slots differ from the "
+                               f"host DFS outside the ±{band} band")
+        slots, dist, valid = range_query_device(dt, qd[0], radius, max_results)
+        nvalid = int(valid.sum())
+        check(nvalid == min(max_results, int(masks[0].sum()))
+              and bool(masks[0][slots[valid]].all())
+              and bool((dist[valid][1:] >= dist[valid][:-1]).all()),
+              f"pmtree_range r={radius}: range_query_device's {nvalid} slots")
+        rows.append({"radius": radius, "mean_hits": hits / count, "in_band": in_band,
+                     "mismatched_outside_band": mismatched, "mask_ms": mask_ms,
+                     "host_dfs_ms": host_ms, "fixed_size_valid": nvalid})
+    emit({"phase": "pmtree_range", "queries": count, "nodes": tree.n_nodes,
+          "levels": tree.depth, "band": band, "max_results": max_results, "radii": rows,
+          "seconds": time.perf_counter() - t_phase})
+
+
+def baselines_phase(torch, dev, audio: np.ndarray, seed: int, *, batch: int = BASELINE_BATCH,
+                    cp_rows: int = BASELINE_CP_ROWS) -> None:
+    """The nine §7 baselines built on the card: the ANN ones on the Audio
+    twin at B = ``batch``, the CP ones on its first ``cp_rows`` rows.
+    Every answer meets the contract and comes within the index's
+    approximation ratio c on average (Eq. 12); recall stays above the
+    reference's floor (0.2) but where ``RECALL_FLOOR_EXEMPT`` says why
+    not; closest pairs keep the distance ratio under the reference's
+    2.5."""
+    from repro_torch.index import IndexConfig, build_index
+
+    t_phase = time.perf_counter()
+    q = make_queries(audio, batch, seed + 9)
+    x = torch.from_numpy(audio).to(dev)
+    exact = exact_knn(torch, x, torch.from_numpy(q).to(dev), K)
+    exact_dist = np.linalg.norm(audio[exact] - q[:, None, :], axis=-1)
+    out = {}
+    for name, options in ANN_BASELINES:
+        cfg = IndexConfig(backend=name, seed=seed, options=options)
+        label = name + "".join(f"_{k}{v}" for k, v in options.items())
+        t0 = time.perf_counter()
+        index = build_index(audio, cfg, device=dev)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = index.search(q, K)
+        query_s = time.perf_counter() - t0
+        _contract(res, audio, q, K, label)
+        found = res.indices >= 0
+        recall = _recall(res.indices, exact, K)
+        ratio = float(np.mean((res.distances / exact_dist)[found]))
+        check(ratio <= cfg.c, f"{label}: mean distance ratio {ratio} > c = {cfg.c}")
+        if (name, options) not in RECALL_FLOOR_EXEMPT:
+            check(recall > 0.2, f"{label} recall@10 {recall}")
+        out[label] = {"build_seconds": build_s, "query_seconds": query_s,
+                      "answers_found": int(found.sum()), "ms_per_query": query_s * 1e3 / batch,
+                      "recall_at_10": recall, "distance_ratio": ratio,
+                      "candidates_verified": res.stats.candidates_verified}
+    sub = audio[:cp_rows]
+    exact_pairs = exact_closest_pairs(torch, torch.from_numpy(sub).to(dev), K)
+    exact_d = np.sort([np.linalg.norm(sub[i] - sub[j]) for i, j in exact_pairs])
+    for name in CP_BASELINES:
+        t0 = time.perf_counter()
+        index = build_index(sub, IndexConfig(backend=name, seed=seed), device=dev)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = index.cp_search(K)
+        cp_s = time.perf_counter() - t0
+        true = np.linalg.norm(sub[res.pairs[:, 0]] - sub[res.pairs[:, 1]], axis=-1)
+        check(res.pairs.shape == (K, 2) and bool((res.pairs[:, 0] != res.pairs[:, 1]).all())
+              and np.allclose(res.distances, true, rtol=1e-4)
+              and bool((np.diff(res.distances) >= 0).all()),
+              f"{name} cp_search: not k real pairs in ascending distance")
+        ratio = float(np.mean(res.distances / np.maximum(exact_d, 1e-9)))
+        check(ratio < 2.5, f"{name} cp_search: distance ratio {ratio}")
+        out[f"{name}_cp"] = {"build_seconds": build_s, "cp_search_seconds": cp_s,
+                             "cp_recall_at_10": _pair_recall(res.pairs, exact_pairs, K),
+                             "distance_ratio": ratio,
+                             "pairs_verified": res.stats.pairs_verified}
+    emit({"phase": "baselines", "n": audio.shape[0], "d": audio.shape[1], "B": batch, "k": K,
+          "median_10nn_distance": float(np.median(exact_dist[:, -1])), "cp_rows": cp_rows,
+          "baselines": out, "seconds": time.perf_counter() - t_phase})
+
+
+def stream_pmtree_phase(torch, dev, audio: np.ndarray, seed: int, *,
+                        start: int = STREAM_PM_START, batch: int = STREAM_PM_BATCH,
+                        rounds: int = STREAM_PM_ROUNDS, threshold: int = STREAM_PM_THRESHOLD,
+                        queries: int = PMTREE_BATCH) -> None:
+    """A streaming index over the Audio twin with the default segment
+    backend (pmtree): ``start`` seed rows, then ``rounds`` rounds of
+    ``batch`` inserts and 32 deletes; after each, a search held to a
+    ``use_kernels=False`` twin (ids and counters identical) and recall@10
+    over the live rows."""
+    from repro_torch.index import IndexConfig, build_index
+    from repro_torch.kernels import counts
+
+    t_phase = time.perf_counter()
+    cfg = IndexConfig(backend="streaming", seed=seed, options={"delta_threshold": threshold})
+    t0 = time.perf_counter()
+    index = build_index(audio[:start], cfg, device=dev)
+    twin = build_index(audio[:start], cfg.with_options(use_kernels=False), device=dev)
+    build_s = time.perf_counter() - t0
+    check(index.segment_backend == "pmtree"
+          and all(s.backend == "pmtree" for s in index.segments + twin.segments),
+          f"stream_pmtree: segments {[s.backend for s in index.segments]}")
+    q = make_queries(audio, queries, seed + 10)
+    qd = torch.from_numpy(q).to(dev)
+    d2_tol = 1e-5 * float((q * q).sum(1).max() + (audio * audio).sum(1).max())
+    rng = np.random.default_rng(seed + 11)
+    for r in range(rounds):
+        t0 = time.perf_counter()
+        rows = audio[start + r * batch:start + (r + 1) * batch]
+        check(np.array_equal(index.insert(rows), twin.insert(rows)),
+              f"stream_pmtree round {r}: insert ids differ")
+        kill = rng.choice(index.live_ids(), 32, replace=False)
+        check(index.delete(kill) == twin.delete(kill) == 32,
+              f"stream_pmtree round {r}: deletes differ")
+        churn_s = time.perf_counter() - t0
+        counts.reset()
+        t0 = time.perf_counter()
+        res = index.search(q, K)
+        search_s = time.perf_counter() - t0
+        used = counts.snapshot()
+        merges = 2 if index.delta_size else 1  # the delta's topk, the merge's
+        check(used["launches"]["topk_smallest"] == merges
+              and used["launches"]["pairwise_sq_dist"] == merges - 1,
+              f"stream_pmtree round {r}: launches {used['launches']}")
+        # tolerance: the delta scan's norm trick cancels float32
+        # |q|² + |x|² (ROADMAP §C), so its d² agree to 1e-5 of that, as the
+        # pairwise kernel's are held; the pmtree segments' are bit-identical
+        _same_ids(res, twin.search(q, K), f"stream_pmtree round {r + 1} against the plain twin",
+                  d2_tol=d2_tol)
+        check((index.segment_count, index.delta_size, index.n_flushes, index.n_compactions)
+              == (twin.segment_count, twin.delta_size, twin.n_flushes, twin.n_compactions),
+              f"stream_pmtree round {r + 1}: state differs from the plain twin's")
+        live = index.live_ids()
+        xl = torch.from_numpy(index.get_vectors(live)).to(dev)
+        recall = _recall(res.indices, live[exact_knn(torch, xl, qd, K)], K)
+        del xl
+        check(recall > 0.5, f"stream_pmtree recall@10 {recall} after round {r + 1}")
+        emit({"phase": "stream_pmtree", "round": r + 1, "n_live": index.n,
+              "segments": index.segment_count,
+              "segment_sizes": [s.size for s in index.segments],
+              "segment_dead": [s.dead for s in index.segments], "delta": index.delta_size,
+              "flushes": index.n_flushes, "compactions": index.n_compactions,
+              "launches": used["launches"], "ids_identical_to_plain": True,
+              "recall_at_10": recall, "B": queries, "ms_per_query": search_s * 1e3 / queries,
+              "rounds": res.stats.rounds, "candidates_verified": res.stats.candidates_verified,
+              "build_seconds": build_s, "churn_seconds": churn_s,
+              "seconds": time.perf_counter() - t_phase})
+    check(index.n_flushes >= 2, f"stream_pmtree: {index.n_flushes} flushes")
+
+
 def project_phase(torch, dev, x, q, seed: int, m: int = 15) -> dict:
     """ops.project_dist on the Deep1M twin with its own A and B projected
     queries; returns what the kernels line needs."""
@@ -1088,7 +1432,8 @@ def main(argv=None) -> int:
 
     # -- the streaming index, and the fused projection ------------------------
     stream = stream_phase(torch, dev, data, queries, args.seed)
-    stream_cp_phase(torch, dev, join.pop("audio"), join.pop("exact"), args.seed)
+    audio, exact_pairs = join.pop("audio"), join.pop("exact")
+    stream_cp_phase(torch, dev, audio, exact_pairs, args.seed)
     proj = project_phase(torch, dev, impl.data, q64, args.seed)
 
     # -- per-kernel times at the main path's shapes (B = 64) ------------------
@@ -1237,6 +1582,13 @@ def main(argv=None) -> int:
     for e in entries:
         e.update(extra.get(e["name"], {}))
     emit({"kernels": entries})
+
+    # -- the paper's own index, its range query, the baselines, the stream --
+    # (after the kernels line, whose traces they would otherwise precede)
+    pm = pmtree_phase(torch, dev, audio, exact_pairs, args.seed)
+    pmtree_range_phase(torch, dev, pm["index"], audio, args.seed)
+    baselines_phase(torch, dev, audio, args.seed)
+    stream_pmtree_phase(torch, dev, audio, args.seed)
 
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Carry a JAX flat index across to the port.
+"""Carry a JAX index across to the port.
 
 The JAX package draws the projection A with ``jax.random.normal``,
 which torch cannot reproduce, so a port index that must answer what a
@@ -18,6 +18,22 @@ torch's summation orders, so a port index that must answer what a JAX
     ti = repro_torch.index.FlatPQBackend.from_arrays(
         data, a, projected, config, codec=codec, codes=np.asarray(ji.codes))
 
+A PM-tree index is carried the same way, and with the JAX index's
+``projected`` it builds the JAX index's trees:
+
+    ji = repro.index.build_index(data, IndexConfig(backend="pmtree"))
+    ti = repro_torch.index.PMTreeBackend.from_arrays(
+        data, np.asarray(ji.impl.family.a), np.asarray(ji.impl.projected))
+
+The bucket baselines (Multi-Probe, LSB-tree) take their JAX families'
+arrays through :func:`bucket_families_from_arrays`, and SRS / R-LSH take
+``a`` and ``projected`` as options:
+
+    fams = bucket_families_from_arrays(
+        [(np.asarray(f.a), np.asarray(f.b), f.w) for f, _ in jax_mp.tables])
+    ti = build_index(data, IndexConfig(backend="multiprobe",
+                                       options={"families": fams}))
+
 This module imports nothing of JAX; the caller hands over numpy arrays.
 """
 from __future__ import annotations
@@ -27,11 +43,11 @@ import torch
 
 from .core.estimator import solve_parameters
 from .core.flat_index import FlatIndex
-from .core.hashing import ProjectionFamily
+from .core.hashing import BucketFamily, ProjectionFamily
 from .device import as_tensor, resolve_device
 from .quant.codec import PQCodec, SQ8Codec
 
-__all__ = ["flat_index_from_arrays", "codec_from_arrays"]
+__all__ = ["flat_index_from_arrays", "codec_from_arrays", "bucket_families_from_arrays"]
 
 
 def flat_index_from_arrays(data: np.ndarray | torch.Tensor, a: np.ndarray,
@@ -84,3 +100,11 @@ def codec_from_arrays(*, scale: np.ndarray | None = None,
         raise ValueError(f"SQ8 needs scale and offset of one shape (d,), got "
                          f"{tuple(scale_t.shape)} and {tuple(offset_t.shape)}")
     return SQ8Codec(scale=scale_t, offset=offset_t)
+
+
+def bucket_families_from_arrays(families, *, device: str | torch.device = "cuda"
+                                ) -> list[BucketFamily]:
+    """The port's bucket families from (a (d, m), b (m,), w) triples,
+    e.g. a JAX Multi-Probe index's tables' or an LSB-tree's trees'."""
+    dev = resolve_device(device)
+    return [BucketFamily.from_numpy(a, b, w, dev) for a, b, w in families]

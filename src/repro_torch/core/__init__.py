@@ -1,8 +1,11 @@
-"""The PM-LSH core on the card: estimator, projection family, flat index,
-the fused query pipeline and the closest-pair engine (counterparts of
-``repro.core``)."""
+"""The PM-LSH core: estimator, hash families, the paper-faithful PM-tree
+index (host algorithms, projections on the card), the flat index, the
+fused query pipeline and the closest-pair engine on the card
+(counterparts of ``repro.core``)."""
+from .ann import PMLSH, AnnResult  # noqa: F401
+from .cp import PMLSH_CP, CpResult, calibrate_gamma  # noqa: F401
 from .cp_fused import CpFusedResult, cp_fused_search, cp_threshold2  # noqa: F401
-from .estimator import PMLSHParams, chi2_ppf, solve_parameters  # noqa: F401
+from .estimator import PMLSHParams, chi2_ppf, select_rmin, solve_parameters  # noqa: F401
 from .flat_index import (  # noqa: F401
     FlatIndex,
     ann_query,
@@ -11,4 +14,5 @@ from .flat_index import (  # noqa: F401
     candidate_budget,
 )
 from .fused import fused_ann_query, select_seed  # noqa: F401
-from .hashing import ProjectionFamily  # noqa: F401
+from .hashing import BucketFamily, ProjectionFamily  # noqa: F401
+from .pmtree import FlatPMTree, build_bulk, build_insert  # noqa: F401

@@ -9,6 +9,9 @@ distance of a point at distance r.
   E1 holds w.p. ≥ 1-α₁ and E2 w.p. ≥ 1-α₂/β (Lemma 4), giving the
   Theorem-1 c²-ANN success probability ≥ 1/2 - 1/e at the default
   setting (α₁ = 1/e, β = 2α₂).
+* ``select_rmin`` — the r_min selection scheme of §5.2: the smallest
+  radius whose ball is expected to hold βn + k points, from the
+  empirical distance distribution F(x) (Eq. 4).
 
 All functions here are *host-side* (numpy/scipy); their outputs are
 plain floats fixed before any query runs, mirroring how the paper fixes
@@ -20,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 from scipy.stats import chi2 as _chi2
 
 
@@ -95,3 +99,42 @@ def solve_parameters(
         beta = 2.0 * alpha2
     return PMLSHParams(m=m, c=float(c), alpha1=float(alpha1), alpha2=float(alpha2),
                        beta=float(beta), t=float(t))
+
+
+def empirical_distance_distribution(
+    points: np.ndarray, n_samples: int = 100_000, seed: int = 0
+) -> tuple[np.ndarray, np.ndarray]:
+    """Estimate F(x) of Eq. 4 by sampling point pairs.
+
+    Returns (sorted_distances, cdf_values); evaluate F via np.searchsorted.
+    """
+    rng = np.random.default_rng(seed)
+    n = points.shape[0]
+    i = rng.integers(0, n, size=n_samples)
+    j = rng.integers(0, n, size=n_samples)
+    keep = i != j
+    i, j = i[keep], j[keep]
+    d = np.linalg.norm(points[i] - points[j], axis=-1)
+    d.sort()
+    cdf = np.arange(1, d.size + 1, dtype=np.float64) / d.size
+    return d, cdf
+
+
+def select_rmin(
+    points: np.ndarray,
+    beta: float,
+    k: int,
+    *,
+    shrink: float = 0.9,
+    n_samples: int = 50_000,
+    seed: int = 0,
+) -> float:
+    """§5.2 r_min selection: r s.t. n·F(r) ≈ βn + k, shrunk slightly so the
+    first range query does not over-collect."""
+    n = points.shape[0]
+    d, cdf = empirical_distance_distribution(points, n_samples=n_samples, seed=seed)
+    target = min((beta * n + k) / n, 1.0)
+    idx = int(np.searchsorted(cdf, target))
+    idx = min(max(idx, 0), d.size - 1)
+    r = float(d[idx]) * shrink
+    return max(r, float(d[0]) * 0.5, 1e-12)

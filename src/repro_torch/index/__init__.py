@@ -8,15 +8,15 @@
 
     pairs = index.cp_search(10)           # closest pairs (CpSearchResult)
     pq = build_index(data, IndexConfig(backend="flat-pq"))  # PQ codes + ADC
-    st = build_index(data, IndexConfig(backend="streaming",
-                                       options={"segment_backend": "flat"}))
+    pm = build_index(data, IndexConfig(backend="pmtree"))   # the paper's host index
+    st = build_index(data, IndexConfig(backend="streaming"))  # pmtree segments
     st.insert(rows); st.delete(ids); st.flush()   # a mutable index
 
 ``device`` defaults to the card and raises where CUDA is absent; pass
-``device="cpu"`` for the plain PyTorch versions.  The flat, flat-pq and
-streaming backends are the ones ported so far.
+``device="cpu"`` for the plain PyTorch versions.  Every backend of the
+reference but the sharded ones is ported (``available_backends()``).
 """
-from .backends import BaseIndex, FlatBackend, FlatPQBackend  # noqa: F401
+from .backends import BaseIndex, FlatBackend, FlatPQBackend, PMTreeBackend  # noqa: F401
 from .config import IndexConfig  # noqa: F401
 from .registry import (  # noqa: F401
     KNOWN_CAPABILITIES,

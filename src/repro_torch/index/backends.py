@@ -1,18 +1,39 @@
 """Backend adapters behind the one Index protocol (``repro.index.backends``).
 
-The port has the flat backend: the dense estimate → select → verify
-pipeline on the card, with the fused pipeline (radius-threshold select,
-gather-free verify) from n = 8192 on, closest pair through the pair
-join, and quantized storage (SQ8 or PQ codes with an ADC rerank tier);
-``flat-pq`` is the flat backend with PQ pre-wired.
+First-party backends:
+
+  pmtree    — the paper-faithful host index (Algorithms 1-5, counted
+              work); its projections run on the index's device
+  flat      — the dense estimate → select → verify pipeline on the card
+  flat-pq   — the flat pipeline over PQ codes with an ADC rerank tier
+
+(the mutable ``streaming`` backend registers from ``repro_torch.stream``)
+and every competitor of the §7 study registers under the same protocol
+through thin host adapters, so sweeps are a registry iteration.  Host
+backends loop over the batch internally; the flat backends are batched
+on the card.  The sharded backends of the reference are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import inspect
 
 import numpy as np
 import torch
 
+from ..core.ann import PMLSH, host_rows
+from ..core.baselines import (
+    ACPP,
+    LScan,
+    LSBTree,
+    MkCP,
+    MultiProbe,
+    NLJ,
+    QALSH,
+    RLSH,
+    SRS,
+)
+from ..core.cp import PMLSH_CP
 from ..core.cp_fused import cp_fused_search
 from ..core.flat_index import (
     FlatIndex,
@@ -21,14 +42,25 @@ from ..core.flat_index import (
     build_flat_index,
     candidate_budget,
 )
+from ..core.hashing import host_projection
 from ..device import resolve_device
 from ..obs import trace as otrace
 from ..quant import quant_ann_query, quant_cp_search, train_codec
 from .config import IndexConfig
 from .registry import register_backend
-from .types import CpSearchResult, SearchResult, WorkStats
+from .types import CpSearchResult, SearchResult, WorkStats, pack_batch
 
-__all__ = ["BaseIndex", "FlatBackend", "FlatPQBackend"]
+__all__ = ["BaseIndex", "PMTreeBackend", "FlatBackend", "FlatPQBackend"]
+
+
+def _ctor_kwargs(cls, config: IndexConfig, **common) -> dict:
+    """config.options + common kwargs, filtered to what cls.__init__
+    accepts (constructors with **kwargs take everything)."""
+    kw = {**common, **config.options}
+    params = inspect.signature(cls.__init__).parameters
+    if any(p.kind == p.VAR_KEYWORD for p in params.values()):
+        return kw
+    return {k: v for k, v in kw.items() if k in params}
 
 
 class BaseIndex:
@@ -113,9 +145,107 @@ class BaseIndex:
     def _cp_search(self, k: int) -> CpSearchResult:
         raise NotImplementedError
 
+    # -- storage accounting ----------------------------------------------
+
+    def bytes_per_point(self) -> float:
+        """Bytes/point of the index's DISTANCE storage — what the
+        search tiers read to score a point (raw float32 here; codes +
+        amortized codebooks for quantized backends).  The m-dim
+        projection (4m bytes, identical across variants) and any
+        retained raw rerank vectors are excluded — see
+        ``raw_bytes_per_point``."""
+        return 4.0 * self.d
+
+    def raw_bytes_per_point(self) -> float:
+        """Bytes/point of full-precision vectors kept for exact
+        verification (0 when a quantized backend dropped them)."""
+        return 4.0 * self.d
+
     def __repr__(self) -> str:
         return (f"{type(self).__name__}(backend={self.backend_name!r}, "
                 f"n={self.n}, d={self.d}, device={self.device})")
+
+
+@register_backend("pmtree", capabilities=("ann", "cp"))
+class PMTreeBackend(BaseIndex):
+    """Paper-faithful PM-tree index (host DFS, full work counters).
+
+    The data's projection runs once on the index's device, each query's
+    at search time; the two trees (the ANN one, fanout 4, and the CP
+    one, fanout 2) are built from it on the host on first use, so
+    CP-only callers never pay for the ANN tree and vice versa.
+    ``options`` reach the ``PMLSH`` / ``PMLSH_CP`` constructors (``s``,
+    ``capacity``, ``builder``, ...); ``cp_search`` reads
+    ``options["cp_T"]``, the candidate-pair budget.
+    """
+
+    def __init__(self, data, config: IndexConfig | None = None, *,
+                 device: str | torch.device = "cuda", a: np.ndarray | None = None,
+                 projected: np.ndarray | None = None):
+        self._given_a = a
+        self._given_projected = projected
+        super().__init__(data, config, device=device)
+
+    @classmethod
+    def from_arrays(cls, data, a: np.ndarray, projected: np.ndarray | None = None,
+                    config: IndexConfig | None = None, *,
+                    device: str | torch.device = "cuda") -> "PMTreeBackend":
+        """An index over ``data`` with the projection A given, e.g. the
+        JAX index's ``impl.family.a`` (and, optionally, its
+        ``impl.projected``, from which it then builds the JAX index's
+        trees).  ``data`` may be a tensor on ``device``; the index
+        projects it there and keeps a host copy."""
+        return cls(data, config, device=device, a=a, projected=projected)
+
+    def _build(self) -> None:
+        cfg = self.config
+        family, self.projected = host_projection(
+            self.data, cfg.m, seed=cfg.seed, a=self._given_a,
+            projected=self._given_projected, device=self.device)
+        self.a = family.a.cpu().numpy()
+        self.data = host_rows(self.data)
+        self._ann_impl: PMLSH | None = None
+        self._cp_impl: PMLSH_CP | None = None
+
+    def _impl_kwargs(self, cls, c: float) -> dict:
+        cfg = self.config
+        return _ctor_kwargs(cls, cfg, m=cfg.m, c=c, seed=cfg.seed, a=self.a,
+                            projected=self.projected, device=self.device)
+
+    @property
+    def impl(self) -> PMLSH:
+        if self._ann_impl is None:
+            self._ann_impl = PMLSH(self.data, **self._impl_kwargs(PMLSH, self.config.c))
+        return self._ann_impl
+
+    @property
+    def cp_impl(self) -> PMLSH_CP:
+        if self._cp_impl is None:
+            self._cp_impl = PMLSH_CP(self.data,
+                                     **self._impl_kwargs(PMLSH_CP, self.config.cp_c))
+        return self._cp_impl
+
+    def _search(self, q: np.ndarray, k: int) -> SearchResult:
+        rows, stats = [], WorkStats()
+        for qi in q:
+            r = self.impl.ann_query(qi, k=k)
+            rows.append((r.indices, r.distances))
+            stats += WorkStats(
+                rounds=r.rounds,
+                candidates_verified=r.candidates_verified,
+                node_distance_computations=r.stats.node_distance_computations,
+                point_distance_computations=r.stats.point_distance_computations,
+            )
+        return SearchResult(*pack_batch(rows, k), stats=stats)
+
+    def _cp_search(self, k: int) -> CpSearchResult:
+        r = self.cp_impl.cp_query(k=k, T=self.config.options.get("cp_T"))
+        return CpSearchResult(
+            r.pairs, r.distances,
+            stats=WorkStats(rounds=r.nodes_examined,
+                            candidates_verified=r.pairs_verified,
+                            pairs_verified=r.pairs_verified),
+        )
 
 
 @register_backend("flat", capabilities=("ann", "cp"))
@@ -294,6 +424,18 @@ class FlatBackend(BaseIndex):
                             tiles_pruned=pruned),
         )
 
+    def bytes_per_point(self) -> float:
+        if self.codec is None:
+            return 4.0 * self.d
+        per_point = self.codec.bytes_per_point
+        codebook = getattr(self.codec, "codebook_bytes", 0)
+        return per_point + codebook / max(self.n, 1)
+
+    def raw_bytes_per_point(self) -> float:
+        if self.codec is not None and not self.store_raw:
+            return 0.0
+        return 4.0 * self.d
+
 
 @register_backend("flat-pq", capabilities=("ann", "quant", "cp"))
 class FlatPQBackend(FlatBackend):
@@ -304,3 +446,63 @@ class FlatPQBackend(FlatBackend):
         if "quant" not in self.config.options:
             self.config = self.config.with_options(quant="pq")
         super()._build()
+
+
+# ---------------------------------------------------------------------------
+# §7 competitor baselines — generic host adapters
+# ---------------------------------------------------------------------------
+
+
+class _HostBaseline(BaseIndex):
+    """Adapter over the baseline contract:
+    query(q, k) -> (ids, dist, work) / cp_query(k) -> (pairs, dist, work).
+    """
+
+    impl_cls: type = None  # set per registered subclass
+
+    def _build(self) -> None:
+        cfg = self.config
+        kw = _ctor_kwargs(self.impl_cls, cfg, c=cfg.c, seed=cfg.seed,
+                          device=self.device)
+        self.impl = self.impl_cls(host_rows(self.data), **kw)
+
+    def _search(self, q: np.ndarray, k: int) -> SearchResult:
+        rows, work = [], 0
+        for qi in q:
+            ids, dd, w = self.impl.query(qi, k)
+            rows.append((ids, dd))
+            work += int(w)
+        return SearchResult(
+            *pack_batch(rows, k),
+            stats=WorkStats(rounds=q.shape[0], candidates_verified=work),
+        )
+
+    def _cp_search(self, k: int) -> CpSearchResult:
+        pairs, dd, work = self.impl.cp_query(k)
+        return CpSearchResult(
+            pairs, dd, stats=WorkStats(candidates_verified=int(work),
+                                       pairs_verified=int(work)))
+
+
+_BASELINES = [
+    # (registry name, implementation, capabilities)
+    ("multiprobe", MultiProbe, ("ann",)),
+    ("qalsh", QALSH, ("ann",)),
+    ("srs", SRS, ("ann",)),
+    ("rlsh", RLSH, ("ann",)),
+    ("lscan", LScan, ("ann",)),
+    ("lsb_tree", LSBTree, ("ann", "cp")),
+    ("acp_p", ACPP, ("cp",)),
+    ("mkcp", MkCP, ("cp",)),
+    ("nlj", NLJ, ("cp",)),
+]
+
+for _name, _impl, _caps in _BASELINES:
+    register_backend(_name, capabilities=_caps)(
+        type(
+            f"{_impl.__name__}Backend",
+            (_HostBaseline,),
+            {"impl_cls": _impl,
+             "__doc__": f"Registry adapter over baselines.{_impl.__name__}."},
+        )
+    )

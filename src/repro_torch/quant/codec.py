@@ -52,6 +52,10 @@ class SQ8Codec:
     def n_values(self) -> int:
         return self.V
 
+    @property
+    def bytes_per_point(self) -> float:
+        return float(self.n_slots)  # 1 byte/dim; scale/offset are O(d) total
+
     def encode(self, x) -> torch.Tensor:
         """(N, d) float → (N, d) uint8 codes."""
         x = _f32(x, self.scale.device)
@@ -109,6 +113,14 @@ class PQCodec:
     @property
     def sub_dim(self) -> int:
         return self.centroids.shape[2]
+
+    @property
+    def bytes_per_point(self) -> float:
+        return float(self.n_slots)  # 1 byte/slot (V ≤ 256); codebooks O(1)
+
+    @property
+    def codebook_bytes(self) -> int:
+        return self.centroids.numel() * 4
 
     def _split(self, x) -> torch.Tensor:
         """(N, d) → (N, S, ds), zero-padding the trailing dims."""

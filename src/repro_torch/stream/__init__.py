@@ -5,8 +5,9 @@ An LSM-style layer over the port's static backends:
 
     delta buffer   — mutable tail on the card, served by an exact scan
                      (pairwise kernel, then the top-k kernel)
-    segments       — sealed immutable runs, each a ``flat`` or
-                     ``flat-pq`` index over its points
+    segments       — sealed immutable runs, each a ``pmtree`` (the
+                     default), ``flat`` or ``flat-pq`` index over its
+                     points
     tombstones     — deletes are an id-set applied at merge time
     compaction     — threshold-triggered rebuild of small segments
                      into one larger segment (tombstones dropped)

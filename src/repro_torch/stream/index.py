@@ -18,28 +18,26 @@ the delta's rows and every segment's index live on the index's device.
 Registered as backend ``"streaming"`` with capabilities
 ``("ann", "stream", "cp")``:
 
-    index = build_index(data, IndexConfig(
-        backend="streaming", options={"segment_backend": "flat"}))
+    index = build_index(data, IndexConfig(backend="streaming"))
     ids = index.insert(new_rows)        # visible to search immediately
     index.delete(ids[:2])               # never returned again
     index.flush()                       # seal the delta eagerly
 
 options: ``delta_threshold`` (flush trigger, default 512),
-``segment_backend`` ("flat" or "flat-pq"; the reference's default
-"pmtree" raises NotImplementedError until ROADMAP queue A item 7 ports
-it; "flat" when ``quant`` is set), ``max_segments`` (compaction trigger,
-default 4), ``max_dead_fraction`` (segment rot trigger, default 0.5),
+``segment_backend`` ("pmtree" by default, "flat" when ``quant`` is set,
+or "flat-pq"), ``max_segments`` (compaction trigger, default 4),
+``max_dead_fraction`` (segment rot trigger, default 0.5),
 ``use_kernels`` (False runs the plain PyTorch versions, in the delta
 scan, the merge and the segments, default True).  ``durability`` raises
 NotImplementedError until ROADMAP queue A item 10 ports the WAL.
 Unrecognized options (``fused``, ``quant``, ``rerank``, ...) pass
 through to the segment backend.
 
-Every segment's flat backend, the drift monitor and the closest-pair
-key share one projection A (d, m): drawn as the port's ``flat`` backend
-draws it from ``config.seed``, or given through :meth:`from_arrays`
-(e.g. the JAX index's family), so a port index fed the same operations
-answers what the JAX index answers.
+Every segment's backend, the drift monitor and the closest-pair key
+share one projection A (d, m): drawn as every index of the port draws it
+from ``config.seed``, or given through :meth:`from_arrays` (e.g. the JAX
+index's family), so a port index fed the same operations answers what
+the JAX index answers.
 """
 from __future__ import annotations
 
@@ -74,8 +72,8 @@ class StreamingIndex(BaseIndex):
                     device: str | torch.device = "cuda") -> "StreamingIndex":
         """A streaming index over ``data`` whose segments, drift monitor
         and closest-pair key use the projection ``a`` (d, m) given, e.g.
-        the JAX family's ``a``; every segment seals through
-        ``FlatBackend.from_arrays``."""
+        the JAX family's ``a``; every segment seals through its backend's
+        ``from_arrays``."""
         return cls(data, config, device=device, a=a)
 
     # -- construction ----------------------------------------------------
@@ -87,14 +85,11 @@ class StreamingIndex(BaseIndex):
                 "options['durability'] (the WAL and snapshots) is not ported "
                 "yet: ROADMAP queue A item 10")
         self.delta_threshold = int(opts.get("delta_threshold", 512))
+        # a quant request flips the default segment backend to "flat",
+        # whose verify tier holds the codes
         default_segment = "flat" if opts.get("quant") else "pmtree"
         self.segment_backend = str(opts.get("segment_backend",
                                             default_segment))
-        if self.segment_backend == "pmtree":
-            raise NotImplementedError(
-                "segment_backend 'pmtree' (the reference's default) is not "
-                "ported yet: ROADMAP queue A item 7; pass "
-                "options={'segment_backend': 'flat'} or 'flat-pq'")
         if opts.get("quant") and self.segment_backend not in ("flat",
                                                               "flat-pq"):
             raise ValueError(
@@ -113,10 +108,9 @@ class StreamingIndex(BaseIndex):
             if self._a.shape != (self.d, self.config.m):
                 raise ValueError(f"a is {self._a.shape}, expected "
                                  f"({self.d}, {self.config.m})")
-        else:  # the draw of the port's flat backend (build_flat_index)
-            gen = torch.Generator().manual_seed(self.config.seed)
-            self._a = ProjectionFamily.create(self.d, self.config.m, generator=gen,
-                                              device="cpu").a.numpy()
+        else:
+            self._a = ProjectionFamily.from_seed(self.d, self.config.m, self.config.seed,
+                                                 device="cpu").a.numpy()
 
         self._store = np.empty((0, self.d), dtype=np.float32)
         self._alive = np.empty((0,), dtype=bool)
@@ -369,6 +363,24 @@ class StreamingIndex(BaseIndex):
         """Current :class:`repro_torch.obs.drift.DriftReport` (None when
         the monitor is disabled via ``options={"drift": False}``)."""
         return None if self.drift is None else self.drift.report()
+
+    def bytes_per_point(self) -> float:
+        """Resident distance-storage bytes per LIVE point: sealed
+        segments (possibly quantized) charge every stored row —
+        tombstoned-but-uncompacted rows still occupy storage — plus the
+        float32 delta, divided by the live count."""
+        if self.n == 0:
+            return 0.0
+        seg_bytes = sum(s.bytes_per_point() * s.size for s in self.segments)
+        return (seg_bytes + 4.0 * self.d * len(self.delta)) / self.n
+
+    def raw_bytes_per_point(self) -> float:
+        """Float32 bytes per live point resident in the append-only
+        store, which keeps every row ever inserted (compaction rebuilds
+        from it)."""
+        if self.n == 0:
+            return 0.0
+        return 4.0 * self.d * self._total / self.n
 
     def live_ids(self) -> np.ndarray:
         """Global ids currently alive (ascending, int64)."""

@@ -2,8 +2,9 @@
 (``repro.stream.segment``).
 
 A segment is a frozen set of (global id, vector) rows served by a
-registered static backend of the port (``flat`` or ``flat-pq``; the
-reference's default, ``pmtree``, is not ported yet).  The backend sees
+registered static backend of the port that takes the index's projection:
+``pmtree`` (the default, so sealed data gets the paper-faithful probing
+path and its work counters), ``flat`` or ``flat-pq``.  The backend sees
 local row numbers 0..n-1; the segment owns the local→global id remap.
 Deletes never touch a segment: the owner tracks a tombstone count
 (``dead``) per segment and compaction rebuilds when it grows.
@@ -32,19 +33,20 @@ def segment_config(config: IndexConfig, backend: str) -> IndexConfig:
 
 
 class Segment:
-    """One immutable run: global ids + a flat-family backend over rows
-    already on the index's device, built with the projection ``a``
-    (d, m) given, so every segment of one index shares it, as every
-    segment of the reference shares ``ProjectionFamily.create(d, m,
-    seed)``.  The segment holds ``rows`` without a copy: the caller
-    hands over a tensor nothing else writes to.
+    """One immutable run: global ids + a backend over rows already on
+    the index's device, built with the projection ``a`` (d, m) given, so
+    every segment of one index shares it, as every segment of the
+    reference shares ``ProjectionFamily.create(d, m, seed)``.  A flat
+    segment holds ``rows`` without a copy (the caller hands over a tensor
+    nothing else writes to); a pmtree segment projects them on the
+    device and takes them to the host for its tree.
     """
 
     _serial = 0  # process-wide serial — owner keys segments by it
 
     def __init__(self, ids: np.ndarray, rows: torch.Tensor, config: IndexConfig,
                  backend: str, *, a: np.ndarray):
-        from ..index.backends import FlatBackend
+        from ..index.backends import FlatBackend, PMTreeBackend
         from ..index.registry import get_backend
 
         self.ids = np.asarray(ids, dtype=np.int64).reshape(-1)
@@ -52,9 +54,9 @@ class Segment:
             raise ValueError(f"{self.ids.size} ids for {rows.shape[0]} rows")
         self.backend = backend
         cls = get_backend(backend)
-        if not issubclass(cls, FlatBackend):
-            raise ValueError(f"segment_backend {backend!r} is not flat-family: "
-                             "the port's segments are 'flat' or 'flat-pq'")
+        if not issubclass(cls, (PMTreeBackend, FlatBackend)):
+            raise ValueError(f"segment_backend {backend!r} is not flat-family or pmtree: "
+                             "the port's segments take the index's projection")
         self.index = cls.from_arrays(rows, a, None, segment_config(config, backend),
                                      device=rows.device)
         self.dead = 0  # tombstones attributed to this segment
@@ -64,6 +66,11 @@ class Segment:
     @property
     def size(self) -> int:
         return self.ids.size
+
+    def bytes_per_point(self) -> float:
+        """Distance-storage bytes/point of the backing index (codes +
+        codebooks for quantized segments, raw float32 otherwise)."""
+        return float(self.index.bytes_per_point())
 
     @property
     def live(self) -> int:

@@ -153,16 +153,17 @@ def test_build_index_on_cpu_answers_well():
 
 
 def test_unported_features_raise_naming_their_slice():
-    """CP, quantized storage and the streaming index are ported; the
-    host and sharded backends are not registered in the port yet."""
+    """CP, quantized storage, the streaming index, the PM-tree and the
+    nine baselines are ported; the sharded backends are not registered in
+    the port yet."""
     data = make_clustered(200, 8, seed=20)
     index = build_index(data, IndexConfig(backend="flat", options={"quant": "sq8"}),
                         device="cpu")
     assert index.cp_search(5).pairs.shape == (5, 2)
-    for name in ("pmtree", "sharded-flat"):
-        with pytest.raises(KeyError,
-                           match="registered in repro_torch: flat, flat-pq, streaming"):
-            build_index(data, IndexConfig(backend=name), device="cpu")
+    with pytest.raises(KeyError, match="registered in repro_torch: pmtree, flat, flat-pq, "
+                                       "multiprobe, qalsh, srs, rlsh, lscan, lsb_tree, "
+                                       "acp_p, mkcp, nlj, streaming"):
+        build_index(data, IndexConfig(backend="sharded-flat"), device="cpu")
 
 
 @pytest.mark.parametrize("options,force", [

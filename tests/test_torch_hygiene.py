@@ -61,14 +61,20 @@ def test_importing_the_port_loads_no_jax():
 @pytest.mark.parametrize("entry", ["build_index", "build_flat_index", "FlatBackend",
                                    "flat_index_from_arrays", "flat-pq", "cp_fused_search",
                                    "train_codec", "codec_from_arrays", "streaming",
-                                   "StreamingIndex.from_arrays"])
+                                   "StreamingIndex.from_arrays", "pmtree",
+                                   "PMTreeBackend.from_arrays", "PMLSH", "PMLSH_CP",
+                                   "multiprobe", "srs", "bucket_families_from_arrays"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device works here")
-    from repro_torch.convert import codec_from_arrays, flat_index_from_arrays
-    from repro_torch.core import build_flat_index
+    from repro_torch.convert import (
+        bucket_families_from_arrays,
+        codec_from_arrays,
+        flat_index_from_arrays,
+    )
+    from repro_torch.core import PMLSH, PMLSH_CP, build_flat_index
     from repro_torch.core.cp_fused import cp_fused_search
-    from repro_torch.index import FlatBackend, IndexConfig, build_index
+    from repro_torch.index import FlatBackend, IndexConfig, PMTreeBackend, build_index
     from repro_torch.quant import train_codec
     from repro_torch.stream import StreamingIndex
 
@@ -87,7 +93,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry):
                 backend="streaming", options={"segment_backend": "flat"})),
             "StreamingIndex.from_arrays": lambda: StreamingIndex.from_arrays(
                 data, np.ones((8, 15), np.float32),
-                IndexConfig(backend="streaming", options={"segment_backend": "flat"}))}[entry]
+                IndexConfig(backend="streaming", options={"segment_backend": "flat"})),
+            "pmtree": lambda: build_index(data, IndexConfig(backend="pmtree")),
+            "PMTreeBackend.from_arrays": lambda: PMTreeBackend.from_arrays(
+                data, np.ones((8, 15), np.float32)),
+            "PMLSH": lambda: PMLSH(data),
+            "PMLSH_CP": lambda: PMLSH_CP(data),
+            "multiprobe": lambda: build_index(data, IndexConfig(backend="multiprobe")),
+            "srs": lambda: build_index(data, IndexConfig(backend="srs")),
+            "bucket_families_from_arrays": lambda: bucket_families_from_arrays(
+                [(np.ones((8, 5), np.float32), np.zeros(5, np.float32), 4.0)])}[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
 

@@ -3,9 +3,9 @@
 Both indexes take the same operations on the same ``make_clustered``
 data (d = 32, 2,000 seed rows, ``delta_threshold`` 256, ``max_segments``
 4): ``repro.stream.StreamingIndex`` with ``segment_backend="flat"`` (or
-``"flat-pq"``), and the port's ``StreamingIndex.from_arrays`` given the
-JAX family's A, on ``device="cpu"``, where every kernel runs its plain
-PyTorch version.  The JAX side runs its jnp oracles (``force="ref"``, the
+``"flat-pq"``, or the default ``"pmtree"`` where a test says so), and the
+port's ``StreamingIndex.from_arrays`` given the JAX family's A, on
+``device="cpu"``, where every kernel runs its plain PyTorch version.  The JAX side runs its jnp oracles (``force="ref"``, the
 CPU default) unless a test says otherwise.
 
 After every step: ids identical; distances to rtol 1e-5 (segments answer
@@ -123,6 +123,58 @@ def test_mixed_sequence_matches_jax(backend, options):
     np.testing.assert_array_equal(rt.pairs, rj.pairs)
     np.testing.assert_allclose(rt.distances, rj.distances, rtol=1e-6)
     assert rt.stats.as_dict() == rj.stats.as_dict()
+
+
+def test_default_pmtree_segments_match_jax():
+    """The reference's default: pmtree segments.  Each side projects a
+    segment's rows itself (the port sums in float64 and rounds once, XLA
+    in float32), so the trees may differ in the last bit of a coordinate
+    and with them the work counters; the ids must be identical after
+    every step of inserts, deletes, flushes and a compaction."""
+    data = make_clustered(1500, D, seed=40)
+    opts = {"delta_threshold": 256, "max_segments": 4}
+    ji = jax_build_index(data, JaxConfig(backend="streaming", options=opts))
+    ti = StreamingIndex.from_arrays(data, _a(), IndexConfig(backend="streaming",
+                                                            options=opts), device="cpu")
+    assert ti.segment_backend == ji.segment_backend == "pmtree"
+    assert all(type(s.index).__name__ == "PMTreeBackend" for s in ti.segments)
+    q = _queries(data, 5, seed=41)
+    for i, (name, step) in enumerate(_steps()):
+        live = ji.live_ids()
+        np.testing.assert_array_equal(step(ti, live), step(ji, live), err_msg=name)
+        _same_state(ji, ti)
+        rj, rt = ji.search(q, 1 + 3 * i), ti.search(q, 1 + 3 * i)
+        np.testing.assert_array_equal(rt.indices, rj.indices, err_msg=name)
+        np.testing.assert_allclose(rt.distances, rj.distances, rtol=1e-5, err_msg=name)
+        assert rt.stats.rounds > 0 and rt.stats.node_distance_computations > 0
+    assert ti.n_flushes >= 3 and ti.n_compactions >= 1
+    rj, rt = ji.cp_search(K), ti.cp_search(K)
+    np.testing.assert_array_equal(rt.pairs, rj.pairs)
+    assert rt.stats.as_dict() == rj.stats.as_dict()
+
+
+def test_from_arrays_seals_pmtree_segments_with_the_given_a():
+    """A pmtree segment is a PMTreeBackend over its rows with the index's
+    A: one sealed segment answers what that backend answers, work
+    counters included."""
+    from repro_torch.index import PMTreeBackend
+
+    data = make_clustered(900, D, seed=42)
+    a = _a(seed=5)
+    ti = StreamingIndex.from_arrays(data, a, IndexConfig(
+        backend="streaming", options={"segment_backend": "pmtree"}), device="cpu")
+    seg = ti.segments[0].index
+    assert ti.segment_count == 1 and ti.delta_size == 0
+    assert isinstance(seg, PMTreeBackend) and isinstance(seg.data, np.ndarray)
+    np.testing.assert_array_equal(seg.a, a)
+    alone = PMTreeBackend.from_arrays(data, a, None, IndexConfig(backend="pmtree"),
+                                      device="cpu")
+    np.testing.assert_array_equal(seg.projected, alone.projected)
+    q = _queries(data, 4, seed=43)
+    rs, ra = ti.search(q, K), alone.search(q, K)
+    np.testing.assert_array_equal(rs.indices, ra.indices)
+    np.testing.assert_array_equal(rs.distances, ra.distances)
+    assert rs.stats.as_dict() == ra.stats.as_dict()
 
 
 @pytest.mark.parametrize("B", [1, 7])
@@ -371,8 +423,6 @@ def test_drift_report_matches_jax():
 
 
 @pytest.mark.parametrize("options,match", [
-    ({}, "pmtree.*ROADMAP queue A item 7"),
-    ({"segment_backend": "pmtree"}, "pmtree.*ROADMAP queue A item 7"),
     ({"segment_backend": "flat", "durability": {"dir": "x"}}, "durability.*item 10"),
 ])
 def test_unported_options_raise_at_build(options, match):
