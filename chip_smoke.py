@@ -63,7 +63,8 @@ Phases, each printing one JSON line:
            same operations, recall@10 against an exact float64 brute force
            over the live rows, the median batch time, segments, delta
            size, flushes and compactions; then one traced B = 64 search
-           (facade / segment / delta / merge split) and profiles.
+           (facade / segment / delta / merge split, each kernel span's
+           bytes, FLOPs and roofline fraction, ≤ 1.05) and profiles.
   stream_cp  the Audio twin inserted into a streaming index in batches of
            8,192 (delta_threshold 16,384): ``cp_search(10)``, pairs and
            counters identical to the ``use_kernels=False`` twin's, CP
@@ -114,6 +115,39 @@ Phases, each printing one JSON line:
            and counters identical, d² to the delta scan's tolerance), its
            launches (the delta scan's pairwise and topk, the merge's
            topk), recall@10 over the live rows, ms a query.
+  obs_trace  (after the ``kernels`` line) one warm traced call each of
+           the fused float search at B = 64, ``flat-pq`` at B = 64 and the
+           Audio ``cp_search(10)``: the span tree equal to
+           EXPECTED_SPAN_TREES (the reference's), each ``kernel.*`` span's
+           modelled bytes and FLOPs placed on the card's roofline
+           (achieved fraction ≤ 1.05) and its wall ms beside the
+           ``kernels`` line's device ms (≥ 0.9 × it where the shapes
+           match), root coverage, the stage summary, and the Chrome-trace
+           export validated and saved under ``build/``.
+  quality  ``QualityAuditor.for_index`` on the 1M float index, all 64
+           B = 64 answers sampled and audited on the card: audited =
+           sampled − pending, its recall@10 within 1/640 of the fused
+           phase's against float64, the ratio, the Lemma-3 CI coverage
+           beside its nominal 1 − 2α, the calibration error, the audit's
+           seconds.
+  durable  (last) a streaming index over the Deep1M twin with
+           ``durability = {"dir": "build/durable", "sync": True,
+           "snapshot_every": 8}`` (flat segments, delta_threshold
+           32,768): 8 rounds of 4,096 inserts and 32 deletes, a flush
+           after round 6 (it snapshots), an error at ``stream.apply`` in
+           round 7's insert, the index abandoned and ``recover()``ed on
+           the card; then round 7's deletes, a snapshot, round 8, and an
+           error at ``snapshot.commit``, recovered from the older
+           snapshot and the WAL tail.  Each recovery is held to a twin fed
+           the same ops without durability: ids identical, distances bit
+           for bit at B = 64, n, segments, flushes and compactions equal;
+           ``wal_records_total{op}`` equal to the ops issued.  It prints
+           the disk's free bytes first, the WAL and snapshot bytes, the
+           p50 of every WAL fsync (their count held to the
+           ``wal_fsync_seconds`` histogram's), insert ms with ``sync`` beside the twin's, snapshot
+           and recovery seconds, every ``RecoveryReport`` field and the
+           Prometheus lines of the four resilience series, and removes
+           the directory at the end.
 
 Then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -135,12 +169,28 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+
+
+def _load_peaks() -> tuple[float, float]:
+    """The card's HBM3 rate and float32 rate outside the tensor cores (the
+    kernels here do float32 arithmetic on CUDA cores), from this
+    checkout's ``repro_torch/obs/roofline.py``, the peaks' one source.
+    It is loaded by its path: a script that compares two trees imports
+    the other tree's package, which may predate the module."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "src", "repro_torch", "obs", "roofline.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_roofline", path)
+    roofline = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = roofline
+    spec.loader.exec_module(roofline)
+    peaks = roofline.get_peaks("cuda")
+    return peaks.peak_bw, peaks.peak_flops
+
+
 # a pause between two traced calls, longer than any gap inside one call
 PAUSE_S = 0.005
-# NVIDIA H100 SXM data sheet: HBM3 rate and float32 rate outside the
-# tensor cores (the kernels here do float32 arithmetic on CUDA cores)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_PER_S = 67e12
+PEAK_BYTES_PER_S, PEAK_F32_PER_S = _load_peaks()
 N_POINTS, DIM = 1_000_000, 256  # Deep1M (paper Table 3)
 AUDIO_N, AUDIO_D = 54_387, 192  # Audio (paper Table 3)
 K = 10
@@ -168,6 +218,33 @@ ANN_BASELINES = (("multiprobe", {"w": 8.0}), ("multiprobe", {}), ("qalsh", {}),
 RECALL_FLOOR_EXEMPT = (("multiprobe", {}), ("srs", {}))
 CP_BASELINES = ("lsb_tree", "acp_p", "mkcp", "nlj")
 STREAM_PM_START, STREAM_PM_BATCH, STREAM_PM_ROUNDS, STREAM_PM_THRESHOLD = 32_768, 4096, 4, 8192
+# the durable stream: 8 rounds of 4,096 inserts and 32 deletes, a flush
+# after round 6 (it snapshots), the crash at stream.apply in round 7
+DURABLE_ROUNDS, DURABLE_FLUSH_AFTER, DURABLE_CRASH_ROUND = 8, 6, 7
+# the span trees of one traced call of each path, (name, parent index):
+# the reference's trees (a CPU test holds them to repro's)
+EXPECTED_SPAN_TREES = {
+    "fused": [("index.search", -1), ("ann.query", 0), ("ann.project", 1),
+              ("ann.estimate", 1), ("kernel.pairwise_sq_dist", 3), ("ann.select", 1),
+              ("kernel.radius_select", 5), ("ann.verify", 1), ("kernel.verify_topk", 7),
+              ("ann.answer", 1)],
+    "flat-pq": [("index.search", -1), ("quant.query", 0), ("quant.estimate", 1),
+                ("kernel.pairwise_sq_dist", 2), ("quant.select", 1),
+                ("kernel.radius_select", 4), ("quant.rerank", 1), ("kernel.adc_dist", 6),
+                ("kernel.radius_select", 6), ("quant.verify", 1), ("kernel.verify_topk", 9)],
+    "cp": [("index.cp_search", -1), ("cp.query", 0), ("cp.project", 1), ("cp.sort", 1),
+           ("cp.join", 1), ("kernel.pair_join", 4), ("cp.reverify", 1)],
+}
+# each kernel span of those trees, in order: the kernels-line entry (name,
+# shape) that timed the same kernel at the same shape, or None (flat-pq's
+# R-select and its verify of R rows run at shapes the line does not time)
+KERNEL_LINE_SHAPES = {
+    "fused": [("pairwise_sq_dist", [64, N_POINTS, 15]), ("radius_select", None),
+              ("verify_topk", None)],
+    "flat-pq": [("pairwise_sq_dist", [64, N_POINTS, 15]), ("radius_select", None),
+                ("adc_dist", None), None, None],
+    "cp": [("pair_join", None)],
+}
 
 
 def emit(obj) -> None:
@@ -631,7 +708,7 @@ def quant_phase(torch, dev, data, queries, exact, seed: int) -> dict:
           "median_batch_ms": {str(b): batch_ms[b] for b in BATCHES},
           "queries_per_s": {str(b): b / batch_ms[b] * 1e3 for b in BATCHES}})
     profiles(torch, "quant_profile", lambda B: pq.search(queries[:B], K), batch_ms)
-    return {"launches": used["launches"]["adc_dist"], "err": adc_err,
+    return {"index": pq, "launches": used["launches"]["adc_dist"], "err": adc_err,
             "fn": lambda: kadc.adc_dist(ccodes, lut),
             "plain": lambda: ref.adc_dist(ccodes, lut),
             "library": lambda: torch.gather(lut, 2, idx).sum(1),
@@ -763,7 +840,7 @@ def cp_phase(torch, dev, seed: int) -> dict:
           "pairs_verified": pq_res.stats.candidates_verified,
           "tiles_pruned": pq_res.stats.tiles_pruned})
     tile_rows = 2 * 128 * AUDIO_D * 4 * (tiles - tiles_pruned)
-    return {"audio": audio, "exact": exact,
+    return {"audio": audio, "exact": exact, "index": index,
             "launches": used["launches"]["pair_join"], "err": join_err,
             "fn": lambda: kjoin.pair_join(xs, ks, K, thresh2=thresh2),
             "plain_ms": join_plain_ms, "library": None,
@@ -801,7 +878,7 @@ def stream_phase(torch, dev, data, queries, seed: int, *, rounds: int = STREAM_R
     needs of the topk kernel."""
     from repro_torch.index import IndexConfig, build_index
     from repro_torch.kernels import counts, ops
-    from repro_torch.obs import trace
+    from repro_torch.obs import roofline, trace
 
     cfg = IndexConfig(backend="streaming", seed=seed, options={
         "segment_backend": "flat", "delta_threshold": threshold, "max_segments": 4})
@@ -882,10 +959,19 @@ def stream_phase(torch, dev, data, queries, seed: int, *, rounds: int = STREAM_R
     with trace.trace() as tr:
         index.search(qB[B], K)
     root = tr.spans[0]
+    spans = []
+    for sp in tr.spans[1:]:
+        row = {"name": sp.name, "parent": sp.parent, "ms": sp.duration_s * 1e3,
+               **{k: v for k, v in sp.attrs.items() if k in ("size", "dead", "bytes", "flops")}}
+        if sp.name.startswith("kernel."):  # on the card's roofline, as obs_trace holds them
+            row["fraction_of_peak"] = roofline.achieved(
+                roofline.KernelCost(sp.attrs["bytes"], sp.attrs["flops"]), sp.duration_s,
+                roofline.get_peaks("cuda"))["fraction_of_peak"]
+            check(row["fraction_of_peak"] <= 1.05,
+                  f"stream_trace: {sp.name} at {row['fraction_of_peak']} of the card's ceiling")
+        spans.append(row)
     emit({"phase": "stream_trace", "B": B, "root": root.name, "wall_ms": root.duration_s * 1e3,
-          "spans": [{"name": sp.name, "parent": sp.parent, "ms": sp.duration_s * 1e3,
-                     **{k: v for k, v in sp.attrs.items() if k in ("size", "dead")}}
-                    for sp in tr.spans[1:]]})
+          "spans": spans})
     profiles(torch, "stream_profile", lambda b: index.search(qB[b], K), batch_ms)
 
     # the topk kernel at the delta scan's largest shape: a full delta of
@@ -1273,6 +1359,263 @@ def project_phase(torch, dev, x, q, seed: int, m: int = 15) -> dict:
             "ops": 2 * N * d * m + 2 * B * N * m}
 
 
+def obs_trace_phase(torch, dev, runs: dict, kernels_line: list) -> dict:
+    """One warm traced call of each of ``runs`` (name → call): its span
+    tree held to EXPECTED_SPAN_TREES, each kernel span placed on the
+    card's roofline (its achieved fraction of the attainable ceiling at
+    most 1.05: a higher one means the span closed before its kernel
+    finished, or a model is wrong) and, where the kernels line timed the
+    same kernel at the same shape (KERNEL_LINE_SHAPES), its wall time at
+    least 0.9 × that entry's device ms; the Chrome-trace export,
+    validated and saved under build/, coverage and the stage summary."""
+    from repro_torch.obs import export, roofline, trace
+
+    peaks = roofline.get_peaks("cuda")
+    out = {}
+    for name, call in runs.items():
+        call()  # warm
+        torch.cuda.synchronize()
+        with trace.trace() as tr:
+            call()
+        tree = [(s.name, s.parent) for s in tr.spans]
+        check(tree == EXPECTED_SPAN_TREES[name],
+              f"obs_trace {name}: span tree {tree} differs from the expected one")
+        chrome = export.to_chrome_trace(tr, peaks=peaks)
+        export.validate_chrome_trace(chrome)
+        path = os.path.join(ROOT, "build", f"trace_{name}.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        export.save_chrome_trace(path, tr, peaks=peaks)
+        spans = []
+        kernel_spans = [s for s in tr.spans if s.name.startswith("kernel.")]
+        for s, want in zip(kernel_spans, KERNEL_LINE_SHAPES[name]):
+            cost = roofline.KernelCost(int(s.attrs["bytes"]), int(s.attrs["flops"]))
+            placed = roofline.achieved(cost, s.duration_s, peaks)
+            line = None
+            if want is not None:
+                line = next(e for e in kernels_line if e["name"] == want[0]
+                            and e.get("shape", want[1]) == want[1])["device_ms"]
+            row = {"name": s.name, "wall_ms": s.duration_s * 1e3, "bytes": cost.bytes,
+                   "flops": cost.flops, "fraction_of_peak": placed["fraction_of_peak"],
+                   "bound": placed["bound"], "kernels_line_device_ms": line,
+                   **{k: s.attrs[k] for k in ("rows_read", "passes", "tiles_pruned")
+                      if k in s.attrs}}
+            spans.append(row)
+            check(placed["fraction_of_peak"] <= 1.05,
+                  f"obs_trace {name}: {s.name} at {placed['fraction_of_peak']} of the "
+                  "card's ceiling")
+            check(line is None or row["wall_ms"] >= 0.9 * line,
+                  f"obs_trace {name}: {s.name} span {row['wall_ms']} ms under 0.9 × "
+                  f"its kernel's {line} device ms")
+        summary = export.stage_summary(tr, peaks=peaks)
+        emit({"phase": "obs_trace", "path": name, "root_ms": tr.spans[0].duration_s * 1e3,
+              "coverage": export.coverage(tr), "kernel_spans": spans,
+              "stages": {k: {f: v[f] for f in ("count", "total_us", "fraction_of_peak")
+                             if f in v} for k, v in summary["stages"].items()},
+              "trace_file": os.path.relpath(path, ROOT)})
+        out[name] = spans
+    return out
+
+
+def quality_phase(torch, index, queries: np.ndarray, answers, recall: float) -> None:
+    """QualityAuditor on the 1M float index: every one of the B = 64
+    answers sampled, audited on the card; the auditor's recall@10 held
+    to the recall against the float64 exact answers."""
+    from repro_torch.obs import QualityAuditor, get_registry
+
+    auditor = QualityAuditor.for_index(index, sample_fraction=1.0)
+    for q, ids, dd in zip(queries, answers.indices, answers.distances):
+        auditor.maybe_sample(q, ids, dd)
+    sampled, pending = auditor.sampled, auditor.pending
+    t0 = time.perf_counter()
+    done = auditor.audit()
+    torch.cuda.synchronize()
+    audit_s = time.perf_counter() - t0
+    rep = auditor.report()
+    check(rep.audited == sampled - rep.pending and done == pending == len(queries),
+          f"quality: audited {rep.audited}, sampled {sampled}, pending {rep.pending}")
+    check(abs(rep.recall - recall) <= 1.0 / (10 * len(queries)),
+          f"quality: auditor recall@10 {rep.recall} vs {recall} against float64")
+    reg = get_registry()
+    emit({"phase": "quality", "sampled": rep.sampled, "audited": rep.audited,
+          "pending": rep.pending, "recall_at_10": rep.recall, "recall_float64": recall,
+          "ratio": rep.ratio, "ci_coverage": rep.ci_coverage,
+          "nominal_coverage": rep.nominal_coverage, "coverage_pairs": rep.coverage_pairs,
+          "calibration_error": rep.calibration_error, "audit_seconds": audit_s,
+          "gauges": {n: reg.get(n).get() for n in (
+              "quality_recall", "quality_ratio", "quality_ci_coverage",
+              "quality_calibration_error")}})
+
+
+def durable_phase(torch, dev, data: np.ndarray, queries: np.ndarray, seed: int, *,
+                  rounds: int = DURABLE_ROUNDS, batch: int = STREAM_BATCH,
+                  threshold: int = STREAM_THRESHOLD, flush_after: int = DURABLE_FLUSH_AFTER,
+                  crash_round: int = DURABLE_CRASH_ROUND) -> None:
+    """A durable streaming index over the Deep1M twin (WAL with fsync,
+    snapshots every 8 records at a flush), two injected crashes, each
+    index abandoned without close() and recovered on the card, held to a
+    twin fed the same ops without durability: ids identical, distances
+    bit for bit at B = 64, the same n, segments, flushes, compactions."""
+    import shutil
+
+    from repro_torch.index import IndexConfig, build_index
+    from repro_torch.obs import get_registry
+    from repro_torch.obs.metrics import Histogram
+    from repro_torch.resilience import FaultPlan, FaultSpec, chaos, recover
+
+    phase_t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "durable")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    disk = shutil.disk_usage(root)
+    emit({"phase": "durable_disk", "free_bytes": disk.free, "total_bytes": disk.total})
+    reg = get_registry()
+    series = ("wal_records_total", "wal_fsync_seconds", "recovery_replayed_total",
+              "snapshot_commits_total")
+    before = reg.snapshot()
+    base = IndexConfig(backend="streaming", seed=seed, options={
+        "segment_backend": "flat", "delta_threshold": threshold})
+    cfg = base.with_options(durability={"dir": root, "sync": True, "snapshot_every": 8})
+    issued = {"insert": 0, "delete": 0, "flush": 0, "compact": 0}
+    # every WAL fsync's seconds, the seed record's included, beside the
+    # histogram's buckets: each WAL the phase opens binds the class's
+    # observe, so the hook sees all the observations the metric counts
+    fsyncs: list = []
+    observe = Histogram.observe
+
+    def observe_fsync(hist, value, exemplar=None, **labels):
+        if hist.name == "wal_fsync_seconds":
+            fsyncs.append(float(value))
+        observe(hist, value, exemplar, **labels)
+
+    Histogram.observe = observe_fsync
+    try:
+        t0 = time.perf_counter()
+        index = build_index(data, cfg, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        issued["insert"] += 1
+        issued["flush"] += index.n_flushes
+        wal_bytes = [os.path.getsize(os.path.join(root, "wal.log"))]
+        twin = build_index(data, base, device=dev)
+        n_seed, d = data.shape
+        fresh = make_clustered_twin(rounds * batch, d, seed, rows_seed=seed + 7)
+        rng = np.random.default_rng(seed + 8)
+        insert_ms, twin_ms, snapshots = [], [], []
+
+        def insert(index, rows):
+            t = time.perf_counter()
+            ids = index.insert(rows)
+            insert_ms.append((time.perf_counter() - t) * 1e3)
+            issued["insert"] += 1
+            t = time.perf_counter()
+            check(np.array_equal(ids, twin.insert(rows)), "durable: insert ids differ")
+            twin_ms.append((time.perf_counter() - t) * 1e3)
+
+        def delete(index, r):
+            kill = churn_deletes(rng, twin, r, n_seed)
+            check(index.delete(kill) == twin.delete(kill) == kill.size, "durable: deletes differ")
+            issued["delete"] += 1
+
+        def snapshot(index):
+            t = time.perf_counter()
+            path = index.snapshot()
+            size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+            snapshots.append({"seconds": time.perf_counter() - t, "bytes": size,
+                              "name": os.path.basename(path)})
+
+        def held(recovered, report, what):
+            state = lambda ix: (ix.n, ix.segment_count, ix.n_flushes, ix.n_compactions)
+            check(state(recovered) == state(twin),
+                  f"durable {what}: state {state(recovered)} vs the twin's {state(twin)}")
+            a, b = recovered.search(queries, K), twin.search(queries, K)
+            check(np.array_equal(a.indices, b.indices), f"durable {what}: ids differ")
+            check(np.array_equal(a.distances.view(np.int32), b.distances.view(np.int32)),
+                  f"durable {what}: distances differ bit for bit")
+            emit({"phase": "durable_recover", "crash": what, "n": recovered.n,
+                  "segments": recovered.segment_count, "flushes": recovered.n_flushes,
+                  "compactions": recovered.n_compactions,
+                  "snapshot_lsn": report.snapshot_lsn, "records_replayed": report.records_replayed,
+                  "records_skipped": report.records_skipped,
+                  "torn_bytes_truncated": report.torn_bytes_truncated,
+                  "bytes_verified": report.bytes_verified, "wall_seconds": report.wall_seconds,
+                  "ids_identical": True, "distances_bit_identical": True})
+
+        # (a) rounds 1..crash_round − 1, a flush (it snapshots: ≥ 8 records),
+        # then an error at stream.apply in the crash round's insert: the op
+        # reached the WAL, so the recovered index holds it
+        for r in range(crash_round - 1):
+            insert(index, fresh[r * batch:(r + 1) * batch])
+            delete(index, r)
+            wal_bytes.append(os.path.getsize(os.path.join(root, "wal.log")))
+            if r + 1 == flush_after:
+                t = time.perf_counter()
+                index.flush()  # seals the delta, then snapshots (≥ 8 records)
+                flush_snapshot_s = time.perf_counter() - t
+                twin.flush()
+                issued["flush"] += 1
+                check(index.durability.records_since_snapshot == 0,
+                      "durable: the flush did not snapshot")
+                path = sorted(p for p in os.listdir(root) if p.startswith("snap_"))[-1]
+                snapshots.append({"seconds_with_flush": flush_snapshot_s, "name": path,
+                                  "bytes": sum(os.path.getsize(os.path.join(root, path, f))
+                                               for f in os.listdir(os.path.join(root, path)))})
+        rows = fresh[(crash_round - 1) * batch:crash_round * batch]
+        with chaos.active(FaultPlan([FaultSpec("stream.apply", "error", at=0)])):
+            try:
+                index.insert(rows)
+                check(False, "durable: the injected error at stream.apply never fired")
+            except chaos.ChaosError:
+                pass
+        issued["insert"] += 1
+        twin.insert(rows)
+        del index  # abandoned: no close()
+        recovered, report = recover(root, device=dev)
+        held(recovered, report, "stream.apply")
+
+        # (b) the crash round's deletes and a committed snapshot, one more
+        # round (the WAL tail), then an error at snapshot.commit
+        delete(recovered, crash_round - 1)
+        snapshot(recovered)
+        for r in range(crash_round, rounds):
+            insert(recovered, fresh[r * batch:(r + 1) * batch])
+            delete(recovered, r)
+        with chaos.active(FaultPlan([FaultSpec("snapshot.commit", "error", at=0)])):
+            try:
+                recovered.snapshot()
+                check(False, "durable: the injected error at snapshot.commit never fired")
+            except chaos.ChaosError:
+                pass
+        del recovered
+        again, report = recover(root, device=dev)
+        check(report.snapshot_lsn is not None and report.records_replayed == 2 * (rounds - crash_round),
+              f"durable snapshot.commit: {report} did not use the older snapshot and the tail")
+        held(again, report, "snapshot.commit")
+        again.close()
+    finally:
+        Histogram.observe = observe
+    delta = reg.delta(reg.snapshot(), before)
+    check(len(fsyncs) == delta["wal_fsync_seconds"]["series"][""]["count"],
+          f"durable: {len(fsyncs)} fsyncs seen, the histogram counts "
+          f"{delta['wal_fsync_seconds']['series']['']['count']}")
+    records = {k.split("=", 1)[1]: v for k, v in delta["wal_records_total"]["series"].items()}
+    check(all(records.get(op, 0.0) == n for op, n in issued.items()),
+          f"durable: wal_records_total {records} vs the ops issued {issued}")
+    prom = [line for line in reg.to_prometheus().splitlines()
+            if line.startswith(series)]
+    snap_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                     for dp, _, fs in os.walk(root) for f in fs)
+    shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "durable", "seconds": time.perf_counter() - phase_t0,
+          "n_seed": n_seed, "d": d, "rounds": rounds, "batch": batch,
+          "build_seconds": build_s, "wal_bytes_max": max(wal_bytes),
+          "wal_bytes_after_seed": wal_bytes[0], "dir_bytes_at_end": snap_bytes,
+          "fsyncs": len(fsyncs), "fsync_p50_s": statistics.median(fsyncs),
+          "fsync_seed_s": fsyncs[0],
+          "insert_ms_sync_median": statistics.median(insert_ms),
+          "insert_ms_twin_median": statistics.median(twin_ms),
+          "snapshots": snapshots, "ops_issued": issued, "prometheus": prom})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1433,6 +1776,7 @@ def main(argv=None) -> int:
     # -- the streaming index, and the fused projection ------------------------
     stream = stream_phase(torch, dev, data, queries, args.seed)
     audio, exact_pairs = join.pop("audio"), join.pop("exact")
+    pq_index, cp_index = adc.pop("index"), join.pop("index")
     stream_cp_phase(torch, dev, audio, exact_pairs, args.seed)
     proj = project_phase(torch, dev, impl.data, q64, args.seed)
 
@@ -1583,12 +1927,22 @@ def main(argv=None) -> int:
         e.update(extra.get(e["name"], {}))
     emit({"kernels": entries})
 
+    # -- kernel spans on the roofline, and the quality auditor ------------
+    obs_trace_phase(torch, dev, {"fused": lambda: index.search(queries, K),
+                                 "flat-pq": lambda: pq_index.search(queries, K),
+                                 "cp": lambda: cp_index.cp_search(K)}, entries)
+    del pq_index, cp_index
+    quality_phase(torch, index, queries, answers[64], recall)
+
     # -- the paper's own index, its range query, the baselines, the stream --
     # (after the kernels line, whose traces they would otherwise precede)
     pm = pmtree_phase(torch, dev, audio, exact_pairs, args.seed)
     pmtree_range_phase(torch, dev, pm["index"], audio, args.seed)
     baselines_phase(torch, dev, audio, args.seed)
     stream_pmtree_phase(torch, dev, audio, args.seed)
+
+    # -- the durable stream: WAL, snapshots, two crashes, recover() -----------
+    durable_phase(torch, dev, data, queries, args.seed)
 
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,10 @@ reference).  Layout mirrors it: ``core`` (estimator, projection family,
 flat index, fused pipeline, closest-pair engine), ``kernels`` (CUDA
 kernels, their plain PyTorch twins and the dispatch), ``quant`` (SQ8/PQ
 codecs and the ADC rerank tier), ``index`` (the facade), ``stream`` (the
-mutable streaming index), ``obs`` (span tracer, drift monitor) and
-``resilience`` (fault injection).  ``convert`` carries a JAX flat
+mutable streaming index), ``obs`` (span tracer with kernel spans on
+the H100's roofline, metrics registry, exporters, quality auditor, drift
+monitor) and ``resilience`` (the streaming index's write-ahead log,
+snapshots and ``recover``, fault injection, circuit breaker).  ``convert`` carries a JAX flat
 index's arrays across.
 
 Entry points run on the card (``device="cuda"``) and raise where CUDA is

@@ -11,6 +11,11 @@
                  re-verify the k winners in the difference form, report
                  pairs_verified / tiles_pruned.
 
+Traced, the stages open the reference's spans: ``cp.query`` over
+``cp.project``, ``cp.sort``, ``cp.join`` (the ``kernel.pair_join`` span
+inside) and ``cp.reverify``, each synchronized before it closes (only
+while tracing: untraced, the path makes one host read, the answer's).
+
 Every reported distance is an exact float32 distance; a true top-k pair
 is missed only when its 1-D key gap exceeds γ·t·ub, with per-pair
 probability ≤ 2Φ(−γt).
@@ -26,6 +31,7 @@ import torch
 
 from ..device import as_tensor, resolve_device
 from ..kernels import ops as kops
+from ..obs import trace as otrace
 from .estimator import solve_parameters
 from .hashing import ProjectionFamily
 
@@ -94,34 +100,41 @@ def cp_fused_search(
     if kk == 0:
         return CpFusedResult(np.empty((0, 2), np.int32),
                              np.empty((0,), np.float32), 0, 0)
-    if key is None:
-        gen = torch.Generator().manual_seed(seed)
-        family = ProjectionFamily.create(d, m, generator=gen, device=dev)
-        key = data @ family.a[:, 0]
-    key = key.to(device=dev, dtype=torch.float32).reshape(-1)
-    if key.shape[0] != n:
-        raise ValueError(f"key has {key.shape[0]} entries for n={n}")
+    with otrace.span("cp.query", n=n, d=d, k=kk):
+        with otrace.span("cp.project"):
+            if key is None:
+                gen = torch.Generator().manual_seed(seed)
+                family = ProjectionFamily.create(d, m, generator=gen, device=dev)
+                key = data @ family.a[:, 0]
+            key = otrace.block(key.to(device=dev, dtype=torch.float32).reshape(-1))
+        if key.shape[0] != n:
+            raise ValueError(f"key has {key.shape[0]} entries for n={n}")
 
-    order = torch.sort(key, stable=True).indices
-    xs, ks = data[order].contiguous(), key[order].contiguous()
-    thresh2 = cp_threshold2(c, m, gamma)
-    _, pi, pj, stats = kops.pair_join(xs, ks, kk, thresh2=thresh2, force=force)
+        with otrace.span("cp.sort"):
+            order = torch.sort(key, stable=True).indices
+            xs, ks = otrace.block(data[order].contiguous(), key[order].contiguous())
+        with otrace.span("cp.join"):
+            thresh2 = cp_threshold2(c, m, gamma)
+            _, pi, pj, stats = kops.pair_join(xs, ks, kk, thresh2=thresh2, force=force)
 
-    # no host read until the answer: the join's padding slots (−1) map to
-    # row 0 and sort last as NaN, then one copy brings everything back
-    real = pi >= 0
-    ids_a = order[pi.clamp_min(0).to(torch.int64)]
-    ids_b = order[pj.clamp_min(0).to(torch.int64)]
-    pairs = torch.stack([torch.minimum(ids_a, ids_b), torch.maximum(ids_a, ids_b)], 1)
-    # the join ranks pairs by norm-trick distances, which cancel exactly
-    # where closest pairs live (near-duplicates): recompute the k winners
-    # in the difference form and re-sort
-    diff = data[pairs[:, 0]] - data[pairs[:, 1]]
-    dists = torch.where(real, torch.sqrt((diff * diff).sum(1)), float("nan"))
-    resort = torch.sort(dists, stable=True).indices
-    host = torch.cat([pairs[resort].to(torch.int64).reshape(-1),
-                      dists[resort].view(torch.int32).to(torch.int64),
-                      stats, real.sum().reshape(1)]).cpu().numpy()
+        with otrace.span("cp.reverify"):
+            # no host read until the answer: the join's padding slots (−1)
+            # map to row 0 and sort last as NaN, then one copy brings
+            # everything back
+            real = pi >= 0
+            ids_a = order[pi.clamp_min(0).to(torch.int64)]
+            ids_b = order[pj.clamp_min(0).to(torch.int64)]
+            pairs = torch.stack([torch.minimum(ids_a, ids_b),
+                                 torch.maximum(ids_a, ids_b)], 1)
+            # the join ranks pairs by norm-trick distances, which cancel
+            # exactly where closest pairs live (near-duplicates): recompute
+            # the k winners in the difference form and re-sort
+            diff = data[pairs[:, 0]] - data[pairs[:, 1]]
+            dists = torch.where(real, torch.sqrt((diff * diff).sum(1)), float("nan"))
+            resort = torch.sort(dists, stable=True).indices
+            host = torch.cat([pairs[resort].to(torch.int64).reshape(-1),
+                              dists[resort].view(torch.int32).to(torch.int64),
+                              stats, real.sum().reshape(1)]).cpu().numpy()
     m = int(host[-1])
     pairs_h = host[:2 * kk].reshape(kk, 2)[:m].astype(np.int32)
     dists_h = host[2 * kk:3 * kk].astype(np.int32).view(np.float32)[:m]

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import ops as kops
+from ..obs import trace as otrace
 from .estimator import chi2_ppf
 from .flat_index import FlatIndex
 
@@ -53,6 +54,13 @@ def fused_ann_query(index: FlatIndex, q: torch.Tensor, *, k: int, T: int,
     Same contract as ``flat_index.ann_query``: (indices (B, k) int32,
     distances (B, k) float32), and the same output on ties-free data.
 
+    While tracing, each stage runs under an ``ann.*`` span (the
+    ``kernel.*`` spans of ``kernels.ops`` nest underneath) with its
+    outputs synchronized before the span closes, and the select span
+    records the batch's summed survivor count as
+    ``candidates_selected`` (a host read, only while tracing).  With
+    tracing off a span is a shared no-op and nothing synchronizes.
+
     Args:
       q: (B, d) query batch on the index's device.
       k: results per query (the kernel answers k ≤ 128; larger k takes
@@ -66,18 +74,27 @@ def fused_ann_query(index: FlatIndex, q: torch.Tensor, *, k: int, T: int,
     q = q.to(torch.float32)
     if q.ndim == 1:
         q = q[None]
-    qp = index.family.project(q)  # (B, m)
+    with otrace.span("ann.query", B=int(q.shape[0]), n=int(index.data.shape[0]),
+                     k=k, T=T):
+        with otrace.span("ann.project"):
+            qp = otrace.block(index.family.project(q))  # (B, m)
 
-    # 1. estimate: projected squared distances (Lemma 2)
-    d2p = kops.pairwise_sq_dist(qp, index.projected, force=force)  # (B, n)
+        # 1. estimate: projected squared distances (Lemma 2)
+        with otrace.span("ann.estimate"):
+            d2p = kops.pairwise_sq_dist(qp, index.projected, force=force)  # (B, n)
 
-    # 2. select: radius-threshold selection seeded from Eq. 9
-    m = index.params.m if index.params is not None else index.m
-    tau0 = select_seed(d2p, T, m)
-    _, cand, cnt = kops.radius_select(d2p, T, tau0=tau0, force=force,
-                                      with_count=True)  # (B, T), (B,)
+        # 2. select: radius-threshold selection seeded from Eq. 9
+        with otrace.span("ann.select") as sp:
+            m = index.params.m if index.params is not None else index.m
+            tau0 = select_seed(d2p, T, m)
+            _, cand, cnt = kops.radius_select(d2p, T, tau0=tau0, force=force,
+                                              with_count=True)  # (B, T), (B,)
+            if sp is not None:
+                sp.attrs["candidates_selected"] = int(cnt.sum())
 
-    # 3-4. verify + answer: gather-free exact distances, top-k
-    d2, idx = kops.verify_topk(index.data, q, cand, k, force=force)
-    out = idx, torch.sqrt(torch.clamp_min(d2, 0.0))
+        # 3-4. verify + answer: gather-free exact distances, top-k
+        with otrace.span("ann.verify"):
+            d2, idx = kops.verify_topk(index.data, q, cand, k, force=force)
+        with otrace.span("ann.answer"):
+            out = otrace.block(idx, torch.sqrt(torch.clamp_min(d2, 0.0)))
     return out + (cnt,) if with_count else out

@@ -366,8 +366,17 @@ class FlatBackend(BaseIndex):
                  else self.n >= 8192) and k <= 128
         qt = torch.from_numpy(q).to(self.device)
         if self.codec is None:
-            ids, _, cnt = ann_query(self.impl, qt, k=k, T=T, fused=fused,
-                                    force=self.force, with_count=True)
+            if otrace.enabled() and not fused:
+                # the reference runs this pipeline as one jit call: one
+                # span bounds it, with nothing recorded inside
+                with otrace.span("ann.query", B=B, n=self.n, k=k, T=T, fused=False):
+                    with otrace.paused():
+                        ids, _, cnt = ann_query(self.impl, qt, k=k, T=T, fused=False,
+                                                force=self.force, with_count=True)
+                    otrace.block(ids, cnt)
+            else:  # the fused pipeline opens its own ann.* spans
+                ids, _, cnt = ann_query(self.impl, qt, k=k, T=T, fused=fused,
+                                        force=self.force, with_count=True)
             # canonical answer floats; the pipeline's d² only ranked candidates
             dd = answer_distances(self.impl.data, ids, qt)
             return SearchResult(

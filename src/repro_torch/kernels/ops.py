@@ -5,11 +5,28 @@ plain PyTorch version in ``ref``.  ``force="plain"`` takes the plain
 version on any device: it exists for the tests and for ``chip_smoke.py``,
 which holds each kernel against it on the card.  There is no interpret
 mode and no fallback: a kernel that fails to build or launch raises.
+
+Observability: while ``repro_torch.obs`` tracing is enabled, every
+dispatch records a ``kernel.<op>`` span carrying the op's modeled
+bytes/FLOPs (``repro_torch.obs.roofline``, the reference's models),
+opened after its inputs and closed after its outputs are synchronized
+(``obs.trace.block``), so a trace places each kernel on the roofline.
+Where the card's kernel does less work than the a-priori model counts,
+its span is refined from what the call did, as the reference refines
+pair_join's from its ``tiles_pruned``: radius_select from its kernel's
+4 reads of d, verify_topk from the rows its distance pass read.
+Disabled cost is one boolean check per call and no host sync.  verify's topk launch (from C)
+and radius_select's trim and overflow sorts run inside their caller's
+span and open none of their own, as in the reference.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from ..obs import roofline as _roofline
+from ..obs import trace as _otrace
 from . import adc as _adc
 from . import counts, ref
 from . import pair_join as _pair_join
@@ -23,6 +40,10 @@ __all__ = ["pairwise_sq_dist", "project_dist", "topk_smallest",
            "default_select_seed", "radius_select", "verify_topk", "adc_dist",
            "pair_join"]
 
+#: reads of d the CUDA select makes: the ladder, two histogram passes
+#: (7 bisection steps each), the compaction
+SELECT_KERNEL_PASSES = 4
+
 
 def _plain(force: str | None, *tensors: torch.Tensor) -> bool:
     """True where the plain version answers: forced, or CPU tensors."""
@@ -34,6 +55,83 @@ def _plain(force: str | None, *tensors: torch.Tensor) -> bool:
     return force == "plain" or kinds == {"cpu"}
 
 
+def _instrumented(name: str, cost_of):
+    """Wrap a dispatch in a roofline-annotated kernel span while tracing.
+
+    ``cost_of(*args, **kw)`` returns the op's :class:`KernelCost` for the
+    call's shapes.  The inputs are synchronized before the span opens,
+    so work queued ahead of the call (a gather of its operand) stays out
+    of it, and the span closes after ``block`` so the card's work lands
+    inside it."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kw):
+            if not _otrace.enabled():
+                return fn(*args, **kw)
+            _otrace.block(args, tuple(kw.values()))
+            with _otrace.get_tracer().span(name, **cost_of(*args, **kw).attrs()):
+                out = fn(*args, **kw)
+                _otrace.block(out)
+            return out
+
+        return wrapper
+
+    return deco
+
+
+def _refine(name: str, cost: _roofline.KernelCost, **extra) -> None:
+    """Replace the open ``name`` span's model by this call's realized cost."""
+    sp = _otrace.current_span()
+    if sp is not None and sp.name == name:
+        sp.attrs.update(cost.attrs())
+        sp.attrs.update(extra)
+
+
+def _pairwise_cost(q, x, **kw) -> _roofline.KernelCost:
+    if x.ndim == 3:
+        B, N, d = x.shape
+    else:
+        (B, d), N = q.shape, x.shape[0]
+    return _roofline.pairwise_sq_dist_cost(B, N, d)
+
+
+def _project_cost(x, a, qp, **kw) -> _roofline.KernelCost:
+    return _roofline.project_dist_cost(x.shape[0], x.shape[1], a.shape[1],
+                                       qp.shape[0])
+
+
+def _adc_cost(codes, lut, **kw) -> _roofline.KernelCost:
+    B, S, V = lut.shape
+    return _roofline.adc_dist_cost(B, codes.shape[-2], S, V)
+
+
+def _topk_cost(d, k, **kw) -> _roofline.KernelCost:
+    return _roofline.topk_cost(d.shape[0], d.shape[1], k)
+
+
+def _select_T_pad(N: int, T: int, T_pad: int | None) -> int:
+    if T_pad is None:
+        T_pad = T + max(256, T // 8)
+    return min(max(T_pad, T), N)
+
+
+def _select_cost(d, T, *, T_pad=None, **kw) -> _roofline.KernelCost:
+    B, N = d.shape
+    return _roofline.radius_select_cost(B, N, _select_T_pad(N, T, T_pad))
+
+
+def _verify_cost(data, q, cand, k, **kw) -> _roofline.KernelCost:
+    B, Tc = cand.shape
+    return _roofline.verify_topk_cost(B, Tc, data.shape[1], k)
+
+
+def _pair_join_cost(x, key, k, **kw) -> _roofline.KernelCost:
+    n, d = x.shape
+    return _roofline.pair_join_cost(n, d, k)
+
+
+@_instrumented("kernel.pairwise_sq_dist", _pairwise_cost)
 def pairwise_sq_dist(q: torch.Tensor, x: torch.Tensor, *,
                      force: str | None = None) -> torch.Tensor:
     """(B,d) × (N,d) → (B,N) squared Euclidean distances (float32).
@@ -50,6 +148,7 @@ def pairwise_sq_dist(q: torch.Tensor, x: torch.Tensor, *,
     return _pairwise.pairwise_sq_dist(q, x)
 
 
+@_instrumented("kernel.project_dist", _project_cost)
 def project_dist(x: torch.Tensor, a: torch.Tensor, qp: torch.Tensor, *,
                  force: str | None = None) -> torch.Tensor:
     """Fused (x @ a) projected distances to qp: (N, d), (d, m), (B, m) →
@@ -61,6 +160,7 @@ def project_dist(x: torch.Tensor, a: torch.Tensor, qp: torch.Tensor, *,
                                  qp.to(torch.float32).contiguous())
 
 
+@_instrumented("kernel.topk_smallest", _topk_cost)
 def topk_smallest(d: torch.Tensor, k: int, *, force: str | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Row-wise k smallest (values, indices int32) of d (B, N), ascending,
@@ -90,6 +190,7 @@ def default_select_seed(d: torch.Tensor, T: int, *, stride: int = 8) -> torch.Te
     return samp.mean(1) * max(T / N, 1e-3)
 
 
+@_instrumented("kernel.radius_select", _select_cost)
 def radius_select(d: torch.Tensor, T: int, *, tau0: torch.Tensor | None = None,
                   T_pad: int | None = None, force: str | None = None,
                   with_count: bool = False):
@@ -108,9 +209,7 @@ def radius_select(d: torch.Tensor, T: int, *, tau0: torch.Tensor | None = None,
     B, N = d.shape
     if not 1 <= T <= N:
         raise ValueError(f"radius_select: T={T} out of range for N={N}")
-    if T_pad is None:
-        T_pad = T + max(256, T // 8)
-    T_pad = min(max(T_pad, T), N)
+    T_pad = _select_T_pad(N, T, T_pad)
     plain = _plain(force, d)
 
     def _sort():
@@ -126,6 +225,10 @@ def radius_select(d: torch.Tensor, T: int, *, tau0: torch.Tensor | None = None,
         select = ref.radius_select_kernel if plain else _select.radius_select
         vals_p, idx_p, cnt = select(d.to(torch.float32).contiguous(), tau0, T,
                                     T_pad=T_pad)
+        if not plain:
+            _refine("kernel.radius_select", _roofline.radius_select_cost(
+                B, N, T_pad, passes=SELECT_KERNEL_PASSES),
+                passes=SELECT_KERNEL_PASSES)
         # an overflowed buffer dropped survivors in index order, possibly
         # true top-T members: answer with the exact sort instead
         if bool((cnt > T_pad).any()):
@@ -137,6 +240,7 @@ def radius_select(d: torch.Tensor, T: int, *, tau0: torch.Tensor | None = None,
     return (vals, idx, cnt) if with_count else (vals, idx)
 
 
+@_instrumented("kernel.verify_topk", _verify_cost)
 def verify_topk(data: torch.Tensor, q: torch.Tensor, cand: torch.Tensor, k: int, *,
                 force: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused VERIFY: exact distances on candidate ids + top-k answer.
@@ -150,11 +254,18 @@ def verify_topk(data: torch.Tensor, q: torch.Tensor, cand: torch.Tensor, k: int,
         return ref.verify_topk(data, q, cand, k)
     if _plain(force, data, q, cand):
         return ref.verify_topk(data, q, cand, k)
-    return _verify.verify_topk(data.to(torch.float32).contiguous(),
-                               q.to(torch.float32).contiguous(),
-                               cand.to(torch.int32).contiguous(), k)
+    vals, ids, rows = _verify.verify_topk(
+        data.to(torch.float32).contiguous(), q.to(torch.float32).contiguous(),
+        cand.to(torch.int32).contiguous(), k, rows_read=True)
+    if _otrace.enabled():  # the one host read, only while tracing
+        B, Tc = cand.shape
+        rows_read = int(rows.item())
+        _refine("kernel.verify_topk", _roofline.verify_topk_cost(
+            B, Tc, data.shape[1], k, rows_read=rows_read), rows_read=rows_read)
+    return vals, ids
 
 
+@_instrumented("kernel.adc_dist", _adc_cost)
 def adc_dist(codes: torch.Tensor, lut: torch.Tensor, *,
              force: str | None = None) -> torch.Tensor:
     """Asymmetric distances: codes (N, S) or per-query (B, N, S) × LUTs
@@ -165,6 +276,7 @@ def adc_dist(codes: torch.Tensor, lut: torch.Tensor, *,
                          lut.to(torch.float32).contiguous())
 
 
+@_instrumented("kernel.pair_join", _pair_join_cost)
 def pair_join(x: torch.Tensor, key: torch.Tensor, k: int, *, thresh2: float,
               force: str | None = None):
     """Top-k closest pairs of x's rows by pruned blockwise self-join.
@@ -184,12 +296,25 @@ def pair_join(x: torch.Tensor, key: torch.Tensor, k: int, *, thresh2: float,
     bands whose candidate tiles the whole card joins under the group's
     first ub², each folded in order by one warp, 32 tiles a ballot, with
     no read back to the host.
+
+    Traced, its span's model is refined post-hoc from the join's own
+    ``tiles_pruned`` counter (its traffic is data-dependent), as the
+    reference's is.
     """
     if k > _pair_join.MAX_K:
         counts.route("pair_join.k_over_128")
-        return ref.pair_join(x, key, k, thresh2=thresh2)
-    if _plain(force, x, key):
-        return ref.pair_join(x, key, k, thresh2=thresh2)
-    return _pair_join.pair_join(x.to(torch.float32).contiguous(),
-                                key.to(torch.float32).contiguous(), k,
-                                thresh2=float(thresh2))
+        out = ref.pair_join(x, key, k, thresh2=thresh2)
+    elif _plain(force, x, key):
+        out = ref.pair_join(x, key, k, thresh2=thresh2)
+    else:
+        out = _pair_join.pair_join(x.to(torch.float32).contiguous(),
+                                   key.to(torch.float32).contiguous(), k,
+                                   thresh2=float(thresh2))
+    if _otrace.enabled():  # a host read of the counter, only while tracing
+        n, d = x.shape
+        n_ti = max(-(-n // 128), 1)
+        pruned = int(out[3][1])
+        _refine("kernel.pair_join", _roofline.pair_join_cost(
+            n, d, k, tiles_visited=n_ti * (n_ti + 1) // 2 - pruned),
+            tiles_pruned=pruned)
+    return out

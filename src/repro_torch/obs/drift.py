@@ -1,10 +1,6 @@
 """Streaming projection-drift monitor: does build-time calibration still fit?
 
-The port's copy of ``repro.obs.drift``, cut to what the streaming
-index uses: it takes rows already projected and publishes no gauges
-(the projection family argument and the metrics registry come with the
-rest of ``obs``, ROADMAP queue A item 8); ``report()`` reads every
-score.
+The port's copy of ``repro.obs.drift``.
 
 Eq. 9/10 calibration (the select kernel's τ₀ seed, the Eq. 10 candidate
 budget, the quant codebook ranges) is solved ONCE from the distribution
@@ -28,6 +24,11 @@ monitor watches two cheap projection-space signals and raises a
     kernel's τ ladder was sized for; total-variation distance between
     the baseline and live occupancy histograms catches distribution
     shifts that leave the first two moments alone.
+
+All three scores publish as gauges (``drift_mean_shift``,
+``drift_var_ratio``, ``drift_occupancy_tv``) plus the binary
+``drift_recalibrate`` flag, so the signal is scrapeable alongside the
+quality gauges from :mod:`repro_torch.obs.quality`.
 """
 from __future__ import annotations
 
@@ -35,6 +36,8 @@ import dataclasses
 import math
 
 import numpy as np
+
+from ..device import as_tensor
 
 __all__ = ["DriftMonitor", "DriftReport"]
 
@@ -88,6 +91,10 @@ class DriftMonitor:
     """Track projection-space statistics across inserts/compactions.
 
     Args:
+      family: projection family; ``observe_rows`` projects through it
+        on the family's device.  None means callers pass
+        already-projected coordinates (the streaming index does: its
+        host rows times A).
       baseline_rows: first N observed rows freeze the baseline; later
         rows feed the live EWMA.  (Compaction does not reset the
         baseline — drift is measured against *build-time* calibration,
@@ -97,10 +104,13 @@ class DriftMonitor:
       mean_tol / var_tol / tv_tol: per-signal recalibrate thresholds.
     """
 
-    def __init__(self, *, baseline_rows: int = 256,
+    def __init__(self, family=None, *, baseline_rows: int = 256,
                  ewma_alpha: float = 0.2, occupancy_bins: int = 8,
                  mean_tol: float = 0.5, var_tol: float = 0.69,
-                 tv_tol: float = 0.35):
+                 tv_tol: float = 0.35, registry=None):
+        from . import metrics as _metrics
+
+        self.family = family
         self.baseline_rows = int(baseline_rows)
         self.ewma_alpha = float(ewma_alpha)
         self.occupancy_bins = int(occupancy_bins)
@@ -114,27 +124,44 @@ class DriftMonitor:
         self._occ_base = np.zeros(self.occupancy_bins, np.float64)
         self._occ_live = np.zeros(self.occupancy_bins, np.float64)
         self._occ_live_n = 0
+        reg = registry if registry is not None else _metrics.get_registry()
+        self._g_mean = reg.gauge("drift_mean_shift",
+                                 "standardized projected-mean shift vs build")
+        self._g_var = reg.gauge("drift_var_ratio",
+                                "abs log projected-variance ratio vs build")
+        self._g_tv = reg.gauge(
+            "drift_occupancy_tv",
+            "TV distance of survivor-count occupancy vs build")
+        self._g_flag = reg.gauge("drift_recalibrate",
+                                 "1 when drift exceeds tolerance")
+        for g in (self._g_mean, self._g_var, self._g_tv, self._g_flag):
+            g.set(0.0)
 
     # -- data-side signal -------------------------------------------------
 
-    def observe_rows(self, proj: np.ndarray) -> None:
-        """Feed inserted rows' projected coordinates (n, m)."""
-        proj = np.asarray(proj, np.float32)
-        if proj.ndim == 1:
-            proj = proj[None]
-        if proj.shape[0] == 0:
+    def observe_rows(self, rows: np.ndarray) -> None:
+        """Feed inserted rows (n, d); projected through ``family`` when
+        one is set, else treated as projected coordinates already."""
+        rows = np.asarray(rows, np.float32)
+        if rows.ndim == 1:
+            rows = rows[None]
+        if rows.shape[0] == 0:
             return
+        proj = (self.family.project(as_tensor(
+                    rows, self.family.a.device)).cpu().numpy()
+                if self.family is not None else rows)
         coords = np.asarray(proj, np.float64).reshape(-1)
         if self._base.n < self.baseline_rows * max(proj.shape[-1], 1):
             self._base.add_batch(coords)
             return
-        self._live_rows += proj.shape[0]
+        self._live_rows += rows.shape[0]
         m, v = float(coords.mean()), float(coords.var())
         a = self.ewma_alpha
         self._ewma_mean = m if self._ewma_mean is None else (
             (1 - a) * self._ewma_mean + a * m)
         self._ewma_var = v if self._ewma_var is None else (
             (1 - a) * self._ewma_var + a * v)
+        self._publish()
 
     # -- query-side signal ------------------------------------------------
 
@@ -152,6 +179,7 @@ class DriftMonitor:
             return
         self._occ_live += hist
         self._occ_live_n += counts.size
+        self._publish()
 
     @staticmethod
     def _tv(p: np.ndarray, q: np.ndarray) -> float:
@@ -178,3 +206,10 @@ class DriftMonitor:
             mean_shift=mean_shift, var_ratio=var_ratio, occupancy_tv=tv,
             recalibrate=recal,
         )
+
+    def _publish(self) -> None:
+        rep = self.report()
+        self._g_mean.set(rep.mean_shift)
+        self._g_var.set(rep.var_ratio)
+        self._g_tv.set(rep.occupancy_tv)
+        self._g_flag.set(1.0 if rep.recalibrate else 0.0)

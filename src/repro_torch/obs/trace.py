@@ -17,11 +17,19 @@ Design constraints (DESIGN.md §12):
     attribute device time to whichever span happens to block later.
     ``block()`` synchronizes the stream of every CUDA tensor it is given
     **only while tracing** (no-op otherwise).
+    The kernel-dispatch instrumentation in ``repro_torch.kernels.ops``
+    opens its ``kernel.<op>`` span only while tracing, so with tracing
+    off a wrapper pays one boolean check and makes no host sync.
   * nestable.  Spans form a tree via a per-tracer stack: the
     streaming index's ``stream.search`` span contains one
-    ``stream.segment`` span per segment, ``stream.delta`` and
-    ``stream.merge``.  (The reference's stage and kernel spans come
-    with the rest of ``obs``, ROADMAP queue A item 8.)
+    ``stream.segment`` span per segment (each a facade's
+    ``index.search`` with its ``ann.*`` or ``quant.*`` stage spans),
+    ``stream.delta`` and ``stream.merge``; stage spans contain the
+    per-kernel spans carrying roofline attrs.
+  * the reference's one-jit-call stages.  Where the reference bounds a
+    whole jit'd pipeline by one span (the unfused flat query), no span
+    inside it exists there; :func:`paused` gives the port's eager twin
+    the same tree.  The port has no jit, so it has no ``concrete()``.
 
 Usage::
 
@@ -41,7 +49,8 @@ from typing import Any, Iterator
 import torch
 
 __all__ = ["Span", "Tracer", "Trace", "get_tracer", "enabled", "enable",
-           "disable", "span", "add_span", "block", "trace"]
+           "disable", "span", "add_span", "block", "current_span", "paused",
+           "trace"]
 
 #: the one flag every instrumented call site checks first (module
 #: attribute load + truth test — the entire disabled-mode cost)
@@ -52,7 +61,9 @@ _ENABLED: bool = False
 class Span:
     """One timed region.  ``parent`` indexes the tracer's span list
     (-1 for roots); ``attrs`` carries whatever the site recorded —
-    the streaming index's spans get sizes and counts."""
+    kernel spans get modeled ``bytes``/``flops`` (see
+    ``repro_torch.obs.roofline``), the streaming index's spans sizes and
+    counts."""
 
     name: str
     t0: float  # perf_counter seconds
@@ -177,6 +188,26 @@ def add_span(name: str, t0: float, t1: float, **attrs) -> Span | None:
     if not _ENABLED:
         return None
     return _TRACER.add_span(name, t0, t1, **attrs)
+
+
+def current_span() -> Span | None:
+    """The innermost open span while tracing, else None — how a kernel
+    wrapper refines its span's model from what the call did."""
+    if not _ENABLED or not _TRACER._stack:
+        return None
+    return _TRACER.spans[_TRACER._stack[-1]]
+
+
+@contextmanager
+def paused() -> Iterator[None]:
+    """Record no span in the body (tracing resumes after it): the
+    stages the reference runs as one jit call have no spans inside."""
+    global _ENABLED
+    was, _ENABLED = _ENABLED, False
+    try:
+        yield
+    finally:
+        _ENABLED = was
 
 
 def block(*values):

@@ -22,6 +22,7 @@ from ..core.flat_index import FlatIndex
 from ..core.fused import select_seed
 from ..kernels import ops as kops
 from ..kernels import ref as kref
+from ..obs import trace as otrace
 
 __all__ = ["quant_ann_query", "quant_cp_search"]
 
@@ -31,6 +32,12 @@ def quant_ann_query(index: FlatIndex, codec, codes: torch.Tensor, q: torch.Tenso
                     force: str | None = None, fused: bool = False,
                     with_count: bool = False):
     """(c,k)-ANN over quantized storage.
+
+    While tracing, each tier runs under a ``quant.*`` span
+    (``quant.query`` over ``quant.estimate``, ``quant.select``,
+    ``quant.rerank``, ``quant.verify``; kernel spans nest underneath)
+    with its outputs synchronized before the span closes; with tracing
+    off a span is a shared no-op and nothing synchronizes.
 
     Args:
       index: the flat index (its ``data`` may be empty when
@@ -54,43 +61,54 @@ def quant_ann_query(index: FlatIndex, codec, codes: torch.Tensor, q: torch.Tenso
     q = q.to(torch.float32)
     if q.ndim == 1:
         q = q[None]
-    qp = index.family.project(q)  # (B, m)
+    with otrace.span("quant.query", B=int(q.shape[0]), n=int(codes.shape[0]),
+                     k=k, T=T, R=R, fused=fused, store_raw=store_raw):
+        # 1-2. estimate + select (identical to the float pipeline)
+        with otrace.span("quant.estimate"):
+            qp = index.family.project(q)  # (B, m)
+            d2p = kops.pairwise_sq_dist(qp, index.projected, force=force)  # (B, n)
+        with otrace.span("quant.select") as sp:
+            if fused:
+                m = index.params.m if index.params is not None else index.m
+                tau0 = select_seed(d2p, T, m)
+                _, cand, cnt = kops.radius_select(d2p, T, tau0=tau0, force=force,
+                                                  with_count=True)
+            else:
+                _, cand = kref.topk_smallest(d2p, T)  # (B, T)
+                cnt = torch.full((q.shape[0],), T, dtype=torch.int32,
+                                 device=q.device)
+            otrace.block(cand)
+            if sp is not None:
+                sp.attrs["candidates_selected"] = int(cnt.sum())
 
-    # 1-2. estimate + select (identical to the float pipeline)
-    d2p = kops.pairwise_sq_dist(qp, index.projected, force=force)  # (B, n)
-    if fused:
-        m = index.params.m if index.params is not None else index.m
-        tau0 = select_seed(d2p, T, m)
-        _, cand, cnt = kops.radius_select(d2p, T, tau0=tau0, force=force,
-                                          with_count=True)
-    else:
-        _, cand = kref.topk_smallest(d2p, T)  # (B, T)
-        cnt = torch.full((q.shape[0],), T, dtype=torch.int32, device=q.device)
+        # 3. rerank: ADC on the candidates' uint8 codes, keep the R best
+        with otrace.span("quant.rerank"):
+            ccodes = codes[cand.to(torch.int64)]  # (B, T, S)
+            direct = getattr(codec, "adc_direct", None)
+            if direct is not None:  # affine codecs skip the tables
+                d2a = direct(q, ccodes)
+            else:
+                d2a = kops.adc_dist(ccodes, codec.lookup_tables(q), force=force)  # (B, T)
+            if fused and R > 128:
+                adcR, selR = kops.radius_select(d2a, R, force=force)
+            else:
+                adcR, selR = kref.topk_smallest(d2a, R)
+            rcand = otrace.block(torch.gather(cand, 1, selR.to(torch.int64)))  # (B, R)
 
-    # 3. rerank: ADC on the candidates' uint8 codes, keep the R best
-    ccodes = codes[cand.to(torch.int64)]  # (B, T, S)
-    direct = getattr(codec, "adc_direct", None)
-    if direct is not None:  # affine codecs skip the tables
-        d2a = direct(q, ccodes)
-    else:
-        d2a = kops.adc_dist(ccodes, codec.lookup_tables(q), force=force)  # (B, T)
-    if fused and R > 128:
-        adcR, selR = kops.radius_select(d2a, R, force=force)
-    else:
-        adcR, selR = kref.topk_smallest(d2a, R)
-    rcand = torch.gather(cand, 1, selR.to(torch.int64))  # (B, R)
-
-    if not store_raw:  # the R cut is already ascending in ADC distance
-        out = rcand[:, :k].to(torch.int32), torch.sqrt(torch.clamp_min(adcR[:, :k], 0.0))
-    elif fused:
-        d2, idx = kops.verify_topk(index.data, q, rcand, k, force=force)
-        out = idx.to(torch.int32), torch.sqrt(torch.clamp_min(d2, 0.0))
-    else:
-        rows = index.data[rcand.to(torch.int64)]  # (B, R, d)
-        d2 = kops.pairwise_sq_dist(q, rows, force=force)
-        vals, sel = kref.topk_smallest(d2, k)
-        idx = torch.gather(rcand, 1, sel.to(torch.int64))
-        out = idx.to(torch.int32), torch.sqrt(torch.clamp_min(vals, 0.0))
+        with otrace.span("quant.verify"):
+            if not store_raw:  # the R cut is already ascending in ADC distance
+                out = (rcand[:, :k].to(torch.int32),
+                       torch.sqrt(torch.clamp_min(adcR[:, :k], 0.0)))
+            elif fused:
+                d2, idx = kops.verify_topk(index.data, q, rcand, k, force=force)
+                out = idx.to(torch.int32), torch.sqrt(torch.clamp_min(d2, 0.0))
+            else:
+                rows = index.data[rcand.to(torch.int64)]  # (B, R, d)
+                d2 = kops.pairwise_sq_dist(q, rows, force=force)
+                vals, sel = kref.topk_smallest(d2, k)
+                idx = torch.gather(rcand, 1, sel.to(torch.int64))
+                out = idx.to(torch.int32), torch.sqrt(torch.clamp_min(vals, 0.0))
+            out = otrace.block(*out)
     return out + (cnt,) if with_count else out
 
 

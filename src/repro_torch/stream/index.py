@@ -28,10 +28,13 @@ options: ``delta_threshold`` (flush trigger, default 512),
 or "flat-pq"), ``max_segments`` (compaction trigger, default 4),
 ``max_dead_fraction`` (segment rot trigger, default 0.5),
 ``use_kernels`` (False runs the plain PyTorch versions, in the delta
-scan, the merge and the segments, default True).  ``durability`` raises
-NotImplementedError until ROADMAP queue A item 10 ports the WAL.
-Unrecognized options (``fused``, ``quant``, ``rerank``, ...) pass
-through to the segment backend.
+scan, the merge and the segments, default True), ``durability`` (crash
+consistency: ``{"dir": path, "sync": True, "snapshot_every": 0}``
+attaches a ``repro_torch.resilience`` WAL — every mutation is logged
+before memory changes — plus atomic snapshots every N records; rebuild
+after a crash with ``repro_torch.resilience.recover(dir)``, which reads
+the reference's directories too).  Unrecognized options (``fused``,
+``quant``, ``rerank``, ...) pass through to the segment backend.
 
 Every segment's backend, the drift monitor and the closest-pair key
 share one projection A (d, m): drawn as every index of the port draws it
@@ -80,10 +83,6 @@ class StreamingIndex(BaseIndex):
 
     def _build(self) -> None:
         opts = self.config.options
-        if opts.get("durability"):
-            raise NotImplementedError(
-                "options['durability'] (the WAL and snapshots) is not ported "
-                "yet: ROADMAP queue A item 10")
         self.delta_threshold = int(opts.get("delta_threshold", 512))
         # a quant request flips the default segment backend to "flat",
         # whose verify tier holds the codes
@@ -132,6 +131,20 @@ class StreamingIndex(BaseIndex):
 
             self.drift = DriftMonitor(
                 baseline_rows=int(opts.get("drift_baseline", 256)))
+        # durability: WAL-before-memory logging + atomic snapshots,
+        # attached BEFORE the seed insert so seed rows are logged too.  A
+        # dir that already holds a durable index must go through
+        # resilience.recover(), not a fresh build.
+        self.durability = None
+        dur = opts.get("durability")
+        if dur:
+            from ..resilience.recovery import DurabilityManager
+
+            self.durability = DurabilityManager(
+                dur["dir"], d=self.d, config=self.config, fresh=True,
+                sync=bool(dur.get("sync", True)),
+                snapshot_every=int(dur.get("snapshot_every", 0)),
+                snapshot_keep=int(dur.get("snapshot_keep", 2)))
         if self.data.shape[0]:
             self.insert(self.data)
         # the append-only store owns the rows now
@@ -160,6 +173,10 @@ class StreamingIndex(BaseIndex):
         if cnt == 0:
             return np.empty((0,), dtype=np.int64)
         ids = np.arange(self._total, self._total + cnt, dtype=np.int64)
+        # WAL-before-memory: the record is durable before any state
+        # changes, so a crash here loses nothing already acknowledged
+        if self.durability is not None:
+            self.durability.log_insert(self._total, x)
         chaos.hit("stream.apply")
         self._grow_to(self._total + cnt)
         self._store[ids] = x
@@ -188,6 +205,8 @@ class StreamingIndex(BaseIndex):
         targets = ids[self._alive[ids]]
         if targets.size == 0:
             return 0
+        if self.durability is not None:
+            self.durability.log_delete(targets)
         chaos.hit("stream.apply")
         self._alive[targets] = False
         self._n_live -= int(targets.size)
@@ -209,6 +228,8 @@ class StreamingIndex(BaseIndex):
         # takes the delta's rows on the device, which the drain gives up
         ids = self.delta.ids
         seg = self._segment(ids, self.delta.vectors)
+        if self.durability is not None:
+            self.durability.log_flush()
         chaos.hit("stream.apply")
         self.delta.take()
         self._owner[ids] = seg.serial
@@ -216,6 +237,8 @@ class StreamingIndex(BaseIndex):
         self.segments.append(seg)
         self.n_flushes += 1
         self._maybe_compact()
+        if self.durability is not None:
+            self.durability.maybe_snapshot(self)
 
     def _segment(self, ids: np.ndarray, rows: torch.Tensor) -> Segment:
         return Segment(ids, rows, self.config, self.segment_backend, a=self._a)
@@ -243,6 +266,10 @@ class StreamingIndex(BaseIndex):
         # build must leave every live row still owned by a source
         seg = (self._segment(live, as_tensor(self._store[live], self.device))
                if live.size else None)
+        # compaction is a deterministic consequence of the op sequence;
+        # its WAL record is an audit marker and replays as a no-op
+        if self.durability is not None:
+            self.durability.log_compact()
         gone = {s.serial for s in victims}
         self.segments = [s for s in self.segments if s.serial not in gone]
         for serial in gone:
@@ -315,8 +342,8 @@ class StreamingIndex(BaseIndex):
         Tombstones are masked at gather time.  The sort key is the rows'
         first projected coordinate under A, computed on the host as the
         reference computes it; the gathered rows and the key then go to
-        the device (span ``stream.cp_gather``) for the join
-        (``stream.cp_join``)."""
+        the device (span ``stream.cp_gather``) for the join (the
+        engine's ``cp.query``)."""
         from ..core.cp_fused import cp_fused_search
 
         with otrace.span("stream.cp_gather", segments=len(self.segments),
@@ -330,11 +357,10 @@ class StreamingIndex(BaseIndex):
             key = as_tensor(x @ self._a[:, 0], self.device)
             x = as_tensor(x, self.device)
         cfg = self.config
-        with otrace.span("stream.cp_join", n=int(gid.size)):
-            r = cp_fused_search(
-                x, k, m=cfg.m, c=cfg.cp_c,
-                gamma=float(cfg.options.get("cp_gamma", 1.0)),
-                force=self._force, key=key)
+        r = cp_fused_search(
+            x, k, m=cfg.m, c=cfg.cp_c,
+            gamma=float(cfg.options.get("cp_gamma", 1.0)),
+            force=self._force, key=key)
         pairs = gid[r.pairs.astype(np.int64)]
         pairs = np.stack([pairs.min(axis=1), pairs.max(axis=1)],
                          axis=1).astype(np.int32)
@@ -343,6 +369,23 @@ class StreamingIndex(BaseIndex):
             stats=WorkStats(candidates_verified=r.pairs_verified,
                             pairs_verified=r.pairs_verified,
                             tiles_pruned=r.tiles_pruned))
+
+    # -- durability ------------------------------------------------------
+
+    def snapshot(self):
+        """Write an atomic on-disk snapshot now and rotate the WAL
+        (requires ``options={"durability": {...}}``).  Returns the
+        committed snapshot directory.  Rows come from the host store:
+        nothing is read back from the device."""
+        if self.durability is None:
+            raise RuntimeError(
+                "snapshot() requires options={'durability': {'dir': ...}}")
+        return self.durability.snapshot(self)
+
+    def close(self) -> None:
+        """Flush and close the WAL handle (no-op without durability)."""
+        if self.durability is not None:
+            self.durability.close()
 
     # -- introspection ---------------------------------------------------
 

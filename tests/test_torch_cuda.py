@@ -685,3 +685,37 @@ def test_streaming_facade_matches_plain_twin(cuda, segment_backend):
     ck, cp = kern.cp_search(10), plain.cp_search(10)
     np.testing.assert_array_equal(ck.pairs, cp.pairs)
     assert ck.stats == cp.stats
+
+
+@pytest.mark.parametrize("op", ["pairwise_sq_dist", "verify_topk"])
+def test_traced_kernel_span_covers_its_kernel(cuda, op):
+    """With tracing on, a kernel span opens after its inputs and closes
+    after its outputs are synchronized: its wall time covers the kernel's
+    own time by CUDA events (the median of 5 untraced calls)."""
+    from repro_torch.obs import trace
+
+    rng = np.random.default_rng(23)
+    if op == "pairwise_sq_dist":
+        q = torch.from_numpy(rng.normal(size=(64, 15)).astype(np.float32)).to(cuda)
+        x = torch.from_numpy(rng.normal(size=(400_000, 15)).astype(np.float32)).to(cuda)
+        call = lambda: ops.pairwise_sq_dist(q, x)  # noqa: E731
+    else:
+        data, q, cand = _verify_inputs(64, 200_000, 256, 20_000, 0, 23, cuda)
+        call = lambda: ops.verify_topk(data, q, cand, 10)  # noqa: E731
+    call()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        call()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    with trace.trace() as tr:
+        call()
+    (span,) = tr.spans
+    assert span.name == "kernel." + op and span.attrs["bytes"] > 0
+    assert span.duration_s * 1e3 >= 0.9 * sorted(times)[2]
+    if op == "verify_topk":  # refined from the rows its distance pass read
+        assert 0 < span.attrs["rows_read"] <= 200_000

@@ -213,9 +213,10 @@ def test_last_select_budget_matches_jax(n, fused):
 def test_facade_span_roots_match_jax(call):
     """Traced, the port's facade opens the reference's root span with its
     attrs: ``index.search`` (backend, B, k and the batch's WorkStats as
-    ``work``) and ``index.cp_search`` (backend, k, work).  The stage and
-    kernel spans below it (``ann.*``, ``cp.*``, ``kernel.*``) come with
-    the rest of obs, so only the roots are compared."""
+    ``work``) and ``index.cp_search`` (backend, k, work), and below it
+    the reference's whole tree: the ``ann.query`` span of the unfused
+    pipeline, or ``cp.*`` with the ``kernel.pair_join`` span and its
+    modeled bytes and FLOPs."""
     from repro.obs import trace as jtrace
     from repro_torch.obs import trace
 
@@ -228,6 +229,10 @@ def test_facade_span_roots_match_jax(call):
         run(ji)
     with trace.trace() as ttr:
         res = run(ti)
+    assert [(s.name, s.parent, s.attrs.get("bytes"), s.attrs.get("flops"))
+            for s in ttr.spans] == [(s.name, s.parent, s.attrs.get("bytes"),
+                                     s.attrs.get("flops")) for s in jtr.spans]
+    assert len(ttr.spans) > 1
     jroots = [s for s in jtr.spans if s.parent == -1]
     troots = [s for s in ttr.spans if s.parent == -1]
     assert [s.name for s in troots] == [s.name for s in jroots] == ["index." + call]

@@ -1,6 +1,7 @@
-"""What the port must never do: import JAX or the JAX package, carry on
-quietly on the CPU, fall back from a kernel to its plain version, or
-build anywhere but an ignored directory."""
+"""What the port must never do: import JAX, the JAX package or msgpack
+(the WAL's codec is the port's own, so no msgpack need be installed),
+carry on quietly on the CPU, fall back from a kernel to its plain
+version, or build anywhere but an ignored directory."""
 import ast
 import os
 import pathlib
@@ -17,7 +18,7 @@ from repro_torch.kernels import _build, counts, ops
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py"))
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
 
 
 def _forbidden(module: str) -> bool:
@@ -47,7 +48,7 @@ def test_importing_the_port_loads_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro'))\n"
+        "('jax', 'jaxlib', 'repro', 'msgpack'))\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]), bad)\n"
     )
     env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(ROOT / "src"), str(ROOT)])}
@@ -63,8 +64,10 @@ def test_importing_the_port_loads_no_jax():
                                    "train_codec", "codec_from_arrays", "streaming",
                                    "StreamingIndex.from_arrays", "pmtree",
                                    "PMTreeBackend.from_arrays", "PMLSH", "PMLSH_CP",
-                                   "multiprobe", "srs", "bucket_families_from_arrays"])
-def test_entry_points_default_to_cuda_and_raise_without_it(entry):
+                                   "multiprobe", "srs", "bucket_families_from_arrays",
+                                   "recover", "QualityAuditor",
+                                   "QualityAuditor.for_index"])
+def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device works here")
     from repro_torch.convert import (
@@ -75,7 +78,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry):
     from repro_torch.core import PMLSH, PMLSH_CP, build_flat_index
     from repro_torch.core.cp_fused import cp_fused_search
     from repro_torch.index import FlatBackend, IndexConfig, PMTreeBackend, build_index
+    from repro_torch.obs import QualityAuditor
     from repro_torch.quant import train_codec
+    from repro_torch.resilience import recover
     from repro_torch.stream import StreamingIndex
 
     data = np.random.default_rng(0).normal(size=(64, 8)).astype(np.float32)
@@ -102,7 +107,19 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry):
             "multiprobe": lambda: build_index(data, IndexConfig(backend="multiprobe")),
             "srs": lambda: build_index(data, IndexConfig(backend="srs")),
             "bucket_families_from_arrays": lambda: bucket_families_from_arrays(
-                [(np.ones((8, 5), np.float32), np.zeros(5, np.float32), 4.0)])}[entry]
+                [(np.ones((8, 5), np.float32), np.zeros(5, np.float32), 4.0)]),
+            "recover": lambda: recover(durable_dir()),
+            "QualityAuditor": lambda: QualityAuditor(lambda: (np.arange(64), data)),
+            # an index that names no device: the auditor's default, the card
+            "QualityAuditor.for_index": lambda: QualityAuditor.for_index(
+                type("Rows", (), {"data": data, "d": 8, "config": IndexConfig()})())}[entry]
+
+    def durable_dir():  # a directory a CPU index wrote, recovered by default
+        d = tmp_path / "durable"
+        build_index(data, IndexConfig(backend="streaming", options={
+            "segment_backend": "flat", "durability": {"dir": str(d)}}), device="cpu").close()
+        return d
+
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
 

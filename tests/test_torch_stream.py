@@ -422,15 +422,6 @@ def test_drift_report_matches_jax():
         assert getattr(rep_t, field) == pytest.approx(getattr(rep_j, field), rel=1e-6)
 
 
-@pytest.mark.parametrize("options,match", [
-    ({"segment_backend": "flat", "durability": {"dir": "x"}}, "durability.*item 10"),
-])
-def test_unported_options_raise_at_build(options, match):
-    data = make_clustered(100, D, seed=19)
-    with pytest.raises(NotImplementedError, match=match):
-        build_index(data, IndexConfig(backend="streaming", options=options), device="cpu")
-
-
 def test_quant_rejects_a_segment_backend_that_ignores_it():
     with pytest.raises(ValueError, match="cannot honor"):
         build_index(np.zeros((4, 8), np.float32), IndexConfig(
@@ -507,19 +498,24 @@ def test_traced_search_splits_into_segment_delta_and_merge():
         ti.search(_queries(data, 4, seed=27), K)
     names = [s.name for s in tr.spans]
     # the facade's root, then the stream's split; the sealed segment's
-    # own flat facade opens its index.search inside stream.segment
+    # own flat facade opens its index.search inside stream.segment, with
+    # the unfused pipeline's one ann.query span; the delta scan's and the
+    # merge's kernels open their kernel spans
     assert names == ["index.search", "stream.search", "stream.segment", "index.search",
-                     "stream.delta", "stream.merge"]
-    assert [s.parent for s in tr.spans] == [-1, 0, 1, 2, 1, 1]
+                     "ann.query", "stream.delta", "kernel.pairwise_sq_dist",
+                     "kernel.topk_smallest", "stream.merge", "kernel.topk_smallest"]
+    assert [s.parent for s in tr.spans] == [-1, 0, 1, 2, 3, 1, 5, 5, 1, 8]
     assert tr.spans[0].attrs["backend"] == "streaming"
-    assert tr.spans[2].attrs["size"] == 2000 and tr.spans[4].attrs["size"] == 40
+    assert tr.spans[2].attrs["size"] == 2000 and tr.spans[5].attrs["size"] == 40
     assert not trace.enabled()
 
 
 def test_traced_search_spans_match_jax():
-    """The port's span tree is the reference's without the stage and
-    kernel spans (``ann.*``, ``kernel.*``), which come with the rest of
-    obs."""
+    """The port's whole span tree is the reference's: the facade's root,
+    the stream's split, each segment's facade with its ``ann.query``
+    (one span: the reference runs the unfused pipeline as one jit call)
+    and the delta scan's and merge's ``kernel.*`` spans, with their
+    modeled bytes and FLOPs."""
     from repro.obs import trace as jtrace
 
     data = make_clustered(2000, D, seed=25)
@@ -533,19 +529,12 @@ def test_traced_search_spans_match_jax():
     with trace.trace() as ttr:
         ti.search(q, K)
 
-    def tree(spans, keep):
-        kept = [i for i, s in enumerate(spans) if keep(s.name)]
+    def tree(spans):
+        return [(s.name, s.parent, s.attrs.get("bytes"), s.attrs.get("flops"))
+                for s in spans]
 
-        def parent(i):  # the nearest kept ancestor
-            p = spans[i].parent
-            while p != -1 and p not in kept:
-                p = spans[p].parent
-            return kept.index(p) if p != -1 else -1
-
-        return [(spans[i].name, parent(i)) for i in kept]
-
-    want = tree(jtr.spans, lambda name: name.startswith(("index.", "stream.")))
-    assert tree(ttr.spans, lambda name: True) == want
+    assert tree(ttr.spans) == tree(jtr.spans)
+    assert any(s.name.startswith("kernel.") for s in ttr.spans)
 
 
 def test_cpu_run_launches_no_kernel():
