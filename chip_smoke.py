@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's flat ANN, quantized, closest-pair, streaming
-and PM-tree paths on one NVIDIA GPU, and check them.
+and PM-tree paths and its serving front end on one NVIDIA GPU, and check
+them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -130,6 +131,34 @@ Phases, each printing one JSON line:
            phase's against float64, the ratio, the Lemma-3 CI coverage
            beside its nominal 1 − 2α, the calibration error, the audit's
            seconds.
+  serve    the serving front end over the Deep1M twin:
+           ``make_retrieval_step`` (flat, k = 16) and a degraded tier of
+           the same keys behind sq8 codes (rerank 512) under
+           ``RequestScheduler(ServeConfig(b_max=64, k_max=128))``, about
+           2.4 GB of rows and codes on the card.  ``serve_closed``: C = 1,
+           8, 64 clients submit and wait, 512 requests each, beside the
+           naive loop (one ``step(q[None])`` a request): QPS, p50, p99, the
+           median flush wall at B_pad = 64, recall@16 against float64 equal
+           to the naive loop's.  ``serve_ragged``: 512 requests on the real
+           clock, k in {1, 3, 10, 16, 50, 100, 128}, bursts of 64 between
+           single trickles, deadlines of 2-20 ms; shapes ≤ the palette's 56.
+           Every ok response of both passes equals its row of a direct
+           search of its flushed batch, bit for bit, and each flush shape
+           met at B_pad = 64 gives the plain path's ids; pairwise_sq_dist,
+           radius_select and verify_topk must launch (``serve_kernels``).
+           ``serve_hot``: 256 requests over 32 queries, zipf-like, cache
+           off and on: p50 each, hit rate, and no launch in the pass of
+           hits.  ``serve_overload``: 512 submits, no pump, max_queue 256,
+           watermark 0.75: admitted, degraded, shed.  ``serve_chaos``: a
+           seeded plan over serve.search, serve.degraded and serve.flush
+           (p = 0.2) across 128 requests; no exception escapes, a fault
+           fires.  ``serve_stream``: a streaming datastore (flat segments,
+           262,144 seed rows, delta_threshold 32,768), 4 rounds of
+           ``extend`` of 4,096 rows, ``evict`` of 32 seed rows and a batch
+           of 64 inserted keys: each answers its own id at rank 0 with its
+           payload, probes cached before ``extend`` are answered afresh
+           after it, no evicted id answers, topk_smallest launches.  Every
+           pass's statuses sum to what it submitted.
   durable  (last) a streaming index over the Deep1M twin with
            ``durability = {"dir": "build/durable", "sync": True,
            "snapshot_every": 8}`` (flat segments, delta_threshold
@@ -218,6 +247,15 @@ ANN_BASELINES = (("multiprobe", {"w": 8.0}), ("multiprobe", {}), ("qalsh", {}),
 RECALL_FLOOR_EXEMPT = (("multiprobe", {}), ("srs", {}))
 CP_BASELINES = ("lsb_tree", "acp_p", "mkcp", "nlj")
 STREAM_PM_START, STREAM_PM_BATCH, STREAM_PM_ROUNDS, STREAM_PM_THRESHOLD = 32_768, 4096, 4, 8192
+# the serve phase: the scheduler over the Deep1M twin at k = 16 (closed
+# loop at C clients, beside one search a request), a ragged trace, a hot
+# trace, an overload burst, a seeded chaos plan and a streaming datastore
+SERVE_K, SERVE_B_MAX, SERVE_K_MAX, SERVE_RERANK = 16, 64, 128, 512
+SERVE_CLIENTS, SERVE_CLOSED = (1, 8, 64), 512
+SERVE_KS = (1, 3, 10, 16, 50, 100, 128)
+SERVE_RAGGED, SERVE_HOT, SERVE_HOT_DISTINCT = 512, 256, 32
+SERVE_OVERLOAD, SERVE_CHAOS = 512, 128
+SERVE_STREAM_ROWS, SERVE_STREAM_ROUNDS, SERVE_STREAM_EVICT = 262_144, 4, 32
 # the durable stream: 8 rounds of 4,096 inserts and 32 deletes, a flush
 # after round 6 (it snapshots), the crash at stream.apply in round 7
 DURABLE_ROUNDS, DURABLE_FLUSH_AFTER, DURABLE_CRASH_ROUND = 8, 6, 7
@@ -673,7 +711,7 @@ def quant_phase(torch, dev, data, queries, exact, seed: int) -> dict:
         check(used["launches"][name] > 0, f"quant path never launched {name}")
     # the rerank budget R, as the facade chose it: it verifies R rows a query
     R = answers[1].stats.candidates_verified
-    plain = build_index(data, cfg.with_options(force="plain"), device=dev)
+    plain = build_index(data, cfg.with_options(use_kernels=False), device=dev)
     check(torch.equal(pq.codes, plain.codes), "quant path: the plain index's codes differ")
     for B in BATCHES:
         check(np.array_equal(answers[B].indices, plain.search(queries[:B], K).indices),
@@ -733,7 +771,7 @@ def cp_phase(torch, dev, seed: int) -> dict:
     used = counts.snapshot()
     check(used["launches"]["pair_join"] > 0, "cp path never launched pair_join")
     t0 = time.perf_counter()
-    plain = build_index(audio, cfg.with_options(force="plain"), device=dev).cp_search(K)
+    plain = build_index(audio, cfg.with_options(use_kernels=False), device=dev).cp_search(K)
     plain_s = time.perf_counter() - t0
     check(np.array_equal(res.pairs, plain.pairs), "cp path: pairs differ from the plain path's")
     check((res.stats.pairs_verified, res.stats.tiles_pruned)
@@ -1446,6 +1484,421 @@ def quality_phase(torch, index, queries: np.ndarray, answers, recall: float) -> 
               "quality_calibration_error")}})
 
 
+def _quantiles_ms(lat_s: list) -> dict:
+    ms = np.asarray(lat_s, np.float64) * 1e3
+    return {"p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99)),
+            "mean_ms": float(ms.mean())}
+
+
+def _accounting(tickets, what: str) -> dict:
+    """ok + shed + failed + rejected = submitted, from the responses."""
+    statuses = [t.result().status for t in tickets]
+    tally = {s: statuses.count(s) for s in ("ok", "shed", "failed", "rejected")}
+    check(sum(tally.values()) == len(tickets),
+          f"serve {what}: statuses {set(statuses)} do not sum to {len(tickets)} submitted")
+    return tally
+
+
+def _take_counts(total: dict, launches: dict) -> None:
+    """Add one pass's launch counts into ``total``."""
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
+
+
+class _FlushLog:
+    """Records each padded batch the scheduler hands ``index.search``
+    (a copy of the staging buffer, its k_pad, the answer, the search's
+    wall ms), to hold the responses to a direct search of the same
+    batch and to the plain path."""
+
+    def __init__(self, index):
+        self.index, self.real, self.calls = index, index.search, []
+
+    def __enter__(self):
+        def spy(Q, k=None):
+            s = time.perf_counter()
+            res = self.real(Q, k)
+            ms = (time.perf_counter() - s) * 1e3
+            self.calls.append((np.array(Q, copy=True), int(k), res, ms))
+            return res
+
+        self.index.search = spy
+        return self
+
+    def __exit__(self, *exc):
+        del self.index.search
+
+
+def _same_as_direct(log: _FlushLog, answered: list, what: str) -> int:
+    """Each flush's batch searched again directly: ids and distances bit
+    for bit; each ok response equal to its row of that answer, sliced to
+    its k.  ``answered`` holds (query, k, response)."""
+    where = {}
+    for c, (Q, _, _, _) in enumerate(log.calls):
+        for row, q in enumerate(Q):
+            where.setdefault(q.tobytes(), []).append((c, row))
+    for Q, k_pad, res, _ in log.calls:
+        direct = log.real(Q, k_pad)
+        check(np.array_equal(direct.indices, res.indices)
+              and direct.distances.tobytes() == res.distances.tobytes(),
+              f"serve {what}: a direct search of a flushed batch ({Q.shape[0]}, {k_pad}) "
+              "answers otherwise")
+    checked = 0
+    for q, k, r in answered:
+        if not r.ok or r.cached:
+            continue
+        hits = where.get(np.asarray(q, np.float32).tobytes(), [])
+        check(len(hits) == 1, f"serve {what}: query found in {len(hits)} flushes")
+        c, row = hits[0]
+        res = log.calls[c][2]
+        check(np.array_equal(r.result.indices, res.indices[row:row + 1, :k])
+              and r.result.distances.tobytes() == res.distances[row:row + 1, :k].tobytes(),
+              f"serve {what}: a response differs from its flush's row")
+        checked += 1
+    return checked
+
+
+def _timed_flush(flush, out: list):
+    """``RequestScheduler._flush`` that appends the wall ms of each flush
+    that served a request to ``out``."""
+    def timed(bkey, reason):
+        s = time.perf_counter()
+        done = flush(bkey, reason)
+        if done:
+            out.append((time.perf_counter() - s) * 1e3)
+        return done
+    return timed
+
+
+def _same_as_plain(plain, logs: list, what: str) -> dict:
+    """The first flush of each (B_pad, k_pad) in ``logs`` searched again
+    on the plain path: ids identical, distances within rtol 1e-5 (the
+    port's float tolerance).  Returns the shapes with their max abs
+    distance error."""
+    errs = {}
+    for log in logs:
+        for Q, k_pad, res, _ in log.calls:
+            shape = (Q.shape[0], k_pad)
+            if shape in errs:
+                continue
+            want = plain.search(Q, k_pad)
+            check(np.array_equal(want.indices, res.indices),
+                  f"serve {what}: a {shape} flush's ids differ from the plain path's")
+            found = res.indices >= 0
+            got_d, want_d = res.distances[found], want.distances[found]
+            check(np.allclose(got_d, want_d, rtol=1e-5, atol=0.0),
+                  f"serve {what}: a {shape} flush's distances differ from the plain path's "
+                  "beyond rtol 1e-5")
+            errs[shape] = float(np.abs(got_d.astype(np.float64) - want_d).max(initial=0.0))
+    return errs
+
+
+def serve_phase(torch, dev, data: np.ndarray, seed: int, *, k: int = SERVE_K,
+                clients=SERVE_CLIENTS, closed: int = SERVE_CLOSED, ragged: int = SERVE_RAGGED,
+                hot: int = SERVE_HOT, hot_distinct: int = SERVE_HOT_DISTINCT,
+                overload: int = SERVE_OVERLOAD, chaos_requests: int = SERVE_CHAOS,
+                stream_rows: int = SERVE_STREAM_ROWS, stream_rounds: int = SERVE_STREAM_ROUNDS,
+                stream_batch: int = STREAM_BATCH, stream_threshold: int = STREAM_THRESHOLD,
+                rerank: int = SERVE_RERANK) -> dict:
+    """The serving front end over the Deep1M twin: ``make_retrieval_step``
+    (flat) and a degraded tier of the same keys behind sq8 codes, under
+    ``RequestScheduler(ServeConfig(b_max=64, k_max=128))``; six passes
+    (closed loop beside the naive loop, ragged trace, hot trace with the
+    cache on and off, overload, seeded chaos, streaming datastore), each
+    printing its line.  Every ok response is held to a direct search of
+    its flushed batch (bit for bit), and every flush shape of passes 1-2
+    to the plain path; each scheduler pass's launches are read from the
+    counts set to 0 just before it."""
+    from repro_torch.index import FlatBackend, IndexConfig
+    from repro_torch.kernels import counts
+    from repro_torch.resilience import chaos
+    from repro_torch.serve import RequestScheduler, ServeConfig
+    from repro_torch.serve.serve_step import make_retrieval_step
+
+    phase_t0 = time.perf_counter()
+    n, d = data.shape
+    rng = np.random.default_rng(seed + 40)
+    cfg = IndexConfig(backend="flat", seed=seed)
+    step, index = make_retrieval_step(data, np.arange(n, dtype=np.int64), k=k,
+                                      index_config=cfg, device=dev)
+    cheap, _ = make_retrieval_step(data, np.arange(n, dtype=np.int64), k=k,
+                                   index_config=cfg.with_options(quant="sq8", rerank=rerank),
+                                   device=dev)
+    plain = FlatBackend(data, cfg.with_options(use_kernels=False), device=dev, impl=index.impl)
+    queries = make_queries(data, 2 * closed + ragged + hot_distinct, seed + 41)
+    q_closed, q_ragged = queries[:closed], queries[closed:closed + ragged]
+    q_hot = queries[closed + ragged:closed + ragged + hot_distinct]
+    q_over = queries[closed:]
+    for B in sorted({1, *clients, SERVE_B_MAX}):  # warm each tier's batch shapes
+        index.search(queries[:B], k)
+        cheap.index.search(queries[:B], k)
+    emit({"phase": "serve_setup", "n": n, "d": d, "k": k, "rerank": rerank,
+          "card_bytes": (index.impl.data.numel() * 4 + index.impl.projected.numel() * 4
+                         + cheap.index.impl.data.numel() * 4
+                         + cheap.index.impl.projected.numel() * 4 + cheap.index.codes.numel()),
+          "seconds": time.perf_counter() - phase_t0})
+    config = ServeConfig(b_max=SERVE_B_MAX, k_max=SERVE_K_MAX, cache=False,
+                         default_deadline_ms=1e6, max_queue=4096)
+
+    # -- pass 1: closed loop beside the naive loop; pass 2: ragged trace ----
+    # the counts are set to 0 just before each scheduler pass and read
+    # just after it, so a pass's launches are its own: neither the naive
+    # loop's, nor a warm-up's, nor those of the searches that check it
+    counts.reset()
+    naive_lat, naive_ids = [], []
+    t0 = time.perf_counter()
+    for q in q_closed:  # one facade search a request
+        s = time.perf_counter()
+        _, _, _, res = step(q[None])
+        naive_lat.append(time.perf_counter() - s)
+        naive_ids.append(res.indices[0])
+    naive_wall = time.perf_counter() - t0
+    naive_launches = dict(counts.snapshot()["launches"])
+    served, closed_lines, round_c64_ms, flush_b64_ms = {}, {}, [], []
+    sched_ids, checked, logs = None, 0, []
+    for C in clients:
+        sched = RequestScheduler(step, config=config)
+        [t.result() for t in sched.submit_batch(q_closed[:C], k)]  # warm this B_pad
+        if C == SERVE_B_MAX:  # every flush of this pass is a full B_pad = 64 one
+            sched._flush = _timed_flush(sched._flush, flush_b64_ms)
+        with _FlushLog(index) as log:
+            lat, answered, tickets = [], [], []
+            counts.reset()
+            t0 = time.perf_counter()
+            for r in range(closed // C):
+                s = time.perf_counter()
+                qs = q_closed[r * C:(r + 1) * C]
+                batch = sched.submit_batch(qs, k)
+                resps = [t.result() for t in batch]
+                tickets += batch
+                if C == SERVE_B_MAX:
+                    round_c64_ms.append((time.perf_counter() - s) * 1e3)
+                lat += [x.latency_s for x in resps]
+                answered += list(zip(qs, [k] * C, resps))
+            wall = time.perf_counter() - t0
+            launches = dict(counts.snapshot()["launches"])
+        _take_counts(served, launches)
+        logs.append(log)
+        for name in ("pairwise_sq_dist", "radius_select", "verify_topk"):
+            check(launches[name] > 0, f"serve closed loop C={C} never launched {name}")
+        tally = _accounting(tickets, f"closed loop C={C}")
+        check(all(x.ok for _, _, x in answered), f"serve closed loop C={C}: a request failed")
+        checked += _same_as_direct(log, answered, f"closed loop C={C}")
+        if C == max(clients):
+            sched_ids = np.stack([x.result.indices[0] for _, _, x in answered])
+        snap = sched.snapshot()
+        closed_lines[str(C)] = {"qps": len(answered) / wall, **_quantiles_ms(lat),
+                                "flushes": len(log.calls), "launches": launches,
+                                "padding_overhead": snap.padding_overhead,
+                                "staging_reuses": snap.staging_reuses, "accounting": tally}
+    search_b64_ms = [ms for Q, _, _, ms in logs[-1].calls if Q.shape[0] == SERVE_B_MAX]
+    exact = exact_knn(torch, index.impl.data, torch.from_numpy(q_closed).to(dev), k)
+    recall_sched = _recall(sched_ids, exact[:len(sched_ids)], k)
+    recall_naive = _recall(np.stack(naive_ids[:len(sched_ids)]), exact[:len(sched_ids)], k)
+    check(recall_sched == recall_naive,
+          f"serve: scheduler recall@{k} {recall_sched} != naive loop's {recall_naive}")
+    naive = {"qps": len(q_closed) / naive_wall, **_quantiles_ms(naive_lat),
+             "launches": naive_launches}
+    median = (lambda xs: float(np.median(xs)) if xs else None)
+    emit({"phase": "serve_closed", "k": k, "requests": closed, "naive": naive,
+          "clients": closed_lines, "speedup_at_max_c": closed_lines[str(max(clients))]["qps"]
+          / naive["qps"], "round_wall_ms_c64": median(round_c64_ms),
+          "flush_wall_ms_b64": median(flush_b64_ms), "search_wall_ms_b64": median(search_b64_ms),
+          "recall": {"scheduler": recall_sched, "naive": recall_naive}})
+
+    sched = RequestScheduler(step, config=ServeConfig(b_max=SERVE_B_MAX, k_max=SERVE_K_MAX,
+                                                      cache=False, max_queue=4096))
+    answered, deadlines, burst, i = [], [], True, 0
+    with _FlushLog(index) as log:
+        counts.reset()
+        t0 = time.perf_counter()
+        while i < ragged:
+            for _ in range(min(64 if burst else 1, ragged - i)):
+                kk, dl = int(rng.choice(SERVE_KS)), float(rng.uniform(2.0, 20.0))
+                answered.append((q_ragged[i], kk, sched.submit(q_ragged[i], k=kk, deadline_ms=dl)))
+                deadlines.append(dl)
+                i += 1
+            sched.pump()
+            if not burst:  # the trickle flushes alone by its deadline
+                while not answered[-1][2].done:
+                    sched.pump()
+            burst = not burst
+        sched.drain()
+        wall = time.perf_counter() - t0
+        ragged_launches = dict(counts.snapshot()["launches"])
+    _take_counts(served, ragged_launches)
+    logs.append(log)
+    for name in ("pairwise_sq_dist", "radius_select", "verify_topk"):
+        check(ragged_launches[name] > 0, f"serve ragged trace never launched {name}")
+    tally = _accounting([t for _, _, t in answered], "ragged trace")
+    answered = [(q, kk, t.result()) for q, kk, t in answered]
+    check(tally["ok"] == ragged, f"serve ragged: {tally}")
+    checked += _same_as_direct(log, answered, "ragged trace")
+    snap = sched.snapshot()
+    check(snap.submitted == snap.completed + snap.shed + snap.failed == ragged,
+          f"serve ragged: accounting {snap}")
+    shapes = sched.compile_shapes
+    check(len(shapes) <= len(sched.palette.shapes) == 56,
+          f"serve ragged: {len(shapes)} shapes > the palette's {len(sched.palette.shapes)}")
+    lat = [r.latency_s for _, _, r in answered]
+    emit({"phase": "serve_ragged", "requests": ragged, "ks": list(SERVE_KS),
+          "qps": ragged / wall, **_quantiles_ms(lat),
+          "deadline_misses": int(sum(r.latency_s * 1e3 > dl
+                                     for (_, _, r), dl in zip(answered, deadlines))),
+          "flushes": {"full": snap.full_flushes, "deadline": snap.deadline_flushes,
+                      "forced": snap.forced_flushes},
+          "searches": len(log.calls), "launches": ragged_launches,
+          "shapes": len(shapes), "palette": len(sched.palette.shapes),
+          "padding_overhead": snap.padding_overhead, "staging_reuses": snap.staging_reuses,
+          "compile_misses": snap.compile_misses, "compile_hits": snap.compile_hits,
+          "accounting": tally})
+
+    # every flush shape of passes 1-2, once, against the plain path
+    plain_errs = _same_as_plain(plain, logs, "passes 1-2")
+    check(any(b == SERVE_B_MAX for b, _ in plain_errs), "serve: no flush at B_pad = 64")
+    emit({"phase": "serve_kernels", "passes": "closed loop and ragged trace",
+          "launches": served, "searches": sum(len(log.calls) for log in logs),
+          "responses_held_to_direct_search": checked,
+          "plain_twin_shapes": [[b, kp, err] for (b, kp), err in sorted(plain_errs.items())]})
+
+    # -- pass 3: hot trace, the SQ8 cache on and off --------------------------
+    w = 1.0 / (1.0 + np.arange(hot_distinct))
+    trace_ix = rng.choice(hot_distinct, size=hot, p=w / w.sum())
+    hot_lines = {}
+    for label, use_cache in (("off", False), ("on", True)):
+        sched = RequestScheduler(step, config=ServeConfig(
+            b_max=SERVE_B_MAX, k_max=SERVE_K_MAX, cache=use_cache, default_deadline_ms=1e6,
+            max_queue=4096))
+        warm = [sched.submit(q, k).result() for q in q_hot]  # every hot query seen once
+        counts.reset()
+        t0 = time.perf_counter()
+        resps = [sched.submit(q_hot[j], k).result() for j in trace_ix]
+        wall = time.perf_counter() - t0
+        used = counts.snapshot()["launches"]
+        snap = sched.snapshot()
+        if use_cache:
+            check(all(r.cached for r in resps), "serve hot: a repeat missed the cache")
+            check(not any(used.values()), f"serve hot: a pass of cache hits launched {used}")
+            for j, r in zip(trace_ix, resps):
+                check(np.array_equal(r.result.indices, warm[j].result.indices),
+                      "serve hot: a hit differs from its first answer")
+        hot_lines[label] = {"qps": hot / wall, **_quantiles_ms([r.latency_s for r in resps]),
+                            "hit_rate": snap.cache_hit_rate, "launches": used}
+    emit({"phase": "serve_hot", "requests": hot, "distinct": hot_distinct, **hot_lines,
+          "p50_cut": 1.0 - hot_lines["on"]["p50_ms"] / hot_lines["off"]["p50_ms"]})
+
+    # -- pass 4: overload, no pump -------------------------------------------
+    sched = RequestScheduler(step, degraded_step=cheap, config=ServeConfig(
+        b_max=SERVE_B_MAX, k_max=SERVE_K_MAX, cache=False, default_deadline_ms=1e6,
+        max_queue=256, watermark=0.75))
+    t0 = time.perf_counter()
+    tickets = [sched.submit(q_over[i % len(q_over)], k=int(rng.choice(SERVE_KS)))
+               for i in range(overload)]
+    peak = sched.queue_depth
+    sched.drain()
+    wall = time.perf_counter() - t0
+    tally = _accounting(tickets, "overload")
+    resps = [t.result() for t in tickets]
+    snap = sched.snapshot()
+    degraded = sum(r.ok and r.degraded for r in resps)
+    check(snap.submitted == snap.completed + snap.shed + snap.failed == overload,
+          f"serve overload: accounting {snap}")
+    check(tally["shed"] > 0 and degraded > 0, f"serve overload: shed {tally['shed']}, "
+          f"degraded {degraded}: the bands never engaged")
+    emit({"phase": "serve_overload", "submitted": overload, "max_queue": 256,
+          "watermark": 0.75, "admitted": tally["ok"] - degraded, "degraded": degraded,
+          "shed": tally["shed"], "failed": tally["failed"], "peak_depth": peak,
+          "shed_rate": snap.shed_rate, "seconds": wall,
+          "degraded_tier_shapes": sorted(s[:2] for s in sched.compile_shapes
+                                         if s[2] == "degraded")})
+
+    # -- pass 5: a seeded chaos plan over the serve sites ---------------------
+    sched = RequestScheduler(step, degraded_step=cheap, config=ServeConfig(
+        b_max=SERVE_B_MAX, k_max=SERVE_K_MAX, cache=False, max_queue=4096))
+    # each spec fires with p = 0.2 an access (at most 3 times): at the
+    # default 0.05 a pass this short may see no fault at all
+    plan = chaos.FaultPlan.seeded(seed, sites=("serve.search", "serve.degraded", "serve.flush"),
+                                  prob=0.2)
+    tickets = []
+    t0 = time.perf_counter()
+    try:
+        with chaos.active(plan):
+            for i in range(chaos_requests):
+                tickets.append(sched.submit(q_over[i], k=int(rng.choice(SERVE_KS)),
+                                            deadline_ms=20.0))
+                while i % 16 == 15 and sched.queue_depth:  # deadline flushes, by the clock
+                    sched.pump()
+            sched.drain()
+    except Exception as e:  # noqa: BLE001 — reported as the check's failure
+        check(False, f"serve chaos: {type(e).__name__} escaped the scheduler: {e}")
+    tally = _accounting(tickets, "chaos")
+    snap = sched.snapshot()
+    check(snap.submitted == snap.completed + snap.shed + snap.failed == chaos_requests,
+          f"serve chaos: accounting {snap}")
+    check(plan.fired(), "serve chaos: the plan fired no fault")
+    emit({"phase": "serve_chaos", "requests": chaos_requests, "seed": seed,
+          "fired": {f"{s}:{kind}": c for (s, kind), c in sorted(plan.fired().items())},
+          "accounting": tally, "retries": snap.retries, "hedges": snap.hedges,
+          "quarantine_flushes": snap.quarantine_flushes, "breaker": sched.breaker.state,
+          "seconds": time.perf_counter() - t0})
+
+    # -- pass 6: a streaming datastore ----------------------------------------
+    t0 = time.perf_counter()
+    scfg = IndexConfig(backend="streaming", seed=seed, options={
+        "segment_backend": "flat", "delta_threshold": stream_threshold})
+    sstep, sindex = make_retrieval_step(data[:stream_rows], np.arange(stream_rows), k=k,
+                                        index_config=scfg, device=dev)
+    sched = RequestScheduler(sstep, config=ServeConfig(
+        b_max=SERVE_B_MAX, k_max=SERVE_K_MAX, default_deadline_ms=1e6, max_queue=4096))
+    build_s = time.perf_counter() - t0
+    counts.reset()
+    evicted, rounds = np.empty(0, np.int64), []
+    for r in range(stream_rounds):
+        rows = make_clustered_twin(stream_batch, d, seed, rows_seed=seed + 60 + r)
+        vals = 5_000_000 + sindex.total_assigned + np.arange(stream_batch)
+        probes = rows[:8]
+        before = [sched.submit(q, k).result() for q in probes]
+        warm = [sched.submit(q, k).result() for q in probes]
+        check(all(x.cached for x in warm), f"serve stream round {r}: warm probes missed")
+        s = time.perf_counter()
+        ids = sched.extend(rows, vals)
+        extend_ms = (time.perf_counter() - s) * 1e3
+        live = sindex.live_ids()
+        victims = rng.choice(live[live < stream_rows], SERVE_STREAM_EVICT, replace=False)
+        check(sched.evict(victims) == SERVE_STREAM_EVICT, f"serve stream round {r}: evict")
+        evicted = np.concatenate([evicted, victims])
+        after = [sched.submit(q, k).result() for q in probes]
+        check(not any(x.cached for x in after),
+              f"serve stream round {r}: a cache entry from before extend was served")
+        pick = rng.choice(stream_batch, SERVE_B_MAX, replace=False)
+        s = time.perf_counter()
+        resps = [t.result() for t in sched.submit_batch(rows[pick], k)]
+        batch_ms = (time.perf_counter() - s) * 1e3
+        for j, x in zip(pick, resps):
+            check(x.ok and x.result.indices[0, 0] == ids[j] and x.payloads[0, 0] == vals[j],
+                  f"serve stream round {r}: inserted key {ids[j]} answered "
+                  f"{x.result.indices[0, 0]} / payload {x.payloads[0, 0]}")
+        for j, x in enumerate(after):
+            check(x.result.indices[0, 0] == ids[j],
+                  f"serve stream round {r}: a probe missed its inserted row after extend")
+        seen = np.concatenate([x.result.indices[0] for x in resps + after])
+        check(not np.isin(seen, evicted).any(), f"serve stream round {r}: an evicted id answered")
+        rounds.append({"extend_ms": extend_ms, "batch_ms": batch_ms,
+                       "segments": sindex.segment_count, "delta": sindex.delta_size,
+                       "stale_before": int(sum(x.cached for x in before))})
+    used = counts.snapshot()
+    check(used["launches"]["topk_smallest"] > 0, "serve stream pass never launched topk_smallest")
+    snap = sched.snapshot()
+    emit({"phase": "serve_stream", "seed_rows": stream_rows, "rounds": rounds,
+          "inserted": stream_rounds * stream_batch, "evicted": int(evicted.size),
+          "launches": used["launches"], "cache_invalidations": sched.cache.generation,
+          "cache_hit_rate": snap.cache_hit_rate, "build_seconds": build_s,
+          "flushes": sindex.n_flushes, "compactions": sindex.n_compactions})
+    emit({"phase": "serve", "seconds": time.perf_counter() - phase_t0,
+          "launches_passes_1_2": served, "launches_stream": used["launches"]})
+    return {"launches": served, "stream_launches": used["launches"]}
+
+
 def durable_phase(torch, dev, data: np.ndarray, queries: np.ndarray, seed: int, *,
                   rounds: int = DURABLE_ROUNDS, batch: int = STREAM_BATCH,
                   threshold: int = STREAM_THRESHOLD, flush_after: int = DURABLE_FLUSH_AFTER,
@@ -1940,6 +2393,9 @@ def main(argv=None) -> int:
     pmtree_range_phase(torch, dev, pm["index"], audio, args.seed)
     baselines_phase(torch, dev, audio, args.seed)
     stream_pmtree_phase(torch, dev, audio, args.seed)
+
+    # -- the serving front end over the Deep1M twin -----------------------------
+    serve_phase(torch, dev, data, args.seed)
 
     # -- the durable stream: WAL, snapshots, two crashes, recover() -----------
     durable_phase(torch, dev, data, queries, args.seed)

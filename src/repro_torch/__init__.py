@@ -9,9 +9,12 @@ kernels, their plain PyTorch twins and the dispatch), ``quant`` (SQ8/PQ
 codecs and the ADC rerank tier), ``index`` (the facade), ``stream`` (the
 mutable streaming index), ``obs`` (span tracer with kernel spans on
 the H100's roofline, metrics registry, exporters, quality auditor, drift
-monitor) and ``resilience`` (the streaming index's write-ahead log,
-snapshots and ``recover``, fault injection, circuit breaker).  ``convert`` carries a JAX flat
-index's arrays across.
+monitor), ``resilience`` (the streaming index's write-ahead log,
+snapshots and ``recover``, fault injection, circuit breaker), ``serve``
+(the request scheduler over a ``RetrievalStep``: continuous batching,
+the SQ8 hot-query cache, admission, serve metrics) and ``data``
+(near-duplicate detection through the closest-pair query).
+``convert`` carries a JAX flat index's arrays across.
 
 Entry points run on the card (``device="cuda"``) and raise where CUDA is
 absent unless the caller asks for ``device="cpu"``.  This package

@@ -256,10 +256,8 @@ class FlatBackend(BaseIndex):
     index is large enough for the threshold passes to beat the sort
     (n ≥ 8192, the reference's policy) and k ≤ 128;
     ``options={"fused": True/False}`` pins either pipeline (identical
-    answers on ties-free data).  ``options={"force": "plain"}``, or
-    ``options={"use_kernels": False}`` as the reference names it, runs
-    the kernels' plain PyTorch versions on the card; an explicit
-    ``force`` wins.
+    answers on ties-free data).  ``options={"use_kernels": False}`` runs
+    the kernels' plain PyTorch versions on the card.
 
     ``cp_search`` sorts the points by the build-time projection's first
     coordinate and runs the pair join with Algorithm 4's γ·t·ub filter;
@@ -306,14 +304,9 @@ class FlatBackend(BaseIndex):
 
     def _build(self) -> None:
         cfg = self.config
-        # explicit dispatch, else derived from use_kernels as the
-        # reference does (repro/index/backends.py:305-307)
-        self.force = cfg.options.get("force")
-        if self.force is None and not cfg.options.get("use_kernels", True):
-            self.force = "plain"
-        if self.force not in (None, "plain"):
-            raise ValueError(f"options['force'] must be None or 'plain', "
-                             f"got {self.force!r}")
+        # the kernels' dispatch, from use_kernels as the reference
+        # derives it (repro/index/backends.py:305-307)
+        self.force = None if cfg.options.get("use_kernels", True) else "plain"
         fused = cfg.options.get("fused")  # None → auto by index size
         self.fused = None if fused is None else bool(fused)
         if self._given_impl is not None:

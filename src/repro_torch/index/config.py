@@ -4,8 +4,8 @@ The fields every PM-LSH-contract index understands (approximation ratio
 c, projected dimensionality m, seed, default k) live at top level;
 anything backend-specific rides in ``options`` and is read by the
 backend (e.g. ``{"fused": True}`` to pin the flat backend's fused
-pipeline, ``{"force": "plain"}`` to run the kernels' plain PyTorch
-versions on the card).  A copy of ``repro.index.config``, so configs
+pipeline, ``{"use_kernels": False}`` to run the kernels' plain
+PyTorch versions on the card).  A copy of ``repro.index.config``, so configs
 read the same in both packages.
 
 ``options`` is normalized to an immutable ``FrozenOptions`` mapping at

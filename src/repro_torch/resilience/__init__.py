@@ -9,9 +9,11 @@
   disk; ``recover(dir)`` replays the WAL tail over the newest verified
   snapshot on the card and reports what it did.
 * **fault injection** (:mod:`chaos`): deterministic seeded FaultPlans
-  over named sites — crashes, bit flips, dropped flushes.
-* **circuit breaker** (:mod:`breaker`) for a serving scheduler's
-  degraded tier.
+  over named sites — crashes, stragglers, bit flips, dropped flushes,
+  poisoned queries.
+* **serve hardening** (:mod:`breaker` + ``repro_torch.serve.scheduler``):
+  the retry/hedge ladder, the circuit breaker around the degraded tier,
+  query validation and poison-batch quarantine.
 
 Durable streaming quickstart::
 
@@ -27,7 +29,7 @@ Durable streaming quickstart::
     index, report = recover("/data/idx")
 """
 from .breaker import CircuitBreaker
-from .chaos import ChaosError, FaultPlan, FaultSpec
+from .chaos import ChaosError, ChaosLatencyExceeded, FaultPlan, FaultSpec
 from .fsio import commit_dir, fsync_dir, fsync_path, write_file_durable
 from .recovery import (DurabilityManager, RecoveryError, RecoveryReport,
                        recover)
@@ -37,7 +39,7 @@ from .wal import WriteAheadLog, scan_wal
 
 __all__ = [
     "CircuitBreaker",
-    "ChaosError", "FaultPlan", "FaultSpec",
+    "ChaosError", "ChaosLatencyExceeded", "FaultPlan", "FaultSpec",
     "commit_dir", "fsync_dir", "fsync_path", "write_file_durable",
     "DurabilityManager", "RecoveryError", "RecoveryReport", "recover",
     "CorruptSegmentError", "latest_snapshot", "load_snapshot",

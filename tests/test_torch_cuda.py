@@ -345,7 +345,7 @@ def test_flat_facade_matches_plain(cuda, n):
     data = (data + rng.normal(size=(n, 64)) * 0.5).astype(np.float32)
     q = (data[rng.integers(0, n, 7)] + 0.1 * rng.normal(size=(7, 64))).astype(np.float32)
     kern = build_index(data, IndexConfig(backend="flat"), device=cuda)
-    plain = build_index(data, IndexConfig(backend="flat", options={"force": "plain"}),
+    plain = build_index(data, IndexConfig(backend="flat", options={"use_kernels": False}),
                         device=cuda)
     counts.reset()
     rk = kern.search(q, 10)
@@ -470,7 +470,7 @@ def test_cp_and_quant_facades_match_plain(cuda, backend, options):
     q = (data[rng.integers(0, 9000, 7)] + 0.1 * rng.normal(size=(7, 64))).astype(np.float32)
     kern = build_index(data, IndexConfig(backend=backend, options=options), device=cuda)
     plain = build_index(data, IndexConfig(backend=backend,
-                                          options={**options, "force": "plain"}), device=cuda)
+                                          options={**options, "use_kernels": False}), device=cuda)
     counts.reset()
     ck = kern.cp_search(10)
     used = counts.snapshot()
@@ -719,3 +719,45 @@ def test_traced_kernel_span_covers_its_kernel(cuda, op):
     assert span.duration_s * 1e3 >= 0.9 * sorted(times)[2]
     if op == "verify_topk":  # refined from the rows its distance pass read
         assert 0 < span.attrs["rows_read"] <= 200_000
+
+
+def test_scheduler_on_the_card_matches_the_plain_twin(cuda):
+    """A small RequestScheduler over a flat datastore on the card (fused:
+    n ≥ 8192) with the kernels, beside the same traffic through a
+    ``use_kernels=False`` twin: the same statuses, ids, payloads and
+    bucket shapes, distances to rtol 1e-6; the kernels launched only in
+    the kernel twin, and a pass of cache hits launches nothing."""
+    from repro_torch.index import IndexConfig
+    from repro_torch.serve import RequestScheduler, ServeConfig
+    from repro_torch.serve.serve_step import make_retrieval_step
+
+    rng = np.random.default_rng(31)
+    centers = rng.normal(size=(20, 48)) * 4
+    keys = (centers[rng.integers(0, 20, 12_000)] + rng.normal(size=(12_000, 48)) * 0.5
+            ).astype(np.float32)
+    q = keys[rng.integers(0, 12_000, 40)] + 0.01
+    ks = [int(k) for k in rng.choice([1, 3, 10, 16, 100], 40)]
+    runs = []
+    for options in ({}, {"use_kernels": False}):
+        step, _ = make_retrieval_step(keys, np.arange(12_000) * 3, k=10, device=cuda,
+                                      index_config=IndexConfig(backend="flat", options=options))
+        sched = RequestScheduler(step, config=ServeConfig(b_max=16, k_max=128,
+                                                          default_deadline_ms=1e6))
+        counts.reset()
+        tickets = [sched.submit(qi, k=k) for qi, k in zip(q, ks)]
+        sched.drain()
+        resps = [t.result() for t in tickets]
+        launched = counts.snapshot()["launches"]
+        counts.reset()
+        hits = [sched.submit(qi, k=k).result() for qi, k in zip(q, ks)]
+        assert all(h.cached for h in hits) and not any(counts.LAUNCHES.values())
+        runs.append((resps, launched, sorted(b.shape for b in sched.snapshot().buckets)))
+    (kern, used, shapes), (plain, unused, plain_shapes) = runs
+    assert shapes == plain_shapes
+    for a, b in zip(kern, plain):
+        assert a.ok and b.ok
+        np.testing.assert_array_equal(a.result.indices, b.result.indices)
+        np.testing.assert_array_equal(a.payloads, b.payloads)
+        np.testing.assert_allclose(a.result.distances, b.result.distances, rtol=1e-6)
+    assert all(used[name] > 0 for name in ("pairwise_sq_dist", "radius_select", "verify_topk"))
+    assert not any(unused.values())

@@ -170,7 +170,7 @@ def test_unported_features_raise_naming_their_slice():
     ({"use_kernels": False}, "plain"),
     ({"use_kernels": True}, None),
     ({}, None),
-    ({"use_kernels": False, "force": "plain"}, "plain"),
+    ({"use_kernels": False, "quant": "sq8"}, "plain"),
 ])
 def test_use_kernels_option_sets_the_dispatch(monkeypatch, options, force):
     """``use_kernels=False`` selects the plain versions, as the reference

@@ -261,6 +261,12 @@ def test_span_tree_and_kernel_models_match_jax(n, quant, call):
 def test_streaming_span_tree_matches_jax_with_a_fused_segment():
     """A streaming index with a sealed 8,192-row flat segment (the fused
     pipeline's ann.* spans), a delta and tombstones: the whole tree equal."""
+    from repro.stream.segment import Segment as JaxSegment
+    from repro_torch.stream.segment import Segment
+
+    # segment serials (a span attr) come from process-wide counters: start
+    # both from one value, whatever the tests run before in this process
+    JaxSegment._serial = Segment._serial = max(JaxSegment._serial, Segment._serial)
     data = make_clustered(8192, D, seed=3)
     opts = {"segment_backend": "flat", "delta_threshold": 4096, "max_segments": 4}
     a = np.asarray(JaxFamily.create(D, 15, seed=0).a)

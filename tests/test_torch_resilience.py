@@ -19,6 +19,7 @@ held against ``repro.resilience``.
   wrote, with equal answers; the WAL files, config blobs, snapshot metas
   and content checksums are byte-identical for the same ops.
 """
+import dataclasses
 import os
 
 import msgpack
@@ -301,8 +302,9 @@ class TestChaos:
     def test_unknown_kind_rejected(self):
         with pytest.raises(ValueError):
             FaultSpec("wal.append", "explode")
-        with pytest.raises(ValueError):  # comes with the serving stack
-            FaultSpec("serve.search", "latency")
+        for kind in ("error", "latency", "bitflip", "drop", "nonfinite"):
+            FaultSpec("serve.search", kind)  # the reference's five kinds
+            jchaos.FaultSpec("serve.search", kind)
 
     def test_at_fires_exactly_once(self):
         plan = FaultPlan([FaultSpec("s", "error", at=2)])
@@ -350,8 +352,97 @@ class TestChaos:
 
     def test_hooks_are_noops_without_plan(self):
         chaos.hit("anything")
+        chaos.hit("anything", budget_s=0.0)
         assert chaos.transform("anything", b"abc") == b"abc"
         assert not chaos.dropped("anything")
+        assert not chaos.poisoned("anything")
+
+    def test_latency_respects_budget(self):
+        """A straggler under its caller's budget only sleeps; past it the
+        plan sleeps the budget and raises ChaosLatencyExceeded (a
+        ChaosError), as the reference's (its :189-200)."""
+        slept, said = {}, []
+        for mod in (chaos, jchaos):
+            out = slept[mod] = []
+            plan = mod.FaultPlan([mod.FaultSpec("s", "latency", at=0, latency_s=1.0, times=0),
+                                  mod.FaultSpec("s", "latency", at=1, latency_s=0.05)])
+            plan.sleep = out.append
+            with pytest.raises(mod.ChaosLatencyExceeded) as got:
+                plan.on_hit("s", budget_s=0.1)  # abandoned at the deadline
+            assert isinstance(got.value, mod.ChaosError)
+            assert (got.value.site, got.value.latency_s, got.value.budget_s) == ("s", 1.0, 0.1)
+            plan.on_hit("s", budget_s=0.1)  # under budget: just slow
+            plan.on_hit("s")  # nothing due on the third access
+            assert plan.fired() == {("s", "latency"): 2}
+            said.append(str(got.value))
+        assert slept[chaos] == slept[jchaos] == [0.1, 0.05]
+        assert said[0] == said[1]
+
+    def test_latency_without_budget_sleeps_in_full(self):
+        slept = []
+        plan = FaultPlan([FaultSpec("wal.append", "latency", at=0, latency_s=2.5)])
+        plan.sleep = slept.append
+        with chaos.active(plan):
+            chaos.hit("wal.append")  # a straggling WAL write, no budget
+        assert slept == [2.5]
+
+    def test_poisoned_consumes_only_nonfinite_specs(self):
+        """``poisoned`` advances only nonfinite specs, ``hit`` only error
+        and latency ones: mixing accessors at one site stays
+        deterministic, and both frameworks fire on the same accesses."""
+        seqs = []
+        for mod in (chaos, jchaos):
+            plan = mod.FaultPlan([mod.FaultSpec("q", "nonfinite", at=1),
+                                  mod.FaultSpec("q", "error", at=0),
+                                  mod.FaultSpec("q", "nonfinite", prob=0.5, times=0)], seed=4)
+            seq = []
+            with mod.active(plan):
+                with pytest.raises(mod.ChaosError):
+                    mod.hit("q")
+                seq += [mod.poisoned("q") for _ in range(12)]
+                mod.hit("q")  # the error spec fired once already
+            assert plan.fired()[("q", "error")] == 1
+            seqs.append((seq, plan.fired()))
+        assert seqs[0] == seqs[1]
+        assert seqs[0][0][1]  # the at=1 spec
+
+    def test_known_sites_are_the_reference_s(self):
+        assert chaos.KNOWN_SITES == jchaos.KNOWN_SITES
+        assert chaos.KNOWN_SITES["wal.append"] == ("error", "latency")
+        assert {s for s in chaos.KNOWN_SITES if s.startswith("serve.")} == {
+            "serve.flush", "serve.search", "serve.degraded", "serve.cache"}
+
+    @pytest.mark.parametrize("sites", [None, ("serve.search",),
+                                       ("serve.search", "serve.degraded", "serve.flush")])
+    def test_seeded_covers_site_kinds(self, sites):
+        """One probabilistic spec per (site, kind) the site supports —
+        every site's kinds when none are named — and the same firing
+        trajectory as the reference's plan for the same seed."""
+        plan = FaultPlan.seeded(0, sites=sites)
+        jplan = jchaos.FaultPlan.seeded(0, sites=sites)
+        want = {(s, k) for s in (sites or chaos.KNOWN_SITES) for k in chaos.KNOWN_SITES[s]}
+        assert {(s.site, s.kind) for s in plan.specs} == want
+        assert [dataclasses.astuple(s) for s in plan.specs] == [
+            dataclasses.astuple(s) for s in jplan.specs]
+        if sites == ("serve.search",):
+            assert want == {("serve.search", "error"), ("serve.search", "latency")}
+        runs = []
+        for mod, p in ((chaos, plan), (jchaos, jplan)):
+            p.sleep = lambda s: None
+            trail = []
+            for i in range(400):
+                site = sorted(want)[i % len(want)][0]
+                try:
+                    p.on_hit(site, budget_s=0.01)
+                    trail.append((site, "ok"))
+                except mod.ChaosError as e:
+                    trail.append((site, type(e).__name__))
+                trail.append(p.on_dropped(site))
+                trail.append(p.on_poisoned(site))
+                trail.append(p.on_bytes(site, b"abcd"))
+            runs.append((trail, p.fired()))
+        assert runs[0] == runs[1]
+        assert runs[0][1] and max(runs[0][1].values()) <= 3  # times=3 caps each spec
 
 
 # ---------------------------------------------------------------------------

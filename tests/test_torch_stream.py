@@ -333,7 +333,8 @@ def test_fault_schedule_matches_jax(kind, at):
     assert run(chaos) == run(jax_chaos)
     assert not chaos.dropped("s")  # no plan installed
     with pytest.raises(ValueError, match="unknown fault kind"):
-        chaos.FaultSpec("s", "latency", at=0)
+        chaos.FaultSpec("s", "explode", at=0)
+    chaos.FaultSpec("s", "latency", at=0)  # the reference's kinds, all of them
 
 
 def test_lost_flush_keeps_rows_in_the_delta():
