@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flat ANN, quantized, closest-pair, streaming
-and PM-tree paths and its serving front end on one NVIDIA GPU, and check
-them.
+"""Drive the PyTorch port's flat ANN, quantized, closest-pair, streaming,
+PM-tree and sharded paths and its serving front end on one NVIDIA GPU,
+and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -159,6 +159,30 @@ Phases, each printing one JSON line:
            payload, probes cached before ``extend`` are answered afresh
            after it, no evicted id answers, topk_smallest launches.  Every
            pass's statuses sum to what it submitted.
+  sharded  (after serve) the sharded backends over an emulated mesh of
+           4 shards on the card.  ``sharded``: ``sharded-flat`` on the
+           Deep1M twin at B = 1, 16, 64, k = 10, counts set to 0 before
+           each search and read after (pairwise_sq_dist and verify_topk 4
+           a search, radius_select none): ids and distances identical to
+           the ``flat`` index's, a differing row allowed only where its
+           T-th and (T+1)-th projected distances tie; candidates_selected
+           equal to the rows at or under each T-th projected distance
+           (from flat's own estimate); ids identical to the same index run
+           through the plain versions (``force="plain"``, no launch); the
+           median batch ms beside flat's; ``sharded_profile`` the
+           device time by CUDA kernel of one search at B = 1, 16, 64.
+           ``sharded_group``: the index over a world-size-1 NCCL group (a
+           file store under ``build/``) answers what the emulated P = 1
+           mesh answers, bit for bit.
+           ``sharded_pq``: ``sharded-flat-pq``, build seconds, 4 adc_dist
+           launches a search, recall@10 ≥ 0.95 × flat-pq's, ids identical
+           to its plain twin.  ``sharded_cp``: ``cp_search(10)`` on the
+           Audio twin (cp_c = 4, γ = 1): pairs and distances identical to
+           flat's, pairs_verified, tiles_pruned, max_shard_pairs, the
+           wall and the peak device memory.  ``sharded_legacy``: the
+           legacy ``sharded`` backend's recall@10 at B = 64, ≥ 0.9 ×
+           flat's, and ``sharded_legacy_pad`` the NaN estimate of its
+           +inf padding on the card and on the CPU (no check).
   durable  (last) a streaming index over the Deep1M twin with
            ``durability = {"dir": "build/durable", "sync": True,
            "snapshot_every": 8}`` (flat segments, delta_threshold
@@ -259,6 +283,8 @@ SERVE_STREAM_ROWS, SERVE_STREAM_ROUNDS, SERVE_STREAM_EVICT = 262_144, 4, 32
 # the durable stream: 8 rounds of 4,096 inserts and 32 deletes, a flush
 # after round 6 (it snapshots), the crash at stream.apply in round 7
 DURABLE_ROUNDS, DURABLE_FLUSH_AFTER, DURABLE_CRASH_ROUND = 8, 6, 7
+# the sharded backends: an emulated mesh of 4 shards on the one card
+SHARDS = 4
 # the span trees of one traced call of each path, (name, parent index):
 # the reference's trees (a CPU test holds them to repro's)
 EXPECTED_SPAN_TREES = {
@@ -746,7 +772,8 @@ def quant_phase(torch, dev, data, queries, exact, seed: int) -> dict:
           "median_batch_ms": {str(b): batch_ms[b] for b in BATCHES},
           "queries_per_s": {str(b): b / batch_ms[b] * 1e3 for b in BATCHES}})
     profiles(torch, "quant_profile", lambda B: pq.search(queries[:B], K), batch_ms)
-    return {"index": pq, "launches": used["launches"]["adc_dist"], "err": adc_err,
+    return {"index": pq, "recall": recall, "launches": used["launches"]["adc_dist"],
+            "err": adc_err,
             "fn": lambda: kadc.adc_dist(ccodes, lut),
             "plain": lambda: ref.adc_dist(ccodes, lut),
             "library": lambda: torch.gather(lut, 2, idx).sum(1),
@@ -1899,6 +1926,236 @@ def serve_phase(torch, dev, data: np.ndarray, seed: int, *, k: int = SERVE_K,
     return {"launches": served, "stream_launches": used["launches"]}
 
 
+def _twin_with_force(index, force: str):
+    """The same sharded index (shared device blocks) run through the
+    kernels' plain versions."""
+    import copy
+
+    twin = copy.copy(index)
+    twin.impl = copy.copy(index.impl)
+    twin.impl.force = force
+    return twin
+
+
+def _budget_edge(torch, flat_impl, q: np.ndarray, T: int):
+    """Per query row, from the flat index's own estimate: whether its T-th
+    and (T+1)-th smallest projected distances tie (the exact candidate
+    set's only exception), and how many rows lie at or under its T-th
+    smallest (the exact threshold's survivors: T plus the ties)."""
+    from repro_torch.kernels import ops
+
+    qt = torch.from_numpy(q).to(flat_impl.data.device)
+    d2p = ops.pairwise_sq_dist(flat_impl.family.project(qt), flat_impl.projected)
+    edge = torch.sort(d2p, dim=1).values[:, T - 1:T + 1]
+    survivors = (d2p <= edge[:, :1]).sum(1)
+    return (edge[:, 0] == edge[:, 1]).cpu().numpy(), survivors.cpu().numpy()
+
+
+def _legacy_pad_probe(torch, dev) -> dict:
+    """The legacy layout pads the last shard with +inf rows, whose norm-
+    trick estimate is inf − inf, a NaN: the same small index (n = 203 ∤
+    4, A and projection from numpy) on the card and on the CPU, its pad
+    estimate's bits and its negation's on each, and the rows of 256
+    queries (k = 10, T = 20) whose answers differ.  A positive negated
+    NaN ranks first in a shard's local top-T′ (``lax.top_k``'s total
+    order, which the port keeps) and displaces a real row; a negative
+    one ranks last."""
+    from repro_torch.core.distributed import DistributedFlatIndex, _norm_trick
+    from repro_torch.launch import make_data_mesh
+
+    rng = np.random.default_rng(11)
+    centers = rng.normal(size=(20, 24)) * 4.0
+    x = (centers[rng.integers(0, 20, 203)] + rng.normal(size=(203, 24)) * 0.5).astype(np.float32)
+    a = np.random.default_rng(0).normal(size=(24, 15)).astype(np.float32)
+    rng = np.random.default_rng(5)
+    q = (x[rng.integers(0, 203, 256)] + rng.normal(size=(256, 24)) * 0.5).astype(np.float32)
+    out = {"phase": "sharded_legacy_pad", "n": 203, "P": 4, "k": K, "T": 20}
+    ids = {}
+    for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        index = DistributedFlatIndex(x, make_data_mesh(4, device=where), a=a, projected=x @ a)
+        qp = index.family.project(torch.from_numpy(q[:1]).to(where))
+        pad = _norm_trick(qp, index._lay.blocks[-1][1])[0, -1]
+        out[f"pad_estimate_bits_{name}"] = hex(pad.view(torch.int32).item() & 0xFFFFFFFF)
+        # what the local top-T′ ranks: the negated estimate's bits
+        out[f"negated_bits_{name}"] = hex((-pad).view(torch.int32).item() & 0xFFFFFFFF)
+        ids[name] = index.query(q, K, T=20)[0]
+    out["rows_differing"] = np.flatnonzero((ids["card"] != ids["cpu"]).any(1)).tolist()
+    return out
+
+
+def sharded_phase(torch, dev, data: np.ndarray, queries: np.ndarray, exact: np.ndarray,
+                  flat, flat_recall: float, pq_recall: float, audio: np.ndarray,
+                  seed: int, *, shards: int = SHARDS) -> None:
+    """The sharded backends on the card: ``sharded-flat`` over an emulated
+    P-shard mesh on the Deep1M twin against ``flat`` (ids and distances
+    bit for bit at B = 1, 16, 64, a shard's launches, its plain twin),
+    over a world-size-1 NCCL group against the emulated P = 1 mesh,
+    ``sharded-flat-pq`` (recall against flat-pq's, adc launches, plain
+    twin), ``cp_search`` on the Audio twin against flat's, and the
+    legacy ``sharded`` backend's recall.  Each step prints its line."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core import candidate_budget
+    from repro_torch.index import IndexConfig, build_index
+    from repro_torch.kernels import counts
+    from repro_torch.launch import make_data_mesh
+
+    phase_t0 = time.perf_counter()
+    n = data.shape[0]
+    T = candidate_budget(flat.impl.params, n, K)
+    cfg = IndexConfig(backend="sharded-flat", seed=seed, options={"shards": shards})
+    t0 = time.perf_counter()
+    sh = build_index(data, cfg, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    plain = _twin_with_force(sh, "plain")
+    line = {"phase": "sharded", "backend": "sharded-flat", "P": shards, "n": n,
+            "nl": sh.impl.nl, "T": T, "build_seconds": build_s, "batches": {}}
+    for B in BATCHES:
+        qB = queries[:B]
+        counts.reset()
+        res = sh.search(qB, K)
+        used = counts.snapshot()
+        want = flat.search(qB, K)
+        rows = np.flatnonzero((res.indices != want.indices).any(1)
+                              | (res.distances.view(np.int32)
+                                 != want.distances.view(np.int32)).any(1))
+        tied, survivors = _budget_edge(torch, flat.impl, qB, T)
+        check(tied[rows].all(), f"sharded-flat at B={B}: rows {rows.tolist()} differ from "
+                                f"flat's with no tie at the T-th projected distance")
+        launches = {k: used["launches"][k] for k in ("pairwise_sq_dist", "verify_topk",
+                                                     "radius_select", "topk_smallest")}
+        check(launches["pairwise_sq_dist"] == shards and launches["verify_topk"] == shards
+              and launches["radius_select"] == 0,
+              f"sharded-flat at B={B}: launches {launches}, expected {shards} pairwise and "
+              f"verify, no radius_select")
+        # the exact threshold keeps T a row plus the rows tied at its T-th
+        # distance, counted here from flat's own estimate; the fused flat
+        # path counts its ladder's survivors (printed beside)
+        check(res.stats.candidates_selected == int(survivors.sum()),
+              f"sharded-flat at B={B}: candidates_selected {res.stats.candidates_selected} "
+              f"!= {int(survivors.sum())} rows at or under each T-th projected distance")
+        counts.reset()
+        res_plain = plain.search(qB, K)
+        check(not any(counts.LAUNCHES.values()), "the plain twin launched a kernel")
+        check(np.array_equal(res_plain.indices, res.indices),
+              f"sharded-flat at B={B}: kernel ids differ from the plain twin's")
+        ms = time_ms(torch, lambda: sh.search(qB, K), reps=5, warmup=1)
+        flat_ms = time_ms(torch, lambda: flat.search(qB, K), reps=5, warmup=1)
+        line["batches"][str(B)] = {
+            "ids_identical_to_flat": not rows.size, "rows_differing": rows.tolist(),
+            "rows_tied_at_T": np.flatnonzero(tied).tolist(),
+            "candidates_selected": res.stats.candidates_selected, "B_times_T": B * T,
+            "flat_fused_candidates_selected": want.stats.candidates_selected,
+            "max_shard_candidates": res.stats.max_shard_candidates, "launches": launches,
+            "plain_ids_identical": True, "median_batch_ms": ms, "flat_median_batch_ms": flat_ms}
+    emit(line)
+    profiles(torch, "sharded_profile", lambda B: sh.search(queries[:B], K),
+             {B: line["batches"][str(B)]["median_batch_ms"] for B in BATCHES})
+
+    # a world-size-1 NCCL process group against the emulated P = 1 mesh
+    t0 = time.perf_counter()
+    store = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", world_size=1, rank=0)
+    try:
+        mesh = make_data_mesh(device="cuda")
+        grp = build_index(data, IndexConfig(backend="sharded-flat", seed=seed,
+                                            options={"mesh": mesh}), device=dev)
+        r_grp = grp.search(queries, K)
+        grp_ms = time_ms(torch, lambda: grp.search(queries, K), reps=5, warmup=1)
+        del grp
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    one = build_index(data, IndexConfig(backend="sharded-flat", seed=seed,
+                                        options={"shards": 1}), device=dev)
+    r_one = one.search(queries, K)
+    del one
+    check(np.array_equal(r_grp.indices, r_one.indices)
+          and np.array_equal(r_grp.distances.view(np.int32), r_one.distances.view(np.int32))
+          and r_grp.stats.as_dict() == r_one.stats.as_dict(),
+          "sharded-flat: the NCCL group of one differs from the emulated P = 1 mesh")
+    emit({"phase": "sharded_group", "backend": "nccl", "world_size": 1, "B": len(queries),
+          "identical_to_emulated": True, "median_batch_ms": grp_ms,
+          "seconds": time.perf_counter() - t0})
+
+    # sharded-flat-pq: per-shard codebooks, the ADC rerank on each shard
+    t0 = time.perf_counter()
+    pq = build_index(data, IndexConfig(backend="sharded-flat-pq", seed=seed,
+                                       options={"shards": shards}), device=dev)
+    torch.cuda.synchronize()
+    pq_build_s = time.perf_counter() - t0
+    counts.reset()
+    r_pq = pq.search(queries, K)
+    pq_used = counts.snapshot()["launches"]
+    check(pq_used["adc_dist"] == shards and pq_used["verify_topk"] == shards,
+          f"sharded-flat-pq: launches {pq_used}, expected {shards} adc and verify")
+    recall = float(np.mean([len(set(r_pq.indices[i]) & set(exact[i])) / K
+                            for i in range(len(queries))]))
+    check(recall >= 0.95 * pq_recall,
+          f"sharded-flat-pq recall@10 {recall} < 0.95 × flat-pq's {pq_recall}")
+    r_pq_plain = _twin_with_force(pq, "plain").search(queries, K)
+    check(np.array_equal(r_pq_plain.indices, r_pq.indices),
+          "sharded-flat-pq: kernel ids differ from the plain twin's")
+    pq_ms = time_ms(torch, lambda: pq.search(queries, K), reps=5, warmup=1)
+    emit({"phase": "sharded_pq", "P": shards, "B": len(queries), "build_seconds": pq_build_s,
+          "launches": {k: v for k, v in pq_used.items() if v}, "recall_at_10": recall,
+          "flat_pq_recall_at_10": pq_recall, "plain_ids_identical": True,
+          "R": r_pq.stats.candidates_verified, "median_batch_ms": pq_ms,
+          "bytes_per_point": pq.bytes_per_point()})
+    del pq
+
+    # closest pairs on the Audio twin: the ring of dense block joins
+    flat_a = build_index(audio, IndexConfig(backend="flat", seed=seed), device=dev)
+    cf = flat_a.cp_search(K)
+    del flat_a
+    sa = build_index(audio, IndexConfig(backend="sharded-flat", seed=seed,
+                                        options={"shards": shards}), device=dev)
+    sa.cp_search(K)  # lays the key-sorted blocks out once
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    counts.reset()
+    t0 = time.perf_counter()
+    cs = sa.cp_search(K)
+    cp_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(np.array_equal(cs.pairs, cf.pairs)
+          and np.array_equal(cs.distances.view(np.int32), cf.distances.view(np.int32)),
+          f"sharded-flat cp_search: {cs.pairs.tolist()} differ from flat's {cf.pairs.tolist()}")
+    emit({"phase": "sharded_cp", "P": shards, "n": len(audio), "d": audio.shape[1], "k": K,
+          "cp_nl": sa.impl._cp["nl"], "tile": sa.impl._cp["tile"],
+          "pairs_identical_to_flat": True, "distances_identical_to_flat": True,
+          "pairs_verified": cs.stats.pairs_verified, "tiles_pruned": cs.stats.tiles_pruned,
+          "max_shard_pairs": cs.stats.max_shard_pairs,
+          "flat_pairs_verified": cf.stats.pairs_verified,
+          "launches": {k: v for k, v in counts.LAUNCHES.items() if v},
+          "wall_s": cp_s, "peak_bytes": peak, "peak_bytes_above_index": peak - base})
+    del sa
+
+    # the legacy backend: local top-T′ and a tournament merge
+    lg = build_index(data, IndexConfig(backend="sharded", seed=seed,
+                                       options={"devices": shards}), device=dev)
+    counts.reset()
+    r_lg = lg.search(queries, K)
+    check(not any(counts.LAUNCHES.values()), "the legacy sharded backend launched a kernel")
+    lg_recall = float(np.mean([len(set(r_lg.indices[i]) & set(exact[i])) / K
+                               for i in range(len(queries))]))
+    check(lg_recall >= 0.9 * flat_recall,
+          f"legacy sharded recall@10 {lg_recall} < 0.9 × flat's {flat_recall}")
+    lg_ms = time_ms(torch, lambda: lg.search(queries, K), reps=3, warmup=1)
+    local_T = lg.impl.local_budget(T, K)
+    del lg
+    emit({"phase": "sharded_legacy", "P": shards, "B": len(queries), "local_T": local_T,
+          "recall_at_10": lg_recall, "flat_recall_at_10": flat_recall,
+          "median_batch_ms": lg_ms})
+    emit({**_legacy_pad_probe(torch, dev), "phase_seconds": time.perf_counter() - phase_t0})
+    torch.cuda.empty_cache()
+
+
 def durable_phase(torch, dev, data: np.ndarray, queries: np.ndarray, seed: int, *,
                   rounds: int = DURABLE_ROUNDS, batch: int = STREAM_BATCH,
                   threshold: int = STREAM_THRESHOLD, flush_after: int = DURABLE_FLUSH_AFTER,
@@ -2230,6 +2487,7 @@ def main(argv=None) -> int:
     stream = stream_phase(torch, dev, data, queries, args.seed)
     audio, exact_pairs = join.pop("audio"), join.pop("exact")
     pq_index, cp_index = adc.pop("index"), join.pop("index")
+    pq_recall = adc.pop("recall")
     stream_cp_phase(torch, dev, audio, exact_pairs, args.seed)
     proj = project_phase(torch, dev, impl.data, q64, args.seed)
 
@@ -2396,6 +2654,9 @@ def main(argv=None) -> int:
 
     # -- the serving front end over the Deep1M twin -----------------------------
     serve_phase(torch, dev, data, args.seed)
+
+    # -- the sharded backends over an emulated mesh and an NCCL group --------
+    sharded_phase(torch, dev, data, queries, exact, index, recall, pq_recall, audio, args.seed)
 
     # -- the durable stream: WAL, snapshots, two crashes, recover() -----------
     durable_phase(torch, dev, data, queries, args.seed)

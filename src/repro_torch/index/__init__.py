@@ -12,11 +12,22 @@
     st = build_index(data, IndexConfig(backend="streaming"))  # pmtree segments
     st.insert(rows); st.delete(ids); st.flush()   # a mutable index
 
+    sh = build_index(data, IndexConfig(backend="sharded-flat",
+                                        options={"shards": 4}))  # flat's answers
+
 ``device`` defaults to the card and raises where CUDA is absent; pass
 ``device="cpu"`` for the plain PyTorch versions.  Every backend of the
-reference but the sharded ones is ported (``available_backends()``).
+reference is ported (``available_backends()``).
 """
-from .backends import BaseIndex, FlatBackend, FlatPQBackend, PMTreeBackend  # noqa: F401
+from .backends import (  # noqa: F401
+    BaseIndex,
+    FlatBackend,
+    FlatPQBackend,
+    PMTreeBackend,
+    ShardedBackend,
+    ShardedFlatBackend,
+    ShardedFlatPQBackend,
+)
 from .config import IndexConfig  # noqa: F401
 from .registry import (  # noqa: F401
     KNOWN_CAPABILITIES,

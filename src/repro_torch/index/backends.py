@@ -6,12 +6,16 @@ First-party backends:
               work); its projections run on the index's device
   flat      — the dense estimate → select → verify pipeline on the card
   flat-pq   — the flat pipeline over PQ codes with an ADC rerank tier
+  sharded   — the legacy pipeline sharded over a data mesh (local top-T′
+              and a tournament merge)
+  sharded-flat, sharded-flat-pq — the fused pipeline sharded over a data
+              mesh with an exact global candidate set (``flat``'s answers)
 
 (the mutable ``streaming`` backend registers from ``repro_torch.stream``)
 and every competitor of the §7 study registers under the same protocol
 through thin host adapters, so sweeps are a registry iteration.  Host
-backends loop over the batch internally; the flat backends are batched
-on the card.  The sharded backends of the reference are not ported yet.
+backends loop over the batch internally; the flat and sharded backends
+are batched on the card.  Every backend of the reference is ported.
 """
 from __future__ import annotations
 
@@ -34,7 +38,9 @@ from ..core.baselines import (
     SRS,
 )
 from ..core.cp import PMLSH_CP
-from ..core.cp_fused import cp_fused_search
+from ..core.cp_fused import cp_fused_search, cp_threshold2
+from ..core.distributed import DistributedCP, DistributedFlatIndex
+from ..core.estimator import solve_parameters
 from ..core.flat_index import (
     FlatIndex,
     ann_query,
@@ -43,14 +49,17 @@ from ..core.flat_index import (
     candidate_budget,
 )
 from ..core.hashing import host_projection
+from ..core.sharded import ShardedFlatIndex
 from ..device import resolve_device
+from ..launch.mesh import make_data_mesh
 from ..obs import trace as otrace
 from ..quant import quant_ann_query, quant_cp_search, train_codec
 from .config import IndexConfig
 from .registry import register_backend
 from .types import CpSearchResult, SearchResult, WorkStats, pack_batch
 
-__all__ = ["BaseIndex", "PMTreeBackend", "FlatBackend", "FlatPQBackend"]
+__all__ = ["BaseIndex", "PMTreeBackend", "FlatBackend", "FlatPQBackend", "ShardedBackend",
+           "ShardedFlatBackend", "ShardedFlatPQBackend"]
 
 
 def _ctor_kwargs(cls, config: IndexConfig, **common) -> dict:
@@ -448,6 +457,166 @@ class FlatPQBackend(FlatBackend):
         if "quant" not in self.config.options:
             self.config = self.config.with_options(quant="pq")
         super()._build()
+
+
+@register_backend("sharded", capabilities=("ann", "cp"))
+class ShardedBackend(BaseIndex):
+    """The legacy flat pipeline sharded over a data mesh: per-shard
+    estimate → local top-T′ → verify, one all-gather tournament merge
+    (``core.distributed``, plain PyTorch as the reference's jnp).
+
+    options: ``devices`` (the shard count of an emulated mesh; default
+    the default process group's size, else 1) or ``mesh`` (a
+    ``launch.DataMesh``).  The candidate budget is T = βn + k, split
+    ⌈T/P⌉ + k per shard.
+    """
+
+    def __init__(self, data, config: IndexConfig | None = None, *,
+                 device: str | torch.device = "cuda", a: np.ndarray | None = None,
+                 projected: np.ndarray | None = None):
+        self._given = {"a": a, "projected": projected}
+        super().__init__(data, config, device=device)
+
+    @classmethod
+    def from_arrays(cls, data, a: np.ndarray, projected: np.ndarray | None = None,
+                    config: IndexConfig | None = None, *,
+                    device: str | torch.device = "cuda") -> "ShardedBackend":
+        """An index with the projection A (and its projected rows) given,
+        e.g. the JAX index's ``impl.family.a`` and its unpadded
+        ``impl.proj_sh``; the CP engine takes the same arrays."""
+        return cls(data, config, device=device, a=a, projected=projected)
+
+    def _build(self) -> None:
+        cfg = self.config
+        self.mesh = cfg.options.get("mesh") or make_data_mesh(
+            cfg.options.get("devices"), device=self.device)
+        self.device = self.mesh.device
+        self.params = solve_parameters(cfg.c, m=cfg.m)
+        self.impl = DistributedFlatIndex(self.data, self.mesh, m=cfg.m, seed=cfg.seed,
+                                         **self._given)
+        self._cp_impl = None
+
+    def _search(self, q: np.ndarray, k: int) -> SearchResult:
+        T = candidate_budget(self.params, self.n, k)
+        ids, dd = self.impl.query(q, k=k, T=T)
+        local_T = self.impl.local_budget(T, k)
+        return SearchResult(
+            ids, dd, stats=WorkStats(rounds=q.shape[0],
+                                     candidates_verified=q.shape[0] * self.mesh.size * local_T))
+
+    def _cp_search(self, k: int) -> CpSearchResult:
+        if self._cp_impl is None:
+            cfg = self.config
+            self._cp_impl = DistributedCP(self.data, self.mesh, m=cfg.m, c=cfg.cp_c,
+                                          seed=cfg.seed, **self._given)
+        pairs, dd, verified = self._cp_impl.cp_query(k=k, with_stats=True)
+        return CpSearchResult(pairs, dd, stats=WorkStats(candidates_verified=verified,
+                                                         pairs_verified=verified))
+
+
+@register_backend("sharded-flat", capabilities=("ann", "cp"))
+class ShardedFlatBackend(BaseIndex):
+    """The fused pipeline sharded over a data mesh with an exact global
+    candidate set (``core.sharded``): the shards exchange only survivor
+    counts to calibrate one select threshold, verify locally, and merge
+    one all-gather of k, so the answers are ``flat``'s bit for bit on
+    ties-free data.  CP runs the ring join under a global ub with
+    tile-level radius pruning.
+
+    options: ``shards`` (the shard count), ``mesh`` (a
+    ``launch.DataMesh``: an emulated one, or a process group),
+    ``emulate`` (the emulated mesh of ``shards`` even where a default
+    process group is initialised), ``cp_gamma``, ``cp_tile``,
+    ``rerank``, and ``force="ref"`` for the kernels' plain versions.
+
+    WorkStats: the summed counters equal the single-device run's
+    (candidates_selected sums the shards' survivor counts;
+    pairs_verified counts each pair on one shard); ``shards`` and the
+    max-shard fields give the mesh width and the straggler's load.
+    """
+
+    quant: str | None = None
+
+    def __init__(self, data, config: IndexConfig | None = None, *,
+                 device: str | torch.device = "cuda", a: np.ndarray | None = None,
+                 projected: np.ndarray | None = None, codecs: list | None = None,
+                 codes: np.ndarray | None = None):
+        self._given = {"a": a, "projected": projected, "codecs": codecs, "codes": codes}
+        super().__init__(data, config, device=device)
+
+    @classmethod
+    def from_arrays(cls, data, a: np.ndarray, projected: np.ndarray | None = None,
+                    config: IndexConfig | None = None, *,
+                    device: str | torch.device = "cuda", codecs: list | None = None,
+                    codes: np.ndarray | None = None) -> "ShardedFlatBackend":
+        """An index with the projection A given, and optionally its
+        float32 projected rows, each shard's codec and the (P, nl, S)
+        codes: e.g. the JAX index's ``impl.family.a``, its
+        ``impl._proj_blocks`` (unpadded), ``impl.codecs`` through
+        ``convert.codec_from_arrays`` and ``impl._codes_blocks``."""
+        return cls(data, config, device=device, a=a, projected=projected,
+                   codecs=codecs, codes=codes)
+
+    def _build(self) -> None:
+        cfg = self.config
+        opts = cfg.options
+        self.impl = ShardedFlatIndex(
+            self.data, shards=opts.get("shards"), mesh=opts.get("mesh"),
+            m=cfg.m, seed=cfg.seed, c=cfg.c, emulate=bool(opts.get("emulate", False)),
+            quant=self.quant,
+            quant_opts=dict(opts.get("pq") or {}) if self.quant else None,
+            rerank=opts.get("rerank"), force=opts.get("force"),
+            cp_tile=int(opts.get("cp_tile", 128)), device=self.device, **self._given)
+        self.params = self.impl.params
+        self.force = self.impl.force
+        self.device = self.impl.device
+
+    def _search(self, q: np.ndarray, k: int) -> SearchResult:
+        T = candidate_budget(self.params, self.n, k)
+        qt = torch.from_numpy(q).to(self.device)
+        ids, _, counts = self.impl.query(qt, k, T)
+        # canonical answer floats: flat's arithmetic on the same rows, so
+        # id parity with ``flat`` gives bit-identical distances
+        dd = self.impl.answer_distances(ids, qt)
+        counts = counts.cpu().numpy().astype(np.int64)
+        per_shard = counts.sum(axis=1)  # (P,) survivor totals
+        selected = int(per_shard.sum())
+        stats = WorkStats(rounds=q.shape[0], candidates_verified=selected,
+                          candidates_selected=selected, shards=self.impl.P,
+                          max_shard_candidates=int(per_shard.max()))
+        if self.quant:
+            # ADC scored every survivor; exact verification touched only
+            # the reranked survivors of each shard
+            R_l = min(self.impl.rerank_budget(k, T), self.impl.nl, T)
+            stats.point_distance_computations = selected
+            stats.candidates_verified = int(np.minimum(counts, R_l).sum())
+        return SearchResult(ids.cpu().numpy(), dd.cpu().numpy(), stats=stats)
+
+    def _cp_search(self, k: int) -> CpSearchResult:
+        cfg = self.config
+        gamma = float(cfg.options.get("cp_gamma", 1.0))
+        thresh2 = (np.inf if not np.isfinite(gamma)
+                   else cp_threshold2(cfg.cp_c, cfg.m, gamma))
+        pairs, dd, pair_counts, pruned = self.impl.cp_query(k, thresh2=float(thresh2))
+        verified = int(pair_counts.sum())
+        return CpSearchResult(
+            pairs, dd, stats=WorkStats(candidates_verified=verified, pairs_verified=verified,
+                                       tiles_pruned=pruned, shards=self.impl.P,
+                                       max_shard_pairs=int(pair_counts.max())))
+
+
+@register_backend("sharded-flat-pq", capabilities=("ann", "cp", "quant"))
+class ShardedFlatPQBackend(ShardedFlatBackend):
+    """``sharded-flat`` with per-shard PQ codebooks: each shard trains its
+    own codec on the rows it stores, survivors are ADC-reranked on the
+    shard, and only the best R a shard are verified exactly.  The raw
+    rows stay, so ``cp_search`` and the recall floor are exact-verified;
+    codebook options nest under ``options={"pq": {...}}``."""
+
+    quant = "pq"
+
+    def bytes_per_point(self) -> float:
+        return self.impl.codecs[0].bytes_per_point + self.impl.codebook_bytes / max(self.n, 1)
 
 
 # ---------------------------------------------------------------------------

@@ -12,9 +12,9 @@ and callers never import them directly:
     index = build_index(data, IndexConfig(backend="flat"))   # on the card
     res = index.search(queries, k=10)
 
-Only the port's own backends register: ``pmtree``, ``flat``,
-``flat-pq``, the nine §7 baselines and ``streaming``; the reference's
-sharded backends are not ported yet.
+Every backend of the reference registers, in its order: ``pmtree``,
+``flat``, ``flat-pq``, ``sharded``, ``sharded-flat``,
+``sharded-flat-pq``, the nine §7 baselines and ``streaming``.
 """
 from __future__ import annotations
 

@@ -17,6 +17,8 @@ kernels (sources in ``csrc/``, built by ``_build`` at first use):
 ops    — dispatch: CUDA tensors launch the kernels, CPU tensors take the
          plain versions
 ref    — the plain PyTorch versions (the semantics contract)
+merge  — the sharded query's all-gather-of-k merge (a torch function,
+         as the reference's is jnp)
 counts — launch counts of every kernel
 """
 from . import counts, ops, ref  # noqa: F401

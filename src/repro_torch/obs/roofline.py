@@ -40,7 +40,8 @@ import torch
 __all__ = ["KernelCost", "DevicePeaks", "device_kind", "get_peaks",
            "set_peaks", "pairwise_sq_dist_cost", "project_dist_cost",
            "adc_dist_cost", "topk_cost", "radius_select_cost",
-           "verify_topk_cost", "pair_join_cost", "achieved"]
+           "verify_topk_cost", "pair_join_cost", "shard_exchange_cost",
+           "shard_merge_cost", "shard_ring_cost", "achieved"]
 
 F32 = 4
 
@@ -181,6 +182,32 @@ def pair_join_cost(n: int, d: int, k: int, block_n: int = 128,
     return KernelCost(
         bytes=tiles * 2 * block_n * d * F32 + 4 * k * F32,
         flops=tiles * (2 * block_n * block_n * d + block_n * block_n * k))
+
+
+def shard_exchange_cost(P: int, B: int, k_l: int, rounds: int = 32) -> KernelCost:
+    """Sharded-ANN THRESHOLD EXCHANGE: the counts-only bisection.  Each
+    of the ``rounds`` rungs psums one (B,) int32 survivor count per
+    shard, ``rounds·P·B`` int32 on the wire and no candidate payload;
+    the FLOPs are the reduction's P·B adds a rung.  (``k_l`` is carried
+    so callers can log the companion merge volume beside it; it does
+    not enter this cost.)"""
+    del k_l
+    return KernelCost(bytes=rounds * P * B * 4, flops=rounds * P * B)
+
+
+def shard_merge_cost(P: int, B: int, k_l: int) -> KernelCost:
+    """All-gather-of-k MERGE: each shard contributes (B, k_l) float32
+    distances and int32 ids, a pool of P·B·k_l·8 bytes; the selection
+    over it is modelled linear, P·B·k_l compares."""
+    return KernelCost(bytes=P * B * k_l * (F32 + 4), flops=P * B * k_l)
+
+
+def shard_ring_cost(P: int, nl: int, d: int, k: int) -> KernelCost:
+    """One CP ring hop: every shard passes its (nl, d) row block, (nl,)
+    norms, keys and ids to its neighbour, and the round's ub refresh
+    all-gathers each shard's (k,) running best."""
+    return KernelCost(bytes=P * (nl * d * F32 + 3 * nl * F32 + k * F32),
+                      flops=P * nl * d)
 
 
 # ---------------------------------------------------------------------------

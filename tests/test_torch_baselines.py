@@ -91,7 +91,8 @@ def test_cp_baseline_matches_jax(name, data):
 
 def test_registry_matches_jax_where_both_register():
     names = available_backends()
-    assert names == ["pmtree", "flat", "flat-pq", "multiprobe", "qalsh", "srs", "rlsh",
+    assert names == ["pmtree", "flat", "flat-pq", "sharded", "sharded-flat",
+                     "sharded-flat-pq", "multiprobe", "qalsh", "srs", "rlsh",
                      "lscan", "lsb_tree", "acp_p", "mkcp", "nlj", "streaming"]
     jax_names = jax_available()
     assert [n for n in jax_names if n in names] == names

@@ -761,3 +761,64 @@ def test_scheduler_on_the_card_matches_the_plain_twin(cuda):
         np.testing.assert_allclose(a.result.distances, b.result.distances, rtol=1e-6)
     assert all(used[name] > 0 for name in ("pairwise_sq_dist", "radius_select", "verify_topk"))
     assert not any(unused.values())
+
+
+def _sharded_data(n, d, seed):
+    rng = np.random.default_rng(seed)
+    data = (rng.normal(size=(20, d)) * 4)[rng.integers(0, 20, n)]
+    data = (data + rng.normal(size=(n, d)) * 0.5).astype(np.float32)
+    q = (data[rng.integers(0, n, 7)] + 0.1 * rng.normal(size=(7, d))).astype(np.float32)
+    return data, q
+
+
+def test_sharded_flat_matches_flat_on_the_card(cuda):
+    """``sharded-flat`` over an emulated P = 4 mesh on the card answers
+    ``flat``'s ids and distances bit for bit (the estimate is the flat
+    index's pairwise kernel on each shard's rows, the answer floats the
+    same arithmetic on the same rows), and its closest pairs are flat's;
+    pairwise and verify launch once a shard, radius_select never."""
+    from repro_torch.index import IndexConfig, build_index
+
+    data, q = _sharded_data(9001, 48, 41)  # 9001 ∤ 4: the last shard pads
+    flat = build_index(data, IndexConfig(backend="flat"), device=cuda)
+    sh = build_index(data, IndexConfig(backend="sharded-flat", options={"shards": 4}),
+                     device=cuda)
+    rf = flat.search(q, 10)
+    counts.reset()
+    rs = sh.search(q, 10)
+    used = counts.snapshot()["launches"]
+    np.testing.assert_array_equal(rs.indices, rf.indices)
+    np.testing.assert_array_equal(rs.distances, rf.distances)
+    assert rs.stats.candidates_selected == rf.stats.candidates_selected
+    assert (used["pairwise_sq_dist"], used["verify_topk"], used["radius_select"]) == (4, 4, 0)
+    cf, cs = flat.cp_search(10), sh.cp_search(10)
+    np.testing.assert_array_equal(cs.pairs, cf.pairs)
+    np.testing.assert_array_equal(cs.distances, cf.distances)
+
+
+def test_sharded_flat_nccl_group_of_one_matches_emulated(cuda, tmp_path):
+    """A world-size-1 NCCL group answers what the emulated P = 1 mesh
+    answers, bit for bit (ANN and CP)."""
+    import torch.distributed as dist
+
+    from repro_torch.index import IndexConfig, build_index
+    from repro_torch.launch import make_data_mesh
+
+    data, q = _sharded_data(3001, 32, 43)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_data_mesh(device="cuda")
+        assert not mesh.emulated and mesh.size == 1
+        grp = build_index(data, IndexConfig(backend="sharded-flat", options={"mesh": mesh}),
+                          device=cuda)
+        rg, cg = grp.search(q, 10), grp.cp_search(5)
+    finally:
+        dist.destroy_process_group()
+    emu = build_index(data, IndexConfig(backend="sharded-flat", options={"shards": 1}),
+                      device=cuda)
+    re_, ce = emu.search(q, 10), emu.cp_search(5)
+    np.testing.assert_array_equal(rg.indices, re_.indices)
+    np.testing.assert_array_equal(rg.distances, re_.distances)
+    np.testing.assert_array_equal(cg.pairs, ce.pairs)
+    np.testing.assert_array_equal(cg.distances, ce.distances)

@@ -152,18 +152,18 @@ def test_build_index_on_cpu_answers_well():
     assert res.indices.shape == (16, 10) and recall > 0.8
 
 
-def test_unported_features_raise_naming_their_slice():
-    """CP, quantized storage, the streaming index, the PM-tree and the
-    nine baselines are ported; the sharded backends are not registered in
-    the port yet."""
-    data = make_clustered(200, 8, seed=20)
-    index = build_index(data, IndexConfig(backend="flat", options={"quant": "sq8"}),
-                        device="cpu")
-    assert index.cp_search(5).pairs.shape == (5, 2)
-    with pytest.raises(KeyError, match="registered in repro_torch: pmtree, flat, flat-pq, "
-                                       "multiprobe, qalsh, srs, rlsh, lscan, lsb_tree, "
-                                       "acp_p, mkcp, nlj, streaming"):
-        build_index(data, IndexConfig(backend="sharded-flat"), device="cpu")
+def test_port_registers_every_reference_backend():
+    """Every backend of the reference is registered in the port, in the
+    reference's order, with the reference's capabilities."""
+    from repro.index import available_backends as jax_available
+    from repro.index import backend_capabilities as jax_capabilities
+    from repro_torch.index import available_backends, backend_capabilities
+
+    assert available_backends() == jax_available()
+    for name in jax_available():
+        assert backend_capabilities(name) == jax_capabilities(name), name
+    for cap in ("ann", "cp", "quant", "stream"):
+        assert available_backends(cap) == jax_available(cap), cap
 
 
 @pytest.mark.parametrize("options,force", [

@@ -66,7 +66,9 @@ def test_importing_the_port_loads_no_jax():
                                    "PMTreeBackend.from_arrays", "PMLSH", "PMLSH_CP",
                                    "multiprobe", "srs", "bucket_families_from_arrays",
                                    "recover", "QualityAuditor",
-                                   "QualityAuditor.for_index"])
+                                   "QualityAuditor.for_index", "ShardedFlatIndex",
+                                   "DistributedFlatIndex", "DistributedCP",
+                                   "make_data_mesh", "sharded-flat"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device works here")
@@ -75,9 +77,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
         codec_from_arrays,
         flat_index_from_arrays,
     )
-    from repro_torch.core import PMLSH, PMLSH_CP, build_flat_index
+    from repro_torch.core import (
+        PMLSH,
+        PMLSH_CP,
+        DistributedCP,
+        DistributedFlatIndex,
+        ShardedFlatIndex,
+        build_flat_index,
+    )
     from repro_torch.core.cp_fused import cp_fused_search
     from repro_torch.index import FlatBackend, IndexConfig, PMTreeBackend, build_index
+    from repro_torch.launch import make_data_mesh
     from repro_torch.obs import QualityAuditor
     from repro_torch.quant import train_codec
     from repro_torch.resilience import recover
@@ -112,7 +122,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
             "QualityAuditor": lambda: QualityAuditor(lambda: (np.arange(64), data)),
             # an index that names no device: the auditor's default, the card
             "QualityAuditor.for_index": lambda: QualityAuditor.for_index(
-                type("Rows", (), {"data": data, "d": 8, "config": IndexConfig()})())}[entry]
+                type("Rows", (), {"data": data, "d": 8, "config": IndexConfig()})()),
+            "ShardedFlatIndex": lambda: ShardedFlatIndex(data, shards=2),
+            "DistributedFlatIndex": lambda: DistributedFlatIndex(data),
+            "DistributedCP": lambda: DistributedCP(data),
+            "make_data_mesh": lambda: make_data_mesh(4),
+            "sharded-flat": lambda: build_index(data, IndexConfig(
+                backend="sharded-flat", options={"shards": 2}))}[entry]
 
     def durable_dir():  # a directory a CPU index wrote, recovered by default
         d = tmp_path / "durable"
