@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's flat ANN, quantized, closest-pair, streaming,
-PM-tree and sharded paths and its serving front end on one NVIDIA GPU,
-and check them.
+PM-tree and sharded paths, its serving front end and its LM serving path
+on one NVIDIA GPU, and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -183,8 +183,8 @@ Phases, each printing one JSON line:
            legacy ``sharded`` backend's recall@10 at B = 64, ≥ 0.9 ×
            flat's, and ``sharded_legacy_pad`` the NaN estimate of its
            +inf padding on the card and on the CPU (no check).
-  durable  (last) a streaming index over the Deep1M twin with
-           ``durability = {"dir": "build/durable", "sync": True,
+  durable  (last of the index phases) a streaming index over the Deep1M
+           twin with ``durability = {"dir": "build/durable", "sync": True,
            "snapshot_every": 8}`` (flat segments, delta_threshold
            32,768): 8 rounds of 4,096 inserts and 32 deletes, a flush
            after round 6 (it snapshots), an error at ``stream.apply`` in
@@ -202,6 +202,43 @@ Phases, each printing one JSON line:
            Prometheus lines of the four resilience series, and removes
            the directory at the end.
 
+  lm_serve (after durable, on a card the index phases have left) yi-6b
+           at its full configuration (32 layers, d = 4096, 32 / 4 heads,
+           hd = 128, d_ff = 11008, vocab 64,000, bfloat16, PM-LSH decode
+           attention at T = 2048, m = 16) on parameters drawn by
+           ``init_params`` from ``--seed`` on the card:
+           ``launch.serve.serve_batch`` prefills 4 prompts of 4,096 tokens
+           and decodes 32 greedy tokens (max_seq 4,128); the same steps
+           again under CUDA events (prefill ms, each decode step's ms,
+           their median, tokens/s) and profiled by CUDA kernel.  Checks:
+           (a) every logit finite, every token in [0, 64000); (b) the
+           decode of token 4,095 after a 4,095-token prefill, at T ≥
+           kv_len, against the full forward's last logits (relative L2 ≤
+           0.05, correlation ≥ 0.995); (c) on layer 0's prefilled cache,
+           LSH decode attention at T = kv_len against dense attention
+           (one bfloat16 ulp at the top binade; 1e-4 of the largest for a
+           float32 query); (d) the seven smoke configs of the dense, moe
+           and vlm families in float32 through ``serve_batch(gen=8)`` on
+           the card and on the CPU port: tokens identical, logits within
+           1e-4 of the largest.  Prints, unchecked, LSH at T = 2048
+           against dense (relative error, coverage of each head's true
+           top-32 keys), parameter, cache and peak bytes, and the bounds
+           beside the times (decode: weights, gathered KV and pk at the
+           HBM rate; prefill: bf16 matmul FLOP at 989 TFLOP/s, the f32
+           chunked attention's at 67).
+  lm_knn   the kNN-LM pattern of ``examples/knn_serving.py`` at that
+           width: the final hidden states of the 4 × 4,096 prompt tokens
+           (16,384 keys, d = 4096, float32) keyed to their next tokens,
+           served by ``make_retrieval_step`` over ``flat`` (c = 1.5, m =
+           15, k = 8), 64 datastore keys as queries.  Counts set to 0
+           before the search and read after: one pairwise_sq_dist, one
+           radius_select and one verify_topk launch; ids identical to the
+           same index's ``use_kernels=False`` path; each query's own row
+           first at distance ≤ 1e-3 with its payload, unless another key
+           equals it (counted as a tie row).  verify_topk at d = 4096 held
+           to its plain version, its rows read equal to the distinct rows
+           of its query groups, its ms beside its bound.
+
 Then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before that line.  Where CUDA is unavailable it exits non-zero at once
@@ -210,6 +247,7 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -285,6 +323,30 @@ SERVE_STREAM_ROWS, SERVE_STREAM_ROUNDS, SERVE_STREAM_EVICT = 262_144, 4, 32
 DURABLE_ROUNDS, DURABLE_FLUSH_AFTER, DURABLE_CRASH_ROUND = 8, 6, 7
 # the sharded backends: an emulated mesh of 4 shards on the one card
 SHARDS = 4
+# the LM phases: yi-6b (arXiv:2403.04652) at its published widths in
+# bfloat16 on seeded parameters: 4 prompts of 4,096 tokens, 32 greedy
+# tokens; then its hidden states as a kNN-LM datastore (k = 8, 64 keys as
+# queries).  The card's dense bfloat16 tensor-core peak (NVIDIA's H100 SXM
+# data sheet) bounds the prefill's matmuls.
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "yi-6b", 4, 4096, 32
+LM_SMOKE_ARCHS = ("yi_6b", "deepseek_67b", "mistral_large_123b", "minitron_8b",
+                  "qwen2_moe_a2_7b", "qwen3_moe_30b_a3b", "llama32_vision_11b")
+LM_SMOKE_PROMPT, LM_SMOKE_GEN = 32, 8
+LM_KNN_K, LM_KNN_QUERIES = 8, 64
+PEAK_BF16_PER_S = 989e12
+# tolerances: (b) the decode after a 4,095-token prefill against the full
+# forward in bfloat16, through 32 layers of bfloat16 roundings on three
+# attention routes (flash, chunked, LSH at T ≥ kv_len): relative L2 error
+# and correlation of the last logits (≈ 1.1-1.5% at 8-16 layers of a narrow
+# twin on the CPU); (c) LSH at T = kv_len against dense attention: one
+# bfloat16 ulp at the top binade for a bfloat16 query, 1e-4 of the largest
+# entry for a float32 one (4,096 keys summed in another order); (d) the
+# smoke configs' float32 logits on the card against the CPU port's, 1e-4
+# of the largest (cuBLAS and the CPU sum in other orders); a query's own
+# datastore row answers at distance 0 (the difference form), held to 1e-3.
+LM_CONSISTENCY_REL, LM_CONSISTENCY_CORR = 0.05, 0.995
+LM_LSH_BF16_TOL, LM_LSH_F32_TOL = 2.0 ** -7, 1e-4
+LM_SMOKE_TOL, LM_KNN_SELF_TOL = 1e-4, 1e-3
 # the span trees of one traced call of each path, (name, parent index):
 # the reference's trees (a CPU test holds them to repro's)
 EXPECTED_SPAN_TREES = {
@@ -508,7 +570,7 @@ def profile_call(torch, fn, wall_ms: float, rows: int = 16) -> dict:
     busy = sum(r["device_ms"] for r in table)
     return {"traced_wall_ms": traced_ms, "wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall_ms), "verify_topk_ms": verify_ms,
-            "by_kernel": table[:rows]}
+            "device_ops": sum(r["calls"] for r in table), "by_kernel": table[:rows]}
 
 
 def profiles(torch, phase: str, search, batch_ms: dict) -> None:
@@ -2326,45 +2388,306 @@ def durable_phase(torch, dev, data: np.ndarray, queries: np.ndarray, seed: int, 
           "snapshots": snapshots, "ops_issued": issued, "prometheus": prom})
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
+def _rel_err(torch, got, want) -> float:
+    return float(torch.linalg.norm((got - want).float()) / torch.linalg.norm(want.float()))
 
-    import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available; this script runs on an "
-              "NVIDIA GPU", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def _corr(torch, a, b) -> float:
+    return float(torch.corrcoef(torch.stack([a.flatten().float(), b.flatten().float()]))[0, 1])
 
+
+def lm_serve_phase(torch, dev, seed: int) -> dict:
+    """yi-6b at its full configuration in bfloat16 on seeded parameters:
+    ``serve_batch`` (4 prompts of 4,096 tokens, 32 greedy tokens), the
+    same prefill and decode steps timed by CUDA events, checks (a)–(d)
+    and the bounds.  Returns what ``lm_knn`` needs."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import layers as L
+    from repro_torch.models import lsh_attention as lsh
+    from repro_torch.models import transformer as tt
+    from repro_torch.serve.serve_step import make_decode_step, make_prefill
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    B, P, G = LM_BATCH, LM_PROMPT, LM_GEN
+    H, KV, hd, m, Vp, d = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.lsh_m,
+                           cfg.padded_vocab(), cfg.d_model)
+    check((cfg.n_layers, d, H, KV, hd, cfg.d_ff, cfg.vocab_size) == (32, 4096, 32, 4, 128, 11008,
+                                                                      64000)
+          and cfg.dtype == torch.bfloat16 and cfg.lsh_attention and cfg.lsh_topk == 2048
+          and m == 16, f"lm_serve: {cfg.name} is not yi-6b's full configuration")
+    max_seq = P + G
+    mesh = make_host_mesh(device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tt.init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    # param_count counts the matrices and both embeddings; the model adds
+    # each layer's two norms and lsh_a, and the final norm
+    extra = cfg.n_layers * (2 * d + hd * m) + d
+    check(n_params == cfg.param_count() + extra,
+          f"lm_serve: {n_params} parameters, not yi-6b's {cfg.param_count()} + {extra}")
+
+    # -- serve_batch, then the same steps under CUDA events ------------------
+    out = serve_batch(cfg, mesh, batch=B, prompt_len=P, gen=G, seed=seed, params=params)
+    logits, tokens = out["logits"], out["tokens"]
+    check(tuple(logits.shape) == (B, G, Vp) and bool(torch.isfinite(logits).all()),
+          f"lm_serve (a): logits {tuple(logits.shape)} not all finite")
+    check(tokens.shape == (B, G) and int(tokens.min()) >= 0
+          and int(tokens.max()) < cfg.vocab_size,
+          f"lm_serve (a): tokens outside [0, {cfg.vocab_size})")
+    prefill, _ = make_prefill(cfg, mesh, batch=B, seq_len=P, max_seq=max_seq)
+    decode, _ = make_decode_step(cfg, mesh, batch=B, max_seq=max_seq)
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, P)).astype(np.int32)
+    prompt_t = torch.from_numpy(prompts).to(dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(G + 2)]
+    ev[0].record()
+    lg, caches = prefill(params, {"tokens": prompt_t})
+    ev[1].record()
+    tok = torch.argmax(lg, dim=-1).to(torch.int32)
+    timed = []
+    for i in range(G):  # each step: the argmax before it and the decode
+        timed.append(tok[:, 0])
+        lg, caches = decode(params, caches, {"tokens": tok, "position": P + i})
+        tok = torch.argmax(lg, dim=-1).to(torch.int32)
+        ev[i + 2].record()
+    torch.cuda.synchronize()
+    prefill_ms = ev[0].elapsed_time(ev[1])
+    decode_ms = [ev[i + 1].elapsed_time(ev[i + 2]) for i in range(G)]
+    repeat_same = bool(np.array_equal(torch.stack(timed, 1).cpu().numpy(), tokens))
+    cache_bytes = sum(t.numel() * t.element_size() for c in caches for t in c.values())
+    peak_serve = torch.cuda.max_memory_allocated()
+    decode_med = statistics.median(decode_ms)
+    # where the time goes: one decode step (the last position again) and
+    # one prefill, by CUDA kernel, beside their untraced times
+    last = {"tokens": tok, "position": P + G - 1}
+    decode_profile = profile_call(torch, lambda: decode(params, caches, last), decode_med, rows=8)
+    del caches, lg, timed
+    prefill_profile = profile_call(torch, lambda: prefill(params, {"tokens": prompt_t}),
+                                   prefill_ms, rows=8)
+
+    # -- the bounds, from this run's shapes ------------------------------------
+    mats = sum(p.numel() for n, p in params.blocks.named_parameters()
+               if p.ndim == 2 and not n.endswith("lsh_a"))
+    T = min(cfg.lsh_topk, max_seq)
+    weight_bytes = param_bytes - Vp * d * 2 + B * d * 2  # the embedding: B rows a token
+    kv_gathered = cfg.n_layers * B * KV * T * hd * 2 * 2  # k and v, bf16
+    pk_read = cfg.n_layers * B * max_seq * KV * m * 2
+    decode_bound_ms = (weight_bytes + kv_gathered + pk_read) / PEAK_BYTES_PER_S * 1e3
+    mm_flop = 2 * B * P * mats + 2 * B * d * Vp  # the head on the last position only
+    sk_pad = -(-max_seq // 1024) * 1024  # chunked attention pads k/v to whole chunks
+    attn_flop = cfg.n_layers * 4 * B * H * P * sk_pad * hd  # QKᵀ and PV, float32
+    prefill_bytes = param_bytes + cache_bytes
+    prefill_bounds_ms = {"bf16_matmul": mm_flop / PEAK_BF16_PER_S * 1e3,
+                         "f32_attention": attn_flop / PEAK_F32_PER_S * 1e3,
+                         "bytes": prefill_bytes / PEAK_BYTES_PER_S * 1e3}
+
+    # -- (b) decode after prefill = the full forward's last logits -------------
+    with torch.inference_mode():
+        full, _ = tt.forward(params, prompt_t, cfg, logits_slice="last")  # the flash route
+        caches = tt.init_cache(cfg, B, P, device=dev)
+        tt.forward(params, prompt_t[:, :P - 1], cfg, caches=caches, logits_slice="last")
+        dense = cfg.replace(lsh_topk=P)  # T ≥ kv_len: every key a candidate
+        dec, _ = tt.decode_step(params, caches, {"tokens": prompt_t[:, P - 1:],
+                                                 "position": P - 1}, dense)
+    rel_b, corr_b = _rel_err(torch, dec, full), _corr(torch, dec, full)
+    argmax_b = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+    check(rel_b <= LM_CONSISTENCY_REL and corr_b >= LM_CONSISTENCY_CORR,
+          f"lm_serve (b): decode vs forward relative error {rel_b}, corr {corr_b}")
+    del full, dec
+
+    # -- (c) layer 0's prefilled cache: LSH at T = kv_len against dense --------
+    with torch.inference_mode():
+        blk, c0 = params.blocks[0], caches[0]
+        x = L.rms_norm(params.embed[prompt_t[:, P - 1:]].to(cfg.dtype), blk["ln1"],
+                       cfg.norm_eps)
+        q = L.rope((x @ blk["attn"]["wq"]).reshape(B, 1, H, hd),
+                   torch.tensor([P - 1], device=dev), cfg.rope_theta)
+        a = blk["attn"]["lsh_a"]
+        c_err = {}
+        dense32 = lsh.lsh_attention_reference(q.float(), c0["k"], c0["v"], kv_len=P)
+        for name, qq, tol in (("bf16", q, LM_LSH_BF16_TOL), ("f32", q.float(), LM_LSH_F32_TOL)):
+            got = lsh.lsh_decode_attention(qq, c0["k"], c0["v"], c0["pk"], a, kv_len=P, topk=P)
+            want = lsh.lsh_attention_reference(qq, c0["k"], c0["v"], kv_len=P)
+            err = float((got.float() - want.float()).abs().max())
+            scale = float(want.float().abs().max())
+            c_err[name] = {"max_abs_err": err, "max_abs": scale, "tol": tol * scale}
+            check(err <= tol * scale, f"lm_serve (c): {name} LSH at T = kv_len differs from "
+                                      f"dense by {err} > {tol * scale}")
+        # T = 2048: the approximation, printed
+        T_lsh = cfg.lsh_topk
+        approx = lsh.lsh_decode_attention(q.float(), c0["k"], c0["v"], c0["pk"], a, kv_len=P,
+                                          topk=T_lsh)
+        rel_2048 = _rel_err(torch, approx, dense32)
+        cand = lsh.lsh_select(q, c0["pk"], a, kv_len=P, topk=T_lsh)  # (B, KV, T)
+        chosen = torch.zeros((B, KV, P), dtype=torch.bool, device=dev)
+        chosen.scatter_(2, cand, True)
+        scores = torch.einsum("bhd,bshd->bhs", q[:, 0].float(),
+                              c0["k"][:, :P].float().repeat_interleave(H // KV, dim=2))
+        best = torch.topk(scores, 32, dim=-1).indices  # (B, H, 32)
+        group = chosen.repeat_interleave(H // KV, dim=1)  # (B, H, P)
+        coverage = float(torch.gather(group, 2, best).float().mean())
+    del caches, c0, scores, chosen, group
+
+    # -- (d) the smoke configs on the card and on the CPU port, float32 ---------
+    smoke = {}
+    cpu_mesh = make_host_mesh(device="cpu")
+    for arch in LM_SMOKE_ARCHS:
+        scfg = get_smoke_config(arch).replace(dtype=torch.float32)
+        sp = tt.init_params(scfg, seed, device="cpu")
+        kw = dict(batch=2, prompt_len=LM_SMOKE_PROMPT, gen=LM_SMOKE_GEN, seed=seed)
+        want = serve_batch(scfg, cpu_mesh, params=sp, **kw)
+        got = serve_batch(scfg, mesh, params=sp.to(dev), **kw)
+        err = float((got["logits"].cpu() - want["logits"]).abs().max())
+        scale = float(want["logits"].abs().max())
+        check(np.array_equal(got["tokens"], want["tokens"]),
+              f"lm_serve (d): {arch} greedy tokens on the card differ from the CPU port's")
+        check(err <= LM_SMOKE_TOL * scale,
+              f"lm_serve (d): {arch} logits differ by {err} > {LM_SMOKE_TOL * scale}")
+        smoke[arch] = {"max_abs_err": err, "max_abs": scale}
+
+    emit({"phase": "lm_serve", "arch": cfg.name, "layers": cfg.n_layers, "d_model": d,
+          "heads": [H, KV], "head_dim": hd, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+          "dtype": "bfloat16", "lsh_topk": cfg.lsh_topk, "lsh_m": m, "batch": B,
+          "prompt_len": P, "gen": G, "max_seq": max_seq, "params": n_params,
+          "param_bytes": param_bytes, "cache_bytes": cache_bytes, "init_s": init_s,
+          "peak_bytes_serving": peak_serve, "peak_bytes": torch.cuda.max_memory_allocated(),
+          "serve_batch": {"prefill_s": out["prefill_s"],
+                          "decode_s_per_token": out["decode_s_per_token"]},
+          "prefill_ms": prefill_ms, "decode_ms_median": decode_med,
+          "decode_ms_min": min(decode_ms), "decode_ms_max": max(decode_ms),
+          "tokens_per_s": B / decode_med * 1e3, "repeat_tokens_identical": repeat_same,
+          "bounds": {"decode_ms": decode_bound_ms, "decode_weight_bytes": weight_bytes,
+                     "decode_kv_bytes": kv_gathered + pk_read,
+                     "prefill_ms": max(prefill_bounds_ms.values()),
+                     "prefill_parts_ms": prefill_bounds_ms, "prefill_bf16_flop": mm_flop,
+                     "prefill_f32_attention_flop": attn_flop},
+          "check_b": {"rel_err": rel_b, "corr": corr_b, "argmax_agree": argmax_b,
+                      "tol_rel": LM_CONSISTENCY_REL, "tol_corr": LM_CONSISTENCY_CORR},
+          "check_c": c_err, "lsh_2048": {"rel_err_vs_dense": rel_2048,
+                                         "top32_coverage": coverage},
+          "check_d": smoke, "first_request_tokens": tokens[0].tolist(),
+          "decode_profile": decode_profile, "prefill_profile": prefill_profile,
+          "seconds": time.perf_counter() - t_phase})
+    return {"params": params, "cfg": cfg, "prompts": prompt_t, "first": tokens[:, 0]}
+
+
+def lm_knn_phase(torch, dev, lm: dict, seed: int) -> None:
+    """The kNN-LM pattern of ``examples/knn_serving.py`` at yi-6b's width:
+    a datastore of the final hidden states of the 4 × 4,096 prompt tokens
+    (d = 4096) keyed to their next tokens, served by
+    ``make_retrieval_step`` over a ``flat`` index; 64 datastore keys as
+    queries, k = 8."""
+    from repro_torch.core import candidate_budget, select_seed
+    from repro_torch.index import IndexConfig, build_index
+    from repro_torch.kernels import counts, ops, ref
+    from repro_torch.kernels import verify as kver
+    from repro_torch.models import transformer as tt
+    from repro_torch.serve.serve_step import make_retrieval_step
+
+    t_phase = time.perf_counter()
+    params, cfg, prompts = lm["params"], lm["cfg"], lm["prompts"]
+    with torch.inference_mode():
+        hidden, _ = tt.forward(params, prompts, cfg, logits_slice="hidden")
+    keys_t = hidden.float().reshape(-1, cfg.d_model)
+    del hidden
+    values = np.concatenate([prompts[:, 1:].cpu().numpy(), lm["first"][:, None]],
+                            axis=1).reshape(-1)
+    keys = keys_t.cpu().numpy()
+    n, d = keys.shape
+    config = IndexConfig(backend="flat", c=1.5, m=15, seed=seed)
+    t0 = time.perf_counter()
+    step, index = make_retrieval_step(keys, values, k=LM_KNN_K, index_config=config, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    qids = np.random.default_rng(seed + 7).choice(n, LM_KNN_QUERIES, replace=False)
+    queries = keys[qids]
+
+    counts.reset()
+    payloads, valid, dist, res = step(queries)
+    launches = counts.snapshot()["launches"]
+    for name in ("pairwise_sq_dist", "radius_select", "verify_topk"):
+        check(launches[name] == 1, f"lm_knn: a search launched {name} {launches[name]} times")
+    twin = build_index(keys, config.with_options(use_kernels=False), device=dev)
+    plain = twin.search(queries, k=LM_KNN_K)
+    check(np.array_equal(res.indices, plain.indices),
+          "lm_knn: ids differ from the same index's use_kernels=False path")
+    ties, own_first = 0, 0
+    for i, qi in enumerate(qids):
+        dup = int((keys_t == keys_t[int(qi)]).all(dim=1).sum())
+        if dup > 1:  # another key equals this one: either may rank first
+            ties += 1
+            continue
+        first = int(res.indices[i, 0]) == int(qi) and float(dist[i, 0]) <= LM_KNN_SELF_TOL
+        check(first, f"lm_knn: query {i} (row {qi}) ranks {res.indices[i, :3]} at "
+                     f"{dist[i, :3]}, not itself first")
+        check(int(payloads[i, 0]) == int(values[qi]), f"lm_knn: query {i}'s payload")
+        own_first += 1
+    search_ms = time_ms(torch, lambda: step(queries), reps=7, warmup=1)
+
+    # the path's stages by hand: verify at d = 4096 against its plain version
+    impl = index.impl
+    q_t = torch.from_numpy(queries).to(dev)
+    d2p = ops.pairwise_sq_dist(impl.family.project(q_t), impl.projected)
+    T = candidate_budget(impl.params, impl.n, LM_KNN_K)
+    tau0 = select_seed(d2p, T, impl.params.m)
+    _, cand, cnt = ops.radius_select(d2p, T, tau0=tau0, with_count=True)
+    cand = cand.to(torch.int32).contiguous()
+    vv, vi, rows_read = kver.verify_topk(impl.data, q_t, cand, LM_KNN_K, rows_read=True)
+    pv, pi = ref.verify_topk(impl.data, q_t, cand, LM_KNN_K)
+    check(torch.equal(vi, pi) and torch.allclose(vv, pv, rtol=1e-5, atol=1e-5),
+          "lm_knn: verify_topk at d = 4096 differs from its plain version")
+    check(np.array_equal(vi.cpu().numpy(), res.indices),
+          "lm_knn: the stages by hand answer other ids than the search")
+    gs = kver.group_size(LM_KNN_QUERIES, d)
+    per_group = sum(int(torch.unique(c[c >= 0]).numel())
+                    for c in cand.split(gs))  # rows each query group reads
+    uniq = int(torch.unique(cand[cand >= 0]).numel())
+    check(int(rows_read) == per_group,
+          f"lm_knn: verify read {int(rows_read)} rows, its groups hold {per_group} distinct")
+    Bq = LM_KNN_QUERIES
+    t_bound, by = bound(4 * (uniq * d + Bq * d + Bq * T) + 8 * Bq * LM_KNN_K, 3 * Bq * T * d)
+    emit({"phase": "lm_knn", "n": n, "d": d, "k": LM_KNN_K, "B": Bq, "build_s": build_s,
+          "launches": {k: launches[k] for k in ("pairwise_sq_dist", "radius_select",
+                                               "verify_topk")},
+          "ids_identical_to_plain": True, "own_row_first": own_first, "tie_rows": ties,
+          "self_tol": LM_KNN_SELF_TOL, "search_ms": search_ms, "T": T,
+          "candidates_selected": int(cnt.sum()),
+          "verify": {"rows_read": int(rows_read), "unique_rows": uniq, "group_size": gs,
+                     "max_abs_err": float((vv - pv).abs().max()),
+                     "ms": time_ms(torch, lambda: kver.verify_topk(impl.data, q_t, cand,
+                                                                   LM_KNN_K)),
+                     "device_ms": device_ms(torch, lambda: kver.verify_topk(
+                         impl.data, q_t, cand, LM_KNN_K)),
+                     "plain_ms": time_ms(torch, lambda: ref.verify_topk(impl.data, q_t, cand,
+                                                                        LM_KNN_K),
+                                         reps=3, warmup=1),
+                     "bound_ms": t_bound, "bound_by": by},
+          "seconds": time.perf_counter() - t_phase})
+
+
+def index_phases(torch, dev, seed: int) -> None:
+    """Every phase of the index side, from the Deep1M twin's data to the
+    durable stream, on kernels already built."""
     from repro_torch.core import ann_query, candidate_budget, select_seed
     from repro_torch.index import IndexConfig, build_index
-    from repro_torch.kernels import _build, counts, ops, ref
+    from repro_torch.kernels import counts, ops, ref
     from repro_torch.kernels import pairwise_dist as kpair
     from repro_torch.kernels import project_dist as kproj
     from repro_torch.kernels import select as ksel
     from repro_torch.kernels import topk as ktopk
     from repro_torch.kernels import verify as kver
 
-    dev = torch.device("cuda")
-    smi = nvidia_smi()
-
-    # -- build -------------------------------------------------------------
-    t0 = time.perf_counter()
-    lib_path = _build.build()
-    _build.load()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": os.path.relpath(lib_path, ROOT),
-          "sources": sorted(p.name for p in _build.CSRC.glob("*.cu"))})
-
     # -- data and index ----------------------------------------------------
     t0 = time.perf_counter()
-    data = make_clustered_twin(N_POINTS, DIM, args.seed)
-    queries = make_queries(data, max(BATCHES), args.seed + 1)
-    index = build_index(data, IndexConfig(backend="flat", seed=args.seed), device=dev)
+    data = make_clustered_twin(N_POINTS, DIM, seed)
+    queries = make_queries(data, max(BATCHES), seed + 1)
+    index = build_index(data, IndexConfig(backend="flat", seed=seed), device=dev)
     impl = index.impl
     torch.cuda.synchronize()
     T = candidate_budget(impl.params, impl.n, K)
@@ -2454,9 +2777,9 @@ def main(argv=None) -> int:
     profiles(torch, "profile", lambda B: index.search(queries[:B], K), batch_ms)
 
     # -- the unfused path (n < 8192) ----------------------------------------
-    small = make_clustered_twin(4096, DIM, args.seed + 2)
-    q_small = make_queries(small, 16, args.seed + 3)
-    index_s = build_index(small, IndexConfig(backend="flat", seed=args.seed), device=dev)
+    small = make_clustered_twin(4096, DIM, seed + 2)
+    q_small = make_queries(small, 16, seed + 3)
+    index_s = build_index(small, IndexConfig(backend="flat", seed=seed), device=dev)
     T_s = candidate_budget(index_s.impl.params, index_s.n, K)
     counts.reset()
     res_s = index_s.search(q_small, K)
@@ -2480,16 +2803,16 @@ def main(argv=None) -> int:
           "rows_max_abs_err": rows_err})
 
     # -- the quantized path and closest pair ----------------------------------
-    adc = quant_phase(torch, dev, data, queries, exact, args.seed)
-    join = cp_phase(torch, dev, args.seed)
+    adc = quant_phase(torch, dev, data, queries, exact, seed)
+    join = cp_phase(torch, dev, seed)
 
     # -- the streaming index, and the fused projection ------------------------
-    stream = stream_phase(torch, dev, data, queries, args.seed)
+    stream = stream_phase(torch, dev, data, queries, seed)
     audio, exact_pairs = join.pop("audio"), join.pop("exact")
     pq_index, cp_index = adc.pop("index"), join.pop("index")
     pq_recall = adc.pop("recall")
-    stream_cp_phase(torch, dev, audio, exact_pairs, args.seed)
-    proj = project_phase(torch, dev, impl.data, q64, args.seed)
+    stream_cp_phase(torch, dev, audio, exact_pairs, seed)
+    proj = project_phase(torch, dev, impl.data, q64, seed)
 
     # -- per-kernel times at the main path's shapes (B = 64) ------------------
     B, n, d = 64, impl.n, impl.d
@@ -2647,19 +2970,58 @@ def main(argv=None) -> int:
 
     # -- the paper's own index, its range query, the baselines, the stream --
     # (after the kernels line, whose traces they would otherwise precede)
-    pm = pmtree_phase(torch, dev, audio, exact_pairs, args.seed)
-    pmtree_range_phase(torch, dev, pm["index"], audio, args.seed)
-    baselines_phase(torch, dev, audio, args.seed)
-    stream_pmtree_phase(torch, dev, audio, args.seed)
+    pm = pmtree_phase(torch, dev, audio, exact_pairs, seed)
+    pmtree_range_phase(torch, dev, pm["index"], audio, seed)
+    baselines_phase(torch, dev, audio, seed)
+    stream_pmtree_phase(torch, dev, audio, seed)
 
     # -- the serving front end over the Deep1M twin -----------------------------
-    serve_phase(torch, dev, data, args.seed)
+    serve_phase(torch, dev, data, seed)
 
     # -- the sharded backends over an emulated mesh and an NCCL group --------
-    sharded_phase(torch, dev, data, queries, exact, index, recall, pq_recall, audio, args.seed)
+    sharded_phase(torch, dev, data, queries, exact, index, recall, pq_recall, audio, seed)
 
     # -- the durable stream: WAL, snapshots, two crashes, recover() -----------
-    durable_phase(torch, dev, data, queries, args.seed)
+    durable_phase(torch, dev, data, queries, seed)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script runs on an "
+              "NVIDIA GPU", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from repro_torch.kernels import _build
+
+    dev = torch.device("cuda")
+    smi = nvidia_smi()
+
+    # -- build -------------------------------------------------------------
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    _build.load()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "library": os.path.relpath(lib_path, ROOT),
+          "sources": sorted(p.name for p in _build.CSRC.glob("*.cu"))})
+
+    index_phases(torch, dev, args.seed)
+    # the index phases' tensors are gone with their frame: the LM starts
+    # on a card holding nothing but the kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- yi-6b served at full width, then its hidden states as a datastore -----
+    lm = lm_serve_phase(torch, dev, args.seed)
+    lm_knn_phase(torch, dev, lm, args.seed)
+    del lm
 
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

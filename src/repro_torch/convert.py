@@ -34,6 +34,18 @@ arrays through :func:`bucket_families_from_arrays`, and SRS / R-LSH take
     ti = build_index(data, IndexConfig(backend="multiprobe",
                                        options={"families": fams}))
 
+A decoder LM's parameters come across whole.  The reference keeps them
+as a pytree of stacked ``unit`` leaves (a leading n_units dimension)
+plus the ``rest`` blocks; :func:`lm_params_from_numpy` unstacks them
+into the port's one module a layer, in the reference's layer order:
+
+    tree = jax.tree.map(np.asarray, repro.models.transformer.init_params(cfg, key))
+    params = lm_params_from_numpy(cfg, tree, device="cpu")
+
+JAX's bfloat16 arrays arrive as ``ml_dtypes.bfloat16`` numpy arrays,
+which ``torch.from_numpy`` refuses: :func:`tensor_from_numpy` views them
+as int16 and reinterprets the bits as ``torch.bfloat16``, bit for bit.
+
 This module imports nothing of JAX; the caller hands over numpy arrays.
 """
 from __future__ import annotations
@@ -45,9 +57,12 @@ from .core.estimator import solve_parameters
 from .core.flat_index import FlatIndex
 from .core.hashing import BucketFamily, ProjectionFamily
 from .device import as_tensor, resolve_device
+from .models.layers import Params
+from .models.transformer import DecoderLM, abstract_params, layer_plan
 from .quant.codec import PQCodec, SQ8Codec
 
-__all__ = ["flat_index_from_arrays", "codec_from_arrays", "bucket_families_from_arrays"]
+__all__ = ["flat_index_from_arrays", "codec_from_arrays", "bucket_families_from_arrays",
+           "lm_params_from_numpy", "tensor_from_numpy"]
 
 
 def flat_index_from_arrays(data: np.ndarray | torch.Tensor, a: np.ndarray,
@@ -108,3 +123,55 @@ def bucket_families_from_arrays(families, *, device: str | torch.device = "cuda"
     e.g. a JAX Multi-Probe index's tables' or an LSB-tree's trees'."""
     dev = resolve_device(device)
     return [BucketFamily.from_numpy(a, b, w, dev) for a, b, w in families]
+
+
+def tensor_from_numpy(array, device: str | torch.device = "cuda") -> torch.Tensor:
+    """A tensor on ``device`` holding ``array``'s values in its own dtype;
+    a bfloat16 array (``ml_dtypes``) is carried across bit for bit."""
+    dev = resolve_device(device)
+    a = np.ascontiguousarray(array)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(a.copy()).to(dev)
+
+
+def lm_params_from_numpy(cfg, tree: dict, device: str | torch.device = "cuda"):
+    """The port's :class:`~repro_torch.models.transformer.DecoderLM` from
+    the reference's parameter pytree as numpy arrays (``embed``, ``unit``
+    — a tuple of stacked block trees, one per position of the layer
+    plan's unit —, ``rest``, ``final_norm`` and ``lm_head`` unless the
+    embeddings are tied).  Shapes and dtypes are checked against the
+    port's own layout."""
+    dev = resolve_device(device)
+
+    def module(node, take=None):
+        if isinstance(node, dict):
+            return Params(**{name: module(v, take) for name, v in node.items()})
+        a = np.asarray(node)
+        return tensor_from_numpy(a if take is None else a[take], dev)
+
+    def leaves(node):
+        return [x for v in node.values() for x in leaves(v)] if isinstance(node, dict) else [node]
+
+    unit, n_units, rest = layer_plan(cfg)
+    stacked = {np.shape(x)[0] for block in tree["unit"] for x in leaves(block)}
+    if (len(tree["unit"]) != (len(unit) if n_units else 0) or len(tree["rest"]) != len(rest)
+            or stacked - {n_units}):
+        raise ValueError(f"a tree of {len(tree['unit'])} unit blocks stacked {sorted(stacked)} "
+                         f"and {len(tree['rest'])} rest blocks for the plan "
+                         f"{unit} × {n_units} + {rest}")
+    blocks = [module(tree["unit"][i], u) for u in range(n_units) for i in range(len(unit))]
+    blocks += [module(b) for b in tree["rest"]]
+    head = tree.get("lm_head")
+    params = DecoderLM(cfg, blocks, tensor_from_numpy(tree["embed"], dev),
+                       tensor_from_numpy(tree["final_norm"], dev),
+                       None if head is None else tensor_from_numpy(head, dev))
+
+    def layout(m):
+        return {n: (tuple(p.shape), p.dtype) for n, p in m.named_parameters()}
+
+    want, got = layout(abstract_params(cfg)), layout(params)
+    if want != got:
+        diff = sorted(set(want.items()) ^ set(got.items()))[:6]
+        raise ValueError(f"the tree does not fit {cfg.name}'s layout: {diff}")
+    return params

@@ -2,8 +2,7 @@
 
 ``dedup``: near-duplicate detection for training corpora through the
 c-ACP query (``core.cp.PMLSH_CP``).  The reference's ``pipeline``
-(token batches for the trainer) comes with the LM side of the port
-(ROADMAP queue A item 12).
+(token batches for the trainer) comes with training (ROADMAP A12c).
 """
 from .dedup import dedup_mask, embed_docs, find_near_duplicates  # noqa: F401
 

@@ -20,6 +20,11 @@ Stage code iterates over ``mesh.local`` (every shard when emulated, its
 own rank in a group) and hands the collectives a list with one entry per
 local shard; what comes back is the same in every process.  Nothing
 falls back from one form to the other.
+
+The LM side (``make_host_mesh``, ``dp_axes``, ``axis_size``) is the
+reference's host mesh of ('data', 'model') axes on one device: the
+model steps run on it whole.  Tensor and expert parallelism over
+'model' > 1 come with more than one card (ROADMAP A12d).
 """
 from __future__ import annotations
 
@@ -30,7 +35,8 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 
-__all__ = ["DataMesh", "make_data_mesh"]
+__all__ = ["DataMesh", "HostMesh", "axis_size", "dp_axes", "make_data_mesh",
+           "make_host_mesh"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,3 +157,42 @@ def make_data_mesh(shards: int | None = None, axis: str = "data", *, group=None,
     else:
         raise ValueError(f"process group backend {backend!r}: nccl or gloo")
     return DataMesh(size=size, device=dev, axis=axis, group=group)
+
+
+@dataclasses.dataclass(frozen=True)
+class HostMesh:
+    """The LM steps' mesh: named axes of given sizes over ``device``."""
+
+    axis_names: tuple[str, ...]
+    axis_sizes: tuple[int, ...]
+    device: torch.device
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+
+def make_host_mesh(model: int = 1, *, device: str | torch.device = "cuda") -> HostMesh:
+    """A ('data', 'model') mesh of one device (tests / examples): the
+    reference's host mesh at one device.  ``model > 1`` raises."""
+    if model < 1:
+        raise ValueError(f"model={model}: a mesh axis needs at least one device")
+    if model > 1:
+        raise NotImplementedError(
+            f"make_host_mesh(model={model}): tensor and expert parallelism over a "
+            "'model' axis come with more than one card (ROADMAP A12d)")
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:  # the device tensors report
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return HostMesh(("data", "model"), (1, 1), dev)
+
+
+def dp_axes(mesh) -> tuple[str, ...]:
+    """The data-parallel axes of a mesh (everything but 'model')."""
+    return tuple(a for a in mesh.axis_names if a != "model")
+
+
+def axis_size(mesh, name: str) -> int:
+    if name not in mesh.axis_names:
+        return 1
+    return mesh.shape[name]

@@ -28,10 +28,9 @@ Quickstart::
     resp = t.result()                 # (1, k) SearchResult + payloads
     sched.snapshot()                  # p50/p99/QPS/hit-rate/shed-rate
 
-``RetrievalStep`` / ``make_retrieval_step`` load lazily here, as in the
-reference.  The reference's model steps ``make_prefill`` /
-``make_decode_step`` come with the LM side (ROADMAP queue A item 12)
-and raise until then.
+``RetrievalStep`` / ``make_retrieval_step`` and the model steps
+``make_prefill`` / ``make_decode_step`` load lazily here, as in the
+reference.
 """
 from .admission import ADMIT, DEGRADE, SHED, AdmissionController  # noqa: F401
 from .batcher import (  # noqa: F401
@@ -54,8 +53,7 @@ from .scheduler import (  # noqa: F401
     Ticket,
 )
 
-_LAZY = ("RetrievalStep", "make_retrieval_step")
-_LM_SIDE = ("make_prefill", "make_decode_step")
+_LAZY = ("RetrievalStep", "make_retrieval_step", "make_prefill", "make_decode_step")
 
 __all__ = [
     "ADMIT", "DEGRADE", "SHED", "AdmissionController",
@@ -72,8 +70,4 @@ def __getattr__(name: str):
         from . import serve_step
 
         return getattr(serve_step, name)
-    if name in _LM_SIDE:
-        raise NotImplementedError(
-            f"repro_torch.serve.{name} is not ported yet: the model steps "
-            "come with the LM side (ROADMAP queue A item 12)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -18,18 +18,26 @@ of a RetrievalStep: it buckets requests into a fixed palette of padded
 repeated queries on their SQ8 codes, and sheds or degrades load under
 backpressure.
 
-The reference's model steps (``make_prefill``, ``make_decode_step``)
-come with the LM side of the port (ROADMAP queue A item 12).
+The model steps ``make_prefill`` (fills the KV cache) and
+``make_decode_step`` (one token against it) return ``(fn, info)`` as the
+reference's do.  The port runs eagerly on one device, so ``fn`` is a
+plain function under ``torch.inference_mode()`` and ``info`` carries the
+shapes where the reference carries shardings; the decode step writes
+the cache in place, the counterpart of the reference's donated cache.
+Meshes with a 'model' axis past one device come with ROADMAP A12d.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..configs.base import InputShape, input_specs
 from ..index import IndexConfig, build_index
+from ..launch.mesh import make_host_mesh
+from ..models import model_module
 from .batcher import PAD_DISTANCE
 
-__all__ = ["RetrievalStep", "make_retrieval_step"]
+__all__ = ["RetrievalStep", "make_decode_step", "make_prefill", "make_retrieval_step"]
 
 
 class RetrievalStep:
@@ -195,3 +203,64 @@ def make_retrieval_step(keys, values, *, k: int = 8,
     step = RetrievalStep(keys, values, k=k, index_config=index_config,
                          device=device)
     return step, step.index
+
+
+def _shapes(tensors) -> object:
+    """The shapes of a tree of (meta) tensors: dicts, lists, modules."""
+    if isinstance(tensors, torch.nn.Module):
+        return {name: tuple(t.shape) for name, t in tensors.named_parameters()}
+    if isinstance(tensors, dict):
+        return {name: _shapes(t) for name, t in tensors.items()}
+    if isinstance(tensors, (list, tuple)):
+        return [_shapes(t) for t in tensors]
+    return tuple(tensors.shape)
+
+
+def _check_tokens(batch_in: dict, want: tuple, what: str) -> None:
+    got = tuple(batch_in["tokens"].shape)
+    if got != want:
+        raise ValueError(f"{what} was built for tokens {want}, got {got}")
+
+
+def _step_info(cfg, mod, b_specs, c_specs) -> dict:
+    aparams = mod.abstract_params(cfg)
+    return {"params": _shapes(aparams), "batch": _shapes(b_specs),
+            "cache": _shapes(c_specs), "abstract_params": aparams,
+            "cache_specs": c_specs, "batch_specs": b_specs}
+
+
+def make_prefill(cfg, mesh=None, *, batch: int, seq_len: int, max_seq: int | None = None):
+    """``fn(params, batch_in) -> (last logits (B, 1, Vp), caches)``: a
+    forward over the prompt that fills fresh KV caches of ``max_seq``
+    rows on the mesh's device (the card unless the mesh names the CPU)."""
+    mesh = make_host_mesh() if mesh is None else mesh
+    mod = model_module(cfg)
+    max_seq = max_seq or seq_len
+    c_specs = mod.cache_specs(cfg, batch, max_seq)
+    b_specs = input_specs(cfg, InputShape("prefill", seq_len, batch, "prefill"))
+
+    @torch.inference_mode()
+    def fn(params, batch_in):
+        _check_tokens(batch_in, (batch, seq_len), "make_prefill")
+        caches = mod.init_cache(cfg, batch, max_seq, device=mesh.device)
+        return mod.forward(params, batch_in["tokens"], cfg, caches=caches, position0=0,
+                           memory=batch_in.get("image_embeds"), logits_slice="last")
+
+    return fn, _step_info(cfg, mod, b_specs, c_specs)
+
+
+def make_decode_step(cfg, mesh=None, *, batch: int, max_seq: int):
+    """``fn(params, caches, batch_in) -> (logits (B, 1, Vp), caches)``: one
+    token per sequence at ``batch_in["position"]`` (an int or a 0-d
+    tensor), the caches written in place."""
+    mesh = make_host_mesh() if mesh is None else mesh
+    mod = model_module(cfg)
+    c_specs = mod.cache_specs(cfg, batch, max_seq)
+    b_specs = input_specs(cfg, InputShape("decode", max_seq, batch, "decode"))
+
+    @torch.inference_mode()
+    def fn(params, caches, batch_in):
+        _check_tokens(batch_in, (batch, 1), "make_decode_step")
+        return mod.decode_step(params, caches, batch_in, cfg)
+
+    return fn, _step_info(cfg, mod, b_specs, c_specs)

@@ -822,3 +822,42 @@ def test_sharded_flat_nccl_group_of_one_matches_emulated(cuda, tmp_path):
     np.testing.assert_array_equal(rg.distances, re_.distances)
     np.testing.assert_array_equal(cg.pairs, ce.pairs)
     np.testing.assert_array_equal(cg.distances, ce.distances)
+
+
+@pytest.mark.parametrize("B,Tc,k", [(64, 2048, 8), (5, 700, 8), (4, 16_384, 10)])
+def test_verify_at_d4096_matches_plain(cuda, B, Tc, k):
+    """The kNN-LM datastore's rows (d = 4096, an LM's hidden states): the
+    warp-a-row distance pass past d = 512, query groups of 4; ids exact,
+    d² to rtol 1e-5 (the difference form summed in another order)."""
+    data, q, cand = _verify_inputs(B, 16_384, 4096, Tc, 3, seed=Tc, device=cuda)
+    before = counts.LAUNCHES["verify_topk"]
+    gv, gi = ops.verify_topk(data, q, cand, k)
+    torch.cuda.synchronize()
+    assert counts.LAUNCHES["verify_topk"] == before + 1
+    wv, wi = ops.verify_topk(data, q, cand, k, force="plain")
+    assert torch.equal(gi, wi)
+    torch.testing.assert_close(gv, wv, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "deepseek_67b", "mistral_large_123b", "minitron_8b",
+                                  "qwen2_moe_a2_7b", "qwen3_moe_30b_a3b",
+                                  "llama32_vision_11b"])
+def test_lm_smoke_tokens_on_the_card_equal_the_cpu_port(cuda, arch):
+    """serve_batch at a smoke config in float32 (TF32 off), the same
+    parameters on both devices: greedy tokens identical, logits to 1e-4
+    of the largest (cuBLAS and the CPU sum in other orders)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models.transformer import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch).replace(dtype=torch.float32)
+    params = init_params(cfg, 0, device="cpu")
+    want = serve_batch(cfg, make_host_mesh(device="cpu"), batch=2, prompt_len=32, gen=8,
+                       params=params)
+    got = serve_batch(cfg, make_host_mesh(device=cuda), batch=2, prompt_len=32, gen=8,
+                      params=params.to(cuda))
+    np.testing.assert_array_equal(got["tokens"], want["tokens"])
+    scale = float(want["logits"].abs().max())
+    torch.testing.assert_close(got["logits"].cpu(), want["logits"], rtol=0, atol=1e-4 * scale)

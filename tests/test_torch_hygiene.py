@@ -68,7 +68,10 @@ def test_importing_the_port_loads_no_jax():
                                    "recover", "QualityAuditor",
                                    "QualityAuditor.for_index", "ShardedFlatIndex",
                                    "DistributedFlatIndex", "DistributedCP",
-                                   "make_data_mesh", "sharded-flat"])
+                                   "make_data_mesh", "sharded-flat", "init_params",
+                                   "init_cache", "make_host_mesh", "make_prefill",
+                                   "make_decode_step", "serve_batch",
+                                   "lm_params_from_numpy"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device works here")
@@ -87,13 +90,19 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
     )
     from repro_torch.core.cp_fused import cp_fused_search
     from repro_torch.index import FlatBackend, IndexConfig, PMTreeBackend, build_index
-    from repro_torch.launch import make_data_mesh
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.launch import make_data_mesh, make_host_mesh
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models.transformer import init_cache, init_params
     from repro_torch.obs import QualityAuditor
     from repro_torch.quant import train_codec
     from repro_torch.resilience import recover
+    from repro_torch.serve import make_decode_step, make_prefill
     from repro_torch.stream import StreamingIndex
 
     data = np.random.default_rng(0).normal(size=(64, 8)).astype(np.float32)
+    lm = get_smoke_config("yi-6b")
     call = {"build_index": lambda: build_index(data),
             "build_flat_index": lambda: build_flat_index(data),
             "FlatBackend": lambda: FlatBackend(data),
@@ -128,7 +137,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
             "DistributedCP": lambda: DistributedCP(data),
             "make_data_mesh": lambda: make_data_mesh(4),
             "sharded-flat": lambda: build_index(data, IndexConfig(
-                backend="sharded-flat", options={"shards": 2}))}[entry]
+                backend="sharded-flat", options={"shards": 2})),
+            "init_params": lambda: init_params(lm),
+            "init_cache": lambda: init_cache(lm, 1, 8),
+            "make_host_mesh": lambda: make_host_mesh(),
+            "make_prefill": lambda: make_prefill(lm, batch=1, seq_len=8),
+            "make_decode_step": lambda: make_decode_step(lm, batch=1, max_seq=8),
+            "serve_batch": lambda: serve_batch(lm, batch=1, prompt_len=8, gen=2),
+            "lm_params_from_numpy": lambda: lm_params_from_numpy(lm, {})}[entry]
 
     def durable_dir():  # a directory a CPU index wrote, recovered by default
         d = tmp_path / "durable"
