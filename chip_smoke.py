@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's flat ANN, quantized, closest-pair, streaming,
 PM-tree and sharded paths, its serving front end and its LM serving path
-on one NVIDIA GPU, and check them.
+(every model family) on one NVIDIA GPU, and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -237,7 +237,34 @@ Phases, each printing one JSON line:
            first at distance ≤ 1e-3 with its payload, unless another key
            equals it (counted as a tie row).  verify_topk at d = 4096 held
            to its plain version, its rows read equal to the distinct rows
-           of its query groups, its ms beside its bound.
+           of its query groups, its ms beside its bound and the library
+           form's (gather + sum + ``topk``, as the kernels line's verify).
+
+  lm_families  (after lm_knn, on the card it left) the hybrid, ssm and
+           encdec families at their published widths and depth in
+           bfloat16 on parameters drawn from ``--seed``, one model at a
+           time: recurrentgemma-9b (38 layers of (rec, rec, local), d =
+           4096, 16 / 1 heads, hd = 256, d_ff = 12288, vocab 256,000, rnn
+           width 4096, window 2048) and xlstm-125m (12 layers of (mlstm,
+           slstm), d = 768, 4 heads) on 4 prompts of 4,096 tokens,
+           whisper-base (6 + 6 layers, d = 512, 8 heads) on 1,500 seeded
+           frames and 4 prompts of 384 tokens; 32 greedy tokens each.
+           Each model: ``serve_batch``, then the same steps under CUDA
+           events (prefill ms, the median decode ms, tokens/s), peak
+           bytes, a decode profile (and recurrentgemma's prefill
+           profile), and the bounds (decode: the weights
+           but the embedding table and the caches a token needs at the
+           HBM rate; prefill: bf16 matmul FLOP at 989 TFLOP/s, float32
+           FLOP at 67, bytes).  Checks: (a) every logit finite, every
+           token in the padded vocabulary; (b) a prefill of all but the
+           last 64 prompt tokens, then those 64 teacher-forced one step
+           at a time: their logits against the full pass's (relative L2
+           ≤ 0.05, correlation ≥ 0.995; the head on those 64 rows of the
+           hidden states only) and every cache and recurrent state
+           against a prefill of all the prompt (relative L2 ≤ 0.05); (c)
+           the three smoke configs in float32 through ``serve_batch(gen=8)``
+           on the card and on the CPU port: tokens identical, logits
+           within 1e-4 of the largest.
 
 Then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -347,6 +374,32 @@ PEAK_BF16_PER_S = 989e12
 LM_CONSISTENCY_REL, LM_CONSISTENCY_CORR = 0.05, 0.995
 LM_LSH_BF16_TOL, LM_LSH_F32_TOL = 2.0 ** -7, 1e-4
 LM_SMOKE_TOL, LM_KNN_SELF_TOL = 1e-4, 1e-3
+# the hybrid, ssm and encdec families, each at its published widths and
+# depth in bfloat16 on seeded parameters: recurrentgemma-9b
+# (arXiv:2402.19427) and xlstm-125m (arXiv:2405.04517) on 4 prompts of
+# 4,096 tokens, whisper-base (arXiv:2212.04356) on 1,500 seeded frames and 4
+# decoder prompts of 384 tokens (416 of its 448-token text context); 32
+# greedy tokens each.  Check (b) prefills all but the last 64 prompt
+# tokens and teacher-forces those one step at a time, held to LM_CONSISTENCY_*;
+# (c) runs their smoke configs at LM_SMOKE_TOL.  The published widths:
+# (layers, encoder layers, d, heads, kv heads, head dim, d_ff, vocab,
+# rnn width, conv width, window).  The prefill is profiled where it keeps
+# the card busy, recurrentgemma's: xlstm's is launch-bound (64 chunks × 6
+# mLSTM layers), and tracing it cost more than the rest of its model.
+LM_FAMILIES = (("recurrentgemma-9b", 4096, True), ("xlstm-125m", 4096, False),
+               ("whisper-base", 384, False))
+LM_FAMILY_WIDTHS = {
+    "recurrentgemma-9b": (38, 0, 4096, 16, 1, 256, 12288, 256000, 4096, 4, 2048),
+    "xlstm-125m": (12, 0, 768, 4, 4, 192, 0, 50304, 0, 4, 0),
+    "whisper-base": (6, 6, 512, 8, 8, 64, 2048, 51865, 0, 4, 0),
+}
+LM_FAMILY_SMOKE = ("recurrentgemma_9b", "xlstm_125m", "whisper_base")
+LM_FAMILY_TAIL = 64
+# the LM profiles: a pause longer than any host stall inside an eager
+# step, and for a decode step the fuller of two traces (one recorded only
+# 118 of whisper's ≈ 1,000 kernels); a busy prefill's one trace shows a
+# lost run as busy time short of its wall
+LM_PROFILE_PAUSE_S, LM_PROFILE_TRACES = 0.25, 2
 # the span trees of one traced call of each path, (name, parent index):
 # the reference's trees (a CPU test holds them to repro's)
 EXPECTED_SPAN_TREES = {
@@ -432,7 +485,7 @@ def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def warm_trace(torch) -> None:
+def warm_trace(torch, pause: float = PAUSE_S) -> None:
     """Small kernels, then a pause: the first launches of a trace were
     seen to go unrecorded, so a trace starts with these and keeps what
     follows the pause."""
@@ -440,18 +493,19 @@ def warm_trace(torch) -> None:
     for _ in range(4):
         x += 1
     torch.cuda.synchronize()
-    time.sleep(PAUSE_S)
+    time.sleep(pause)
 
 
-def after_pause(prof) -> list:
+def after_pause(prof, pause: float = PAUSE_S) -> list:
     """The kernels and copies of a trace (no host events) in launch order,
-    from the first one after its last pause."""
+    from the first one after its last pause (a gap of 0.8 ``pause``: a
+    call whose host stalls that long inside needs a longer one)."""
     evts = sorted((e for e in prof.events()
                    if e.cpu_time_total == 0 and (e.self_device_time_total or 0) > 0),
                   key=lambda e: e.time_range.start)
     cut = 0
     for i in range(1, len(evts)):
-        if evts[i].time_range.start - evts[i - 1].time_range.end > 0.8 * PAUSE_S * 1e6:
+        if evts[i].time_range.start - evts[i - 1].time_range.end > 0.8 * pause * 1e6:
             cut = i
     return evts[cut:]
 
@@ -530,11 +584,14 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def profile_call(torch, fn, wall_ms: float, rows: int = 16) -> dict:
+def profile_call(torch, fn, wall_ms: float, rows: int = 16, pause: float = PAUSE_S,
+                 traces: int = 1) -> dict:
     """Device time by CUDA kernel of one ``fn()`` (after a warm-up call),
     by torch.profiler, and the share of the untraced wall time
     ``wall_ms`` in which the card ran no kernel (tracing itself slows the
-    host, so the traced window overstates it).  verify_topk answers
+    host, so the traced window overstates it).  With ``traces`` > 1 the
+    call is traced that many times and the trace that recorded the most
+    kernels is kept: a trace may miss a run of launches.  verify_topk answers
     through the topk kernel from C: the one or two topk launches right
     after a verify distance pass are verify's, listed as
     ``verify_topk/topk_kernel``, and ``verify_topk_ms`` sums verify's
@@ -543,14 +600,20 @@ def profile_call(torch, fn, wall_ms: float, rows: int = 16) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        warm_trace(torch)
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t0) * 1e3
+    best = None
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            warm_trace(torch, pause)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3
+        evts = after_pause(prof, pause)
+        if best is None or len(evts) > len(best[0]):
+            best = (evts, traced_ms)
+    kept, traced_ms = best
     by_name, verify_ms, after_verify = {}, 0.0, 0
-    for e in after_pause(prof):
+    for e in kept:
         name, ms = e.name, e.self_device_time_total / 1e3
         name = name.replace("void ", "").replace("(anonymous namespace)::", "")
         if "verify_" in name:
@@ -2466,7 +2529,8 @@ def lm_serve_phase(torch, dev, seed: int) -> dict:
     # where the time goes: one decode step (the last position again) and
     # one prefill, by CUDA kernel, beside their untraced times
     last = {"tokens": tok, "position": P + G - 1}
-    decode_profile = profile_call(torch, lambda: decode(params, caches, last), decode_med, rows=8)
+    decode_profile = profile_call(torch, lambda: decode(params, caches, last), decode_med, rows=8,
+                                  pause=LM_PROFILE_PAUSE_S, traces=LM_PROFILE_TRACES)
     del caches, lg, timed
     prefill_profile = profile_call(torch, lambda: prefill(params, {"tokens": prompt_t}),
                                    prefill_ms, rows=8)
@@ -2667,7 +2731,242 @@ def lm_knn_phase(torch, dev, lm: dict, seed: int) -> None:
                      "plain_ms": time_ms(torch, lambda: ref.verify_topk(impl.data, q_t, cand,
                                                                         LM_KNN_K),
                                          reps=3, warmup=1),
-                     "bound_ms": t_bound, "bound_by": by},
+                     "bound_ms": t_bound, "bound_by": by,
+                     # the library form of the kernels line's verify row
+                     "library_ms": time_ms(torch, lambda: torch.topk(
+                         ((impl.data[cand.to(torch.int64)] - q_t[:, None, :]) ** 2).sum(-1),
+                         LM_KNN_K, largest=False), reps=3, warmup=1)},
+          "seconds": time.perf_counter() - t_phase})
+
+
+def _cache_tensors(caches) -> list:
+    """(name, tensor) of every cache and state tensor: a decoder's list of
+    layer dicts, or the encoder-decoder's {"self": [...], "cross": [...]}."""
+    if isinstance(caches, dict):
+        return [(f"{part}{i}.{n}", t) for part, layers in caches.items()
+                for i, c in enumerate(layers) for n, t in c.items()]
+    return [(f"{i}.{n}", t) for i, c in enumerate(caches) for n, t in c.items()]
+
+
+def _family_bounds(torch, cfg, params, caches, B: int, P: int, max_seq: int) -> dict:
+    """The least time of a decode step and of the prefill, from this run's
+    shapes.  Decode reads every weight once (B rows of the embedding) and
+    the caches it needs: each recurrent state read and written, a local
+    layer's window of keys, all the rows of a global one and the cross
+    K/V.  Prefill: the bfloat16 matmul FLOP at the tensor-core peak, the
+    float32 FLOP (attention over the padded key chunks the port computes,
+    the mLSTM's chunk products, the float32 gate matrices) at the float32
+    peak, and the bytes of the weights and the caches."""
+    d, H, hd, Vp = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.padded_vocab()
+    elt = torch.finfo(cfg.dtype).bits // 8
+    param_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    weight_bytes = param_bytes - params.embed.numel() * elt + B * d * elt
+    cache_bytes, decode_cache = 0, 0
+    for name, t in _cache_tensors(caches):
+        size = t.numel() * t.element_size()
+        cache_bytes += size
+        kind = name.rsplit(".", 1)[-1]
+        if kind in ("k", "v"):
+            rows = min(cfg.window or max_seq, max_seq)
+            decode_cache += size * rows // t.shape[1]
+        elif kind in ("ck", "cv"):
+            decode_cache += size
+        else:
+            decode_cache += 2 * size
+
+    def pad(n):  # chunked attention computes whole 1,024-key chunks
+        return -(-n // 1024) * 1024
+
+    def mats(module, dtype):
+        return sum(p.numel() for n, p in module.named_parameters()
+                   if p.ndim >= 2 and p.dtype == dtype)
+
+    bf16_flop = 2 * B * d * Vp  # the head on the last position
+    f32_flop = 0
+    if cfg.family == "encdec":
+        M = cfg.n_audio_frames
+        cross_kv = sum(p["xattn"][w].numel() for p in params.decoder for w in ("wk", "wv"))
+        bf16_flop += 2 * B * M * (mats(params.encoder, cfg.dtype) + cross_kv)
+        bf16_flop += 2 * B * P * (mats(params.decoder, cfg.dtype) - cross_kv)
+        f32_flop += 4 * B * H * hd * (cfg.encoder_layers * M * pad(M)
+                                      + cfg.n_layers * P * (pad(max_seq) + pad(M)))
+    else:
+        bf16_flop += 2 * B * P * mats(params.blocks, cfg.dtype)
+        f32_flop += 2 * B * P * mats(params.blocks, torch.float32)
+        L = min(64, P)
+        dh = d // H
+        for kind in params.kinds:
+            if kind in ("attn", "local"):
+                f32_flop += 4 * B * H * P * pad(max_seq) * hd
+            elif kind == "mlstm":
+                f32_flop += B * H * (P // L) * (4 * L * dh * dh + 6 * L * L * dh)
+    prefill = {"bf16_matmul": bf16_flop / PEAK_BF16_PER_S * 1e3,
+               "f32": f32_flop / PEAK_F32_PER_S * 1e3,
+               "bytes": (param_bytes + cache_bytes) / PEAK_BYTES_PER_S * 1e3}
+    return {"decode_ms": (weight_bytes + decode_cache) / PEAK_BYTES_PER_S * 1e3,
+            "decode_weight_bytes": weight_bytes, "decode_cache_bytes": decode_cache,
+            "prefill_ms": max(prefill.values()), "prefill_parts_ms": prefill,
+            "prefill_bf16_flop": bf16_flop, "prefill_f32_flop": f32_flop,
+            "param_bytes": param_bytes, "cache_bytes": cache_bytes}
+
+
+def lm_family_model(torch, dev, arch: str, P: int, profile_prefill: bool, seed: int) -> dict:
+    """One model of ``lm_families`` at its published widths and depth:
+    ``serve_batch`` (check (a)), the same steps under CUDA events, a
+    decode profile (and a prefill one where asked), check (b) and the
+    bounds."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import model_module
+    from repro_torch.serve.serve_step import make_decode_step, make_prefill
+
+    t_model = time.perf_counter()
+    cfg = get_config(arch)
+    mod = model_module(cfg)
+    encdec = cfg.family == "encdec"
+    B, G, tail, Vp, d = LM_BATCH, LM_GEN, LM_FAMILY_TAIL, cfg.padded_vocab(), cfg.d_model
+    widths = (cfg.n_layers, cfg.encoder_layers, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+              cfg.d_ff, cfg.vocab_size, cfg.rnn_width, cfg.conv1d_width, cfg.window)
+    check(widths == LM_FAMILY_WIDTHS[arch] and cfg.dtype == torch.bfloat16,
+          f"lm_families: {cfg.name} is not {arch}'s published configuration: {widths}")
+    max_seq = P + G
+    mesh = make_host_mesh(device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = mod.init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    layout = sum(p.numel() for p in mod.abstract_params(cfg).parameters())
+    check(n_params == layout, f"lm_families: {cfg.name} has {n_params} parameters, "
+                              f"its layout {layout}")
+
+    # -- (a) serve_batch, then the same steps under CUDA events ----------------
+    out = serve_batch(cfg, mesh, batch=B, prompt_len=P, gen=G, seed=seed, params=params)
+    logits, tokens = out["logits"], out["tokens"]
+    check(tuple(logits.shape) == (B, G, Vp) and bool(torch.isfinite(logits).all()),
+          f"lm_families (a): {cfg.name} logits {tuple(logits.shape)} not all finite")
+    check(tokens.shape == (B, G) and int(tokens.min()) >= 0 and int(tokens.max()) < Vp,
+          f"lm_families (a): {cfg.name} tokens outside [0, {Vp})")
+    del logits
+    prefill, _ = make_prefill(cfg, mesh, batch=B, seq_len=P, max_seq=max_seq)
+    decode, _ = make_decode_step(cfg, mesh, batch=B, max_seq=max_seq)
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, P)).astype(np.int32)
+    prompt_t = torch.from_numpy(prompts).to(dev)
+    batch_in = {"tokens": prompt_t}
+    if encdec:  # seeded frames where serve_batch passes zeros
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        batch_in["audio_frames"] = torch.randn((B, cfg.n_audio_frames, d), generator=gen,
+                                               device=dev).to(cfg.dtype)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(G + 2)]
+    ev[0].record()
+    lg, caches = prefill(params, batch_in)
+    ev[1].record()
+    tok = torch.argmax(lg, dim=-1).to(torch.int32)
+    for i in range(G):  # each step: the argmax before it and the decode
+        lg, caches = decode(params, caches, {"tokens": tok, "position": P + i})
+        tok = torch.argmax(lg, dim=-1).to(torch.int32)
+        ev[i + 2].record()
+    torch.cuda.synchronize()
+    prefill_ms = ev[0].elapsed_time(ev[1])
+    decode_ms = [ev[i + 1].elapsed_time(ev[i + 2]) for i in range(G)]
+    decode_med = statistics.median(decode_ms)
+    peak_serve = torch.cuda.max_memory_allocated()
+    bounds = _family_bounds(torch, cfg, params, caches, B, P, max_seq)
+    last = {"tokens": tok, "position": P + G - 1}
+    decode_profile = profile_call(torch, lambda: decode(params, caches, last), decode_med,
+                                  rows=8, pause=LM_PROFILE_PAUSE_S, traces=LM_PROFILE_TRACES)
+    del caches, lg
+    prefill_profile = None
+    if profile_prefill:
+        prefill_profile = profile_call(torch, lambda: prefill(params, batch_in), prefill_ms,
+                                       rows=8, pause=LM_PROFILE_PAUSE_S)
+
+    # -- (b) prefill S − 64, teacher-force the last 64 against the full pass ----
+    with torch.inference_mode():
+        full_caches = mod.init_cache(cfg, B, P, device=dev)
+        if encdec:
+            full, _ = mod.forward(params, prompt_t, batch_in["audio_frames"], cfg,
+                                  caches=full_caches)
+            want = full[:, P - tail:]
+        else:  # the head on the last 64 rows only: all of them would be B·P·Vp floats
+            hidden, _ = mod.forward(params, prompt_t, cfg, caches=full_caches,
+                                    logits_slice="hidden")
+            want = (hidden[:, P - tail:] @ params.head).float()
+            del hidden
+        caches = mod.init_cache(cfg, B, P, device=dev)
+        head = prompt_t[:, :P - tail]
+        if encdec:
+            mod.forward(params, head, batch_in["audio_frames"], cfg, caches=caches,
+                        logits_slice="last")
+        else:
+            mod.forward(params, head, cfg, caches=caches, logits_slice="last")
+        rows = []
+        for j in range(P - tail, P):
+            lg, _ = mod.decode_step(params, caches, {"tokens": prompt_t[:, j:j + 1],
+                                                     "position": j}, cfg)
+            rows.append(lg[:, 0])
+        got = torch.stack(rows, dim=1)
+    rel_b, corr_b = _rel_err(torch, got, want), _corr(torch, got, want)
+    argmax_b = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    check(rel_b <= LM_CONSISTENCY_REL and corr_b >= LM_CONSISTENCY_CORR,
+          f"lm_families (b): {cfg.name} teacher-forced logits vs the full pass: relative "
+          f"error {rel_b}, corr {corr_b}")
+    state_err = {name: _rel_err(torch, t, w) for (name, t), (_, w)
+                 in zip(_cache_tensors(caches), _cache_tensors(full_caches))}
+    worst = max(state_err, key=state_err.get)
+    check(state_err[worst] <= LM_CONSISTENCY_REL,
+          f"lm_families (b): {cfg.name} state {worst} after teacher forcing differs from a "
+          f"prefill of all {P} tokens by {state_err[worst]}")
+    del caches, full_caches, got, want
+    line = {"arch": cfg.name, "family": cfg.family, "widths": list(widths),
+            "dtype": "bfloat16", "batch": B, "prompt_len": P, "gen": G, "max_seq": max_seq,
+            "params": n_params, "param_count": cfg.param_count(), "init_s": init_s,
+            "peak_bytes_serving": peak_serve, "peak_bytes": torch.cuda.max_memory_allocated(),
+            "serve_batch": {"prefill_s": out["prefill_s"],
+                            "decode_s_per_token": out["decode_s_per_token"]},
+            "prefill_ms": prefill_ms, "decode_ms_median": decode_med,
+            "decode_ms_min": min(decode_ms), "decode_ms_max": max(decode_ms),
+            "tokens_per_s": B / decode_med * 1e3, "bounds": bounds,
+            "check_b": {"rel_err": rel_b, "corr": corr_b, "argmax_agree": argmax_b,
+                        "state_rel_err_max": state_err[worst], "state_worst": worst,
+                        "tol_rel": LM_CONSISTENCY_REL, "tol_corr": LM_CONSISTENCY_CORR},
+            "first_request_tokens": tokens[0].tolist(), "decode_profile": decode_profile,
+            "prefill_profile": prefill_profile, "seconds": time.perf_counter() - t_model}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def lm_families_phase(torch, dev, seed: int) -> None:
+    """The hybrid, ssm and encdec families at their published widths and
+    depth, one model at a time, then check (c): their smoke configs in
+    float32 on the card and on the CPU port."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import model_module
+
+    t_phase = time.perf_counter()
+    models = [lm_family_model(torch, dev, arch, P, prof, seed) for arch, P, prof in LM_FAMILIES]
+    smoke = {}
+    mesh, cpu_mesh = make_host_mesh(device=dev), make_host_mesh(device="cpu")
+    for arch in LM_FAMILY_SMOKE:
+        scfg = get_smoke_config(arch).replace(dtype=torch.float32)
+        sp = model_module(scfg).init_params(scfg, seed, device="cpu")
+        kw = dict(batch=2, prompt_len=LM_SMOKE_PROMPT, gen=LM_SMOKE_GEN, seed=seed)
+        want = serve_batch(scfg, cpu_mesh, params=sp, **kw)
+        got = serve_batch(scfg, mesh, params=sp.to(dev), **kw)
+        err = float((got["logits"].cpu() - want["logits"]).abs().max())
+        scale = float(want["logits"].abs().max())
+        check(np.array_equal(got["tokens"], want["tokens"]),
+              f"lm_families (c): {arch} greedy tokens on the card differ from the CPU port's")
+        check(err <= LM_SMOKE_TOL * scale,
+              f"lm_families (c): {arch} logits differ by {err} > {LM_SMOKE_TOL * scale}")
+        smoke[arch] = {"max_abs_err": err, "max_abs": scale}
+    emit({"phase": "lm_families", "models": models, "check_c": smoke,
           "seconds": time.perf_counter() - t_phase})
 
 
@@ -3022,6 +3321,11 @@ def main(argv=None) -> int:
     lm = lm_serve_phase(torch, dev, args.seed)
     lm_knn_phase(torch, dev, lm, args.seed)
     del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the hybrid, ssm and encdec families at their published widths -------
+    lm_families_phase(torch, dev, args.seed)
 
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

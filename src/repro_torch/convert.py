@@ -34,12 +34,13 @@ arrays through :func:`bucket_families_from_arrays`, and SRS / R-LSH take
     ti = build_index(data, IndexConfig(backend="multiprobe",
                                        options={"families": fams}))
 
-A decoder LM's parameters come across whole.  The reference keeps them
-as a pytree of stacked ``unit`` leaves (a leading n_units dimension)
-plus the ``rest`` blocks; :func:`lm_params_from_numpy` unstacks them
-into the port's one module a layer, in the reference's layer order:
+An LM's parameters come across whole.  The reference keeps a decoder
+LM's as a pytree of stacked ``unit`` leaves (a leading n_units
+dimension) plus the ``rest`` blocks, and whisper's encoder and decoder
+layers stacked; :func:`lm_params_from_numpy` unstacks them into the
+port's one module a layer, in the reference's layer order:
 
-    tree = jax.tree.map(np.asarray, repro.models.transformer.init_params(cfg, key))
+    tree = jax.tree.map(np.asarray, repro.models.model_module(cfg).init_params(cfg, key))
     params = lm_params_from_numpy(cfg, tree, device="cpu")
 
 JAX's bfloat16 arrays arrive as ``ml_dtypes.bfloat16`` numpy arrays,
@@ -57,6 +58,7 @@ from .core.estimator import solve_parameters
 from .core.flat_index import FlatIndex
 from .core.hashing import BucketFamily, ProjectionFamily
 from .device import as_tensor, resolve_device
+from .models import whisper
 from .models.layers import Params
 from .models.transformer import DecoderLM, abstract_params, layer_plan
 from .quant.codec import PQCodec, SQ8Codec
@@ -136,12 +138,17 @@ def tensor_from_numpy(array, device: str | torch.device = "cuda") -> torch.Tenso
 
 
 def lm_params_from_numpy(cfg, tree: dict, device: str | torch.device = "cuda"):
-    """The port's :class:`~repro_torch.models.transformer.DecoderLM` from
-    the reference's parameter pytree as numpy arrays (``embed``, ``unit``
-    — a tuple of stacked block trees, one per position of the layer
-    plan's unit —, ``rest``, ``final_norm`` and ``lm_head`` unless the
-    embeddings are tied).  Shapes and dtypes are checked against the
-    port's own layout."""
+    """The port's LM from the reference's parameter pytree as numpy arrays.
+
+    A decoder LM (:class:`~repro_torch.models.transformer.DecoderLM`, every
+    family but encdec) comes from ``embed``, ``unit`` — a tuple of stacked
+    block trees, one per position of the layer plan's unit —, ``rest``,
+    ``final_norm`` and ``lm_head`` unless the embeddings are tied; the
+    encoder-decoder (:class:`~repro_torch.models.whisper.EncDecLM`) from
+    ``embed``, the stacked ``encoder`` and ``decoder`` trees, ``enc_norm``,
+    ``final_norm`` and ``lm_head``.  Stacked trees are unstacked into one
+    module a layer, in the reference's layer order.  Shapes and dtypes
+    are checked against the port's own layout."""
     dev = resolve_device(device)
 
     def module(node, take=None):
@@ -153,24 +160,40 @@ def lm_params_from_numpy(cfg, tree: dict, device: str | torch.device = "cuda"):
     def leaves(node):
         return [x for v in node.values() for x in leaves(v)] if isinstance(node, dict) else [node]
 
-    unit, n_units, rest = layer_plan(cfg)
-    stacked = {np.shape(x)[0] for block in tree["unit"] for x in leaves(block)}
-    if (len(tree["unit"]) != (len(unit) if n_units else 0) or len(tree["rest"]) != len(rest)
-            or stacked - {n_units}):
-        raise ValueError(f"a tree of {len(tree['unit'])} unit blocks stacked {sorted(stacked)} "
-                         f"and {len(tree['rest'])} rest blocks for the plan "
-                         f"{unit} × {n_units} + {rest}")
-    blocks = [module(tree["unit"][i], u) for u in range(n_units) for i in range(len(unit))]
-    blocks += [module(b) for b in tree["rest"]]
-    head = tree.get("lm_head")
-    params = DecoderLM(cfg, blocks, tensor_from_numpy(tree["embed"], dev),
-                       tensor_from_numpy(tree["final_norm"], dev),
-                       None if head is None else tensor_from_numpy(head, dev))
+    def tensor(name):
+        return tensor_from_numpy(tree[name], dev)
+
+    if cfg.family == "encdec":
+        stacked = {name: {np.shape(x)[0] for x in leaves(tree[name])}
+                   for name in ("encoder", "decoder")}
+        want_n = {"encoder": cfg.encoder_layers, "decoder": cfg.n_layers}
+        if any(stacked[name] != {want_n[name]} for name in stacked):
+            raise ValueError(f"encoder and decoder trees stacked {stacked} for "
+                             f"{cfg.encoder_layers} + {cfg.n_layers} layers")
+        params = whisper.EncDecLM(
+            cfg, [module(tree["encoder"], u) for u in range(cfg.encoder_layers)],
+            [module(tree["decoder"], u) for u in range(cfg.n_layers)], tensor("embed"),
+            tensor("enc_norm"), tensor("final_norm"), tensor("lm_head"))
+        want = whisper.abstract_params(cfg)
+    else:
+        unit, n_units, rest = layer_plan(cfg)
+        stacked = {np.shape(x)[0] for block in tree["unit"] for x in leaves(block)}
+        if (len(tree["unit"]) != (len(unit) if n_units else 0)
+                or len(tree["rest"]) != len(rest) or stacked - {n_units}):
+            raise ValueError(f"a tree of {len(tree['unit'])} unit blocks stacked "
+                             f"{sorted(stacked)} and {len(tree['rest'])} rest blocks for "
+                             f"the plan {unit} × {n_units} + {rest}")
+        blocks = [module(tree["unit"][i], u) for u in range(n_units) for i in range(len(unit))]
+        blocks += [module(b) for b in tree["rest"]]
+        head = tree.get("lm_head")
+        params = DecoderLM(cfg, blocks, tensor("embed"), tensor("final_norm"),
+                           None if head is None else tensor_from_numpy(head, dev))
+        want = abstract_params(cfg)
 
     def layout(m):
         return {n: (tuple(p.shape), p.dtype) for n, p in m.named_parameters()}
 
-    want, got = layout(abstract_params(cfg)), layout(params)
+    want, got = layout(want), layout(params)
     if want != got:
         diff = sorted(set(want.items()) ^ set(got.items()))[:6]
         raise ValueError(f"the tree does not fit {cfg.name}'s layout: {diff}")

@@ -27,8 +27,11 @@ def serve_batch(cfg, mesh=None, *, batch: int, prompt_len: int, gen: int,
     """Prefill + greedy decode ``gen`` tokens for a batch of requests.
 
     The prompts are the reference's (``numpy.random.default_rng(seed)``);
-    ``params`` (a ``DecoderLM`` on the mesh's device) are served as
-    given, else drawn by ``init_params(cfg, seed)``.  Returns the
+    ``params`` (a ``DecoderLM``, or an ``EncDecLM`` for the
+    encoder-decoder, on the mesh's device) are served as given, else
+    drawn by ``init_params(cfg, seed)``.  The encoder-decoder's frames are
+    zeros (B, n_audio_frames, d), passed on at each step as the
+    reference passes them.  Returns the
     reference's keys — ``tokens`` (batch, gen) numpy, ``prefill_s``,
     ``decode_s_per_token`` — and ``logits`` (batch, gen, Vp), the float32
     logits each token was taken from, on the device.
@@ -50,6 +53,9 @@ def serve_batch(cfg, mesh=None, *, batch: int, prompt_len: int, gen: int,
     if cfg.family == "vlm":
         req["image_embeds"] = torch.zeros((batch, cfg.n_image_tokens, cfg.d_model),
                                           dtype=cfg.dtype, device=dev)
+    if cfg.family == "encdec":
+        req["audio_frames"] = torch.zeros((batch, cfg.n_audio_frames, cfg.d_model),
+                                          dtype=cfg.dtype, device=dev)
 
     def sync():
         if dev.type == "cuda":
@@ -69,6 +75,8 @@ def serve_batch(cfg, mesh=None, *, batch: int, prompt_len: int, gen: int,
         step = {"tokens": tok, "position": prompt_len + i}
         if cfg.family == "vlm":
             step["image_embeds"] = req["image_embeds"]
+        if cfg.family == "encdec":
+            step["audio_frames"] = req["audio_frames"]
         logits, caches = decode(params, caches, step)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
     sync()

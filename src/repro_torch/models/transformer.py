@@ -1,5 +1,6 @@
-"""Unified decoder LM for the dense / moe / vlm families, the port of
-``repro.models.transformer``.
+"""Unified decoder LM for the dense / moe / vlm / hybrid / ssm families,
+the port of ``repro.models.transformer`` (whisper's encoder-decoder is
+in ``whisper.py``).
 
 The reference scans a repeating UNIT of blocks over stacked layer
 parameters (plus an unrolled remainder) to keep its HLO small; PyTorch
@@ -8,12 +9,11 @@ reference's layer order (unit instance 0's blocks, unit 1's, …, then
 the remainder), and loops over them.  ``convert.lm_params_from_numpy``
 unstacks the reference's parameters into that order.
 
-Block kinds ``attn``, ``local``, ``moe`` and ``cross`` are here; the
-recurrent kinds (``rec``, ``mlstm``, ``slstm``) of the hybrid and ssm
-families come with ROADMAP A12b and raise until then.
-
-Caches are a list with one dict per layer, {"k", "v"[, "pk"]} of shape
-(B, Smax, KV, ·), written in place by ``forward``.
+Caches are a list with one dict per layer, written in place by
+``forward``: {"k", "v"[, "pk"]} of shape (B, Smax, KV, ·) for the
+attention kinds (a ``local`` layer's without ``pk``), the RG-LRU's
+{"h", "conv"} for ``rec``, {"C", "n"} for ``mlstm`` and {"c", "n"} for
+``slstm`` — where the reference's stacked cache tree holds them.
 """
 from __future__ import annotations
 
@@ -23,8 +23,14 @@ from torch import nn
 from ..device import resolve_device
 from . import layers as L
 from .moe import init_moe, moe_apply
-
-PENDING_KINDS = ("rec", "mlstm", "slstm")
+from .recurrent import init_rglru_block, rglru_block_apply, rglru_state_specs
+from .xlstm import (
+    init_mlstm_block,
+    init_slstm_block,
+    mlstm_block_apply,
+    slstm_block_apply,
+    xlstm_state_specs,
+)
 
 # ---------------------------------------------------------------------------
 # layer plan
@@ -51,16 +57,9 @@ def layer_plan(cfg) -> tuple[tuple[str, ...], int, tuple[str, ...]]:
 
 
 def layer_kinds(cfg) -> tuple[str, ...]:
-    """Every layer's block kind in order; raises for kinds not ported yet."""
+    """Every layer's block kind, in the reference's layer order."""
     unit, n_units, rest = layer_plan(cfg)
-    kinds = unit * n_units + rest
-    pending = sorted(set(kinds) & set(PENDING_KINDS))
-    if pending:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) needs block kinds {pending}, which the port "
-            "does not have yet: the hybrid, ssm and encdec families come with "
-            "ROADMAP A12b")
-    return kinds
+    return unit * n_units + rest
 
 
 # ---------------------------------------------------------------------------
@@ -85,6 +84,13 @@ def _init_block(kind: str, gen, cfg, device: torch.device) -> L.Params:
         return L.Params(ln1=ln(), attn=L.init_attention(gen, cfg, device=device),
                         lnx=ln(), xattn=L.init_cross_attention(gen, cfg, device=device),
                         ln2=ln(), mlp=mlp())
+    if kind == "rec":
+        return L.Params(ln1=ln(), rec=init_rglru_block(gen, cfg, device=device),
+                        ln2=ln(), mlp=mlp())
+    if kind == "mlstm":
+        return L.Params(ln1=ln(), mlstm=init_mlstm_block(gen, cfg, device=device))
+    if kind == "slstm":
+        return L.Params(ln1=ln(), slstm=init_slstm_block(gen, cfg, device=device))
     raise ValueError(f"unknown block kind {kind}")
 
 
@@ -139,6 +145,10 @@ def abstract_params(cfg) -> DecoderLM:
 
 
 def _block_cache_specs(kind: str, cfg, batch: int, max_seq: int, device) -> dict:
+    if kind == "rec":
+        return rglru_state_specs(cfg, batch, device)
+    if kind in ("mlstm", "slstm"):
+        return xlstm_state_specs(cfg, batch, kind, device)
     KV, hd = cfg.n_kv_heads, cfg.head_dim
 
     def empty(width):
@@ -151,7 +161,7 @@ def _block_cache_specs(kind: str, cfg, batch: int, max_seq: int, device) -> dict
 
 
 def cache_specs(cfg, batch: int, max_seq: int) -> list[dict]:
-    """The decode cache on the meta device: one {"k", "v"[, "pk"]} a layer."""
+    """The decode cache on the meta device: one dict a layer."""
     return [_block_cache_specs(kind, cfg, batch, max_seq, "meta") for kind in layer_kinds(cfg)]
 
 
@@ -170,6 +180,16 @@ def init_cache(cfg, batch: int, max_seq: int, *,
 def _block_apply(kind: str, p, x, cfg, *, positions, cache, cache_index, memory):
     """Pre-norm residual block. Returns (x, cache)."""
     eps = cfg.norm_eps
+    if kind == "rec":
+        a, nc = rglru_block_apply(p["rec"], L.rms_norm(x, p["ln1"], eps), cfg, state=cache)
+        x = x + a
+        return x + L.swiglu_apply(p["mlp"], L.rms_norm(x, p["ln2"], eps)), nc
+    if kind == "mlstm":
+        a, nc = mlstm_block_apply(p["mlstm"], L.rms_norm(x, p["ln1"], eps), cfg, state=cache)
+        return x + a, nc
+    if kind == "slstm":
+        a, nc = slstm_block_apply(p["slstm"], L.rms_norm(x, p["ln1"], eps), cfg, state=cache)
+        return x + a, nc
     window = cfg.window if kind == "local" else 0
     use_lsh = cfg.lsh_attention and kind != "local"
     a, nc = L.attention_apply(

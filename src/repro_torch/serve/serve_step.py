@@ -231,8 +231,10 @@ def _step_info(cfg, mod, b_specs, c_specs) -> dict:
 
 def make_prefill(cfg, mesh=None, *, batch: int, seq_len: int, max_seq: int | None = None):
     """``fn(params, batch_in) -> (last logits (B, 1, Vp), caches)``: a
-    forward over the prompt that fills fresh KV caches of ``max_seq``
-    rows on the mesh's device (the card unless the mesh names the CPU)."""
+    forward over the prompt that fills fresh caches of ``max_seq`` rows
+    (recurrent states for the recurrent blocks) on the mesh's device (the
+    card unless the mesh names the CPU).  The encoder-decoder takes
+    ``batch_in["audio_frames"]`` and also fills each layer's cross K/V."""
     mesh = make_host_mesh() if mesh is None else mesh
     mod = model_module(cfg)
     max_seq = max_seq or seq_len
@@ -243,6 +245,9 @@ def make_prefill(cfg, mesh=None, *, batch: int, seq_len: int, max_seq: int | Non
     def fn(params, batch_in):
         _check_tokens(batch_in, (batch, seq_len), "make_prefill")
         caches = mod.init_cache(cfg, batch, max_seq, device=mesh.device)
+        if cfg.family == "encdec":
+            return mod.forward(params, batch_in["tokens"], batch_in["audio_frames"], cfg,
+                               caches=caches, logits_slice="last")
         return mod.forward(params, batch_in["tokens"], cfg, caches=caches, position0=0,
                            memory=batch_in.get("image_embeds"), logits_slice="last")
 
@@ -252,7 +257,8 @@ def make_prefill(cfg, mesh=None, *, batch: int, seq_len: int, max_seq: int | Non
 def make_decode_step(cfg, mesh=None, *, batch: int, max_seq: int):
     """``fn(params, caches, batch_in) -> (logits (B, 1, Vp), caches)``: one
     token per sequence at ``batch_in["position"]`` (an int or a 0-d
-    tensor), the caches written in place."""
+    tensor), the caches written in place.  The encoder-decoder's step
+    reads its cached cross K/V and needs no frames."""
     mesh = make_host_mesh() if mesh is None else mesh
     mod = model_module(cfg)
     c_specs = mod.cache_specs(cfg, batch, max_seq)

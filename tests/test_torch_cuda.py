@@ -841,7 +841,8 @@ def test_verify_at_d4096_matches_plain(cuda, B, Tc, k):
 
 @pytest.mark.parametrize("arch", ["yi_6b", "deepseek_67b", "mistral_large_123b", "minitron_8b",
                                   "qwen2_moe_a2_7b", "qwen3_moe_30b_a3b",
-                                  "llama32_vision_11b"])
+                                  "llama32_vision_11b", "recurrentgemma_9b", "xlstm_125m",
+                                  "whisper_base"])
 def test_lm_smoke_tokens_on_the_card_equal_the_cpu_port(cuda, arch):
     """serve_batch at a smoke config in float32 (TF32 off), the same
     parameters on both devices: greedy tokens identical, logits to 1e-4
@@ -849,11 +850,11 @@ def test_lm_smoke_tokens_on_the_card_equal_the_cpu_port(cuda, arch):
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch import make_host_mesh
     from repro_torch.launch.serve import serve_batch
-    from repro_torch.models.transformer import init_params
+    from repro_torch.models import model_module
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_smoke_config(arch).replace(dtype=torch.float32)
-    params = init_params(cfg, 0, device="cpu")
+    params = model_module(cfg).init_params(cfg, 0, device="cpu")
     want = serve_batch(cfg, make_host_mesh(device="cpu"), batch=2, prompt_len=32, gen=8,
                        params=params)
     got = serve_batch(cfg, make_host_mesh(device=cuda), batch=2, prompt_len=32, gen=8,

@@ -71,7 +71,10 @@ def test_importing_the_port_loads_no_jax():
                                    "make_data_mesh", "sharded-flat", "init_params",
                                    "init_cache", "make_host_mesh", "make_prefill",
                                    "make_decode_step", "serve_batch",
-                                   "lm_params_from_numpy"])
+                                   "lm_params_from_numpy", "init_params[hybrid]",
+                                   "init_cache[ssm]", "whisper.init_params",
+                                   "whisper.init_cache", "make_prefill[encdec]",
+                                   "serve_batch[hybrid]", "serve_batch[encdec]"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device works here")
@@ -94,6 +97,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
     from repro_torch.convert import lm_params_from_numpy
     from repro_torch.launch import make_data_mesh, make_host_mesh
     from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import whisper
     from repro_torch.models.transformer import init_cache, init_params
     from repro_torch.obs import QualityAuditor
     from repro_torch.quant import train_codec
@@ -103,6 +107,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
 
     data = np.random.default_rng(0).normal(size=(64, 8)).astype(np.float32)
     lm = get_smoke_config("yi-6b")
+    hybrid, ssm, encdec = (get_smoke_config(a) for a in ("recurrentgemma-9b", "xlstm-125m",
+                                                          "whisper-base"))
     call = {"build_index": lambda: build_index(data),
             "build_flat_index": lambda: build_flat_index(data),
             "FlatBackend": lambda: FlatBackend(data),
@@ -144,7 +150,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
             "make_prefill": lambda: make_prefill(lm, batch=1, seq_len=8),
             "make_decode_step": lambda: make_decode_step(lm, batch=1, max_seq=8),
             "serve_batch": lambda: serve_batch(lm, batch=1, prompt_len=8, gen=2),
-            "lm_params_from_numpy": lambda: lm_params_from_numpy(lm, {})}[entry]
+            "lm_params_from_numpy": lambda: lm_params_from_numpy(lm, {}),
+            "init_params[hybrid]": lambda: init_params(hybrid),
+            "init_cache[ssm]": lambda: init_cache(ssm, 1, 8),
+            "whisper.init_params": lambda: whisper.init_params(encdec),
+            "whisper.init_cache": lambda: whisper.init_cache(encdec, 1, 8),
+            "make_prefill[encdec]": lambda: make_prefill(encdec, batch=1, seq_len=8),
+            "serve_batch[hybrid]": lambda: serve_batch(hybrid, batch=1, prompt_len=8, gen=2),
+            "serve_batch[encdec]": lambda: serve_batch(encdec, batch=1, prompt_len=8,
+                                                       gen=2)}[entry]
 
     def durable_dir():  # a directory a CPU index wrote, recovered by default
         d = tmp_path / "durable"

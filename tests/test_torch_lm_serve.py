@@ -7,7 +7,9 @@ The reference's ``serve_batch`` draws its parameters from
 carried across by ``convert.lm_params_from_numpy``, and its prompts are
 the reference's (``numpy.random.default_rng(seed)``).  At float32 the
 greedy tokens must be identical — 8 of them per request, decoded past
-the smoke configs' T = 32, so PM-LSH selection runs at every step.
+the smoke configs' T = 32, so PM-LSH selection runs at every step where
+a config has it, and the recurrent states and whisper's cross K/V carry
+through every step.
 """
 import jax
 import jax.numpy as jnp
@@ -18,20 +20,22 @@ import torch
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.launch.mesh import make_host_mesh as jax_host_mesh
 from repro.launch.serve import serve_batch as jax_serve_batch
+from repro.models import model_module as jax_model_module
 from repro.models import transformer as jt
 from repro.serve.serve_step import make_decode_step as jax_make_decode_step
 from repro.serve.serve_step import make_prefill as jax_make_prefill
 from repro_torch import serve as tserve
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import get_smoke_config
 from repro_torch.convert import lm_params_from_numpy, tensor_from_numpy
 from repro_torch.launch import make_host_mesh
 from repro_torch.launch import serve as tlaunch
-from repro_torch.models import transformer as tt
+from repro_torch.models import whisper as tw
 from repro_torch.serve.serve_step import make_decode_step, make_prefill
 
+# every family: dense, moe, vlm, hybrid, ssm and encdec
 LM_ARCHS = ["yi_6b", "deepseek_67b", "mistral_large_123b", "minitron_8b",
-            "qwen2_moe_a2_7b", "qwen3_moe_30b_a3b", "llama32_vision_11b"]
-PENDING = ["recurrentgemma_9b", "xlstm_125m", "whisper_base"]
+            "qwen2_moe_a2_7b", "qwen3_moe_30b_a3b", "llama32_vision_11b",
+            "recurrentgemma_9b", "xlstm_125m", "whisper_base"]
 
 
 def _mesh():
@@ -44,7 +48,7 @@ def _f32(arch):
 
 
 def _carried(jc, tc, seed=0):
-    jp = jt.init_params(jc, jax.random.PRNGKey(seed))
+    jp = jax_model_module(jc).init_params(jc, jax.random.PRNGKey(seed))
     return lm_params_from_numpy(tc, jax.tree.map(np.asarray, jp), device="cpu")
 
 
@@ -61,7 +65,8 @@ def test_serve_batch_greedy_tokens_match_the_reference(arch):
     assert got["prefill_s"] > 0 and got["decode_s_per_token"] > 0
 
 
-@pytest.mark.parametrize("arch", ["yi_6b", "qwen2_moe_a2_7b", "llama32_vision_11b"])
+@pytest.mark.parametrize("arch", ["yi_6b", "qwen2_moe_a2_7b", "llama32_vision_11b",
+                                  "recurrentgemma_9b", "xlstm_125m", "whisper_base"])
 def test_model_steps_match_the_reference_steps(arch):
     """The steps themselves, driven by hand as serve_batch drives them:
     logits of the prefill and of each decode step to 1e-4 of the largest
@@ -77,18 +82,35 @@ def test_model_steps_match_the_reference_steps(arch):
     assert set(tinfo) == set(jinfo) == set(dinfo)
     assert {n: tuple(s.shape) for n, s in jinfo["batch_specs"].items()} == tinfo["batch"]
     assert dinfo["batch"]["tokens"] == (B, 1) and dinfo["batch"]["position"] == ()
-    assert len(tinfo["cache"]) == tc.n_layers
-    assert tinfo["cache"][0]["k"] == (B, Smax, tc.n_kv_heads, tc.head_dim)
+    kv = (B, Smax, tc.n_kv_heads, tc.head_dim)
+    if tc.family == "encdec":
+        assert len(tinfo["cache"]["self"]) == len(tinfo["cache"]["cross"]) == tc.n_layers
+        assert tinfo["cache"]["self"][0]["k"] == kv
+        assert tinfo["cache"]["cross"][0]["ck"] == (B, tc.n_audio_frames) + kv[2:]
+        assert tinfo["batch"]["audio_frames"] == (B, tc.n_audio_frames, tc.d_model)
+        assert isinstance(tinfo["abstract_params"], tw.EncDecLM)
+    else:
+        assert len(tinfo["cache"]) == tc.n_layers
+        kinds = tinfo["abstract_params"].kinds
+        for kind, cache in zip(kinds, tinfo["cache"]):  # the reference's spec a kind
+            want = {"rec": {"h": (B, tc.rnn_width or tc.d_model),
+                            "conv": (B, tc.conv1d_width - 1, tc.rnn_width or tc.d_model)},
+                    "mlstm": {"C": (B, tc.n_heads) + (tc.d_model // tc.n_heads,) * 2,
+                              "n": (B, tc.n_heads, tc.d_model // tc.n_heads)},
+                    "slstm": {"c": (B, tc.d_model), "n": (B, tc.d_model)}}.get(kind)
+            assert cache == want if want else cache["k"] == kv
     assert tinfo["params"]["embed"] == (tc.padded_vocab(), tc.d_model)
 
-    jp = jt.init_params(jc, jax.random.PRNGKey(0))
+    jp = jax_model_module(jc).init_params(jc, jax.random.PRNGKey(0))
     tp = lm_params_from_numpy(tc, jax.tree.map(np.asarray, jp), device="cpu")
     rng = np.random.default_rng(3)
     tok = rng.integers(0, jc.vocab_size, (B, S)).astype(np.int32)
     jb, tb = {"tokens": jnp.asarray(tok)}, {"tokens": torch.from_numpy(tok)}
-    if jc.family == "vlm":
-        mem = (rng.normal(size=(B, jc.n_image_tokens, jc.d_model)) * 0.1).astype(np.float32)
-        jb["image_embeds"], tb["image_embeds"] = jnp.asarray(mem), torch.from_numpy(mem)
+    if jc.family in ("vlm", "encdec"):
+        name, M = (("image_embeds", jc.n_image_tokens) if jc.family == "vlm"
+                   else ("audio_frames", jc.n_audio_frames))
+        mem = (rng.normal(size=(B, M, jc.d_model)) * 0.1).astype(np.float32)
+        jb[name], tb[name] = jnp.asarray(mem), torch.from_numpy(mem)
     want, jcache = jpre(jp, jb)
     got, tcache = tpre(tp, tb)
     for step in range(4):
@@ -131,24 +153,20 @@ def test_main_prints_the_same_tokens_for_a_seed(capsys):
     assert tokens[0] == f"first request tokens: {want}"
 
 
-@pytest.mark.parametrize("arch", PENDING)
-def test_hybrid_ssm_and_encdec_raise_naming_a12b(arch):
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "xlstm_125m", "whisper_base"])
+def test_main_serves_the_recurrent_and_encdec_families(arch, capsys):
+    """The CLI over the smoke configs of the families the reference's
+    ``serve_batch`` serves beside the decoders: the tokens it prints are
+    ``serve_batch``'s for the seed, each in the padded vocabulary (the
+    reference's argmax runs over all of it)."""
+    tlaunch.main(["--arch", arch, "--smoke", "--batch", "2", "--prompt-len", "16",
+                  "--gen", "3", "--device", "cpu"])
+    out = capsys.readouterr().out
     cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="A12b"):
-        tlaunch.serve_batch(cfg, _mesh(), batch=1, prompt_len=8, gen=2)
-    with pytest.raises(NotImplementedError, match="A12b"):
-        make_prefill(cfg, _mesh(), batch=1, seq_len=8)
-    with pytest.raises(NotImplementedError, match="A12b"):
-        tlaunch.main(["--arch", arch, "--smoke", "--device", "cpu"])
-
-
-@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "xlstm_125m"])
-def test_recurrent_blocks_raise_naming_a12b(arch):
-    cfg = get_config(arch)
-    for fn in (lambda: tt.init_params(cfg, device="cpu"), lambda: tt.abstract_params(cfg),
-               lambda: tt.cache_specs(cfg, 1, 8)):
-        with pytest.raises(NotImplementedError, match="A12b"):
-            fn()
+    assert f"{cfg.name}: prefill" in out and "(batch 2, cpu)" in out
+    want = tlaunch.serve_batch(cfg, _mesh(), batch=2, prompt_len=16, gen=3, seed=0)
+    assert f"first request tokens: {want['tokens'][0].tolist()}" in out
+    assert want["tokens"].min() >= 0 and want["tokens"].max() < cfg.padded_vocab()
 
 
 def test_host_mesh_is_one_device_and_model_parallel_raises_naming_a12d():

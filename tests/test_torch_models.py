@@ -11,8 +11,9 @@ Tolerances (float32 unless said):
   difference between the frameworks' float32 ``pow`` in ``freq`` grows
   to ≈ 2.5e-4 rad of angle at position 4096;
 * logits agree to 1e-4 relative to the largest logit, and every layer's
-  cache (k, v, pk) to 1e-5 relative to its largest entry, through 2–4
-  layers of 1e-7 roundings;
+  cache (k, v, pk; h, conv; C, n; c, n; whisper's self and cross K/V)
+  to 1e-5 relative to its largest entry, through 2–5 layers of 1e-7
+  roundings;
 * the one bfloat16 case (the smoke configs' own dtype): relative L2
   error ≤ 0.03 and max |Δ| ≤ 0.05·max|logit| — the two frameworks round
   bfloat16 at other places (XLA's CPU fusions against torch's per-op
@@ -20,6 +21,7 @@ Tolerances (float32 unless said):
 * the selected LSH ids and the MoE routing are identical, ties included
   (both break ties toward the lowest index).
 """
+import collections
 import dataclasses
 
 import jax
@@ -32,6 +34,7 @@ from repro.configs import base as jcb
 from repro.models import flash_attention as jflash
 from repro.models import layers as jL
 from repro.models import lsh_attention as jlsh
+from repro.models import model_module as jax_model_module
 from repro.models import moe as jmoe
 from repro.models import transformer as jt
 from repro_torch.configs import base as tcb
@@ -44,9 +47,10 @@ from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as tt
 
 ARCHS = jcb.list_archs()
-# the dense, moe and vlm families: the archs this slice serves
+# every family the port serves: dense, moe, vlm, hybrid, ssm and encdec
 LM_ARCHS = ["yi_6b", "deepseek_67b", "mistral_large_123b", "minitron_8b",
-            "qwen2_moe_a2_7b", "qwen3_moe_30b_a3b", "llama32_vision_11b"]
+            "qwen2_moe_a2_7b", "qwen3_moe_30b_a3b", "llama32_vision_11b",
+            "recurrentgemma_9b", "xlstm_125m", "whisper_base"]
 CPU = torch.device("cpu")
 
 
@@ -82,18 +86,34 @@ def _params(arch, dtype="f32"):
     """(jax cfg, port cfg, jax params, port params) of a smoke config."""
     if (arch, dtype) not in _PARAMS:
         jc, tc = _configs(arch, dtype)
-        jp = jt.init_params(jc, jax.random.PRNGKey(0))
+        jp = jax_model_module(jc).init_params(jc, jax.random.PRNGKey(0))
         _PARAMS[arch, dtype] = (jc, tc, jp, lm_params_from_numpy(tc, _tree(jp), device="cpu"))
     return _PARAMS[arch, dtype]
 
 
 def _layer_caches(cfg, caches) -> list[dict]:
-    """The reference's cache tree (stacked unit leaves + rest) as one dict
-    a layer, in layer order."""
+    """The reference's cache tree (stacked unit leaves + rest; whisper's
+    stacked self and cross K/V) as one dict a layer, in layer order."""
+    if cfg.family == "encdec":
+        return [{n: np.asarray(v[i]) for part in ("self", "cross")
+                 for n, v in caches[part].items()} for i in range(cfg.n_layers)]
     unit, n_units, rest = jt.layer_plan(cfg)
     out = [{k: np.asarray(v[u]) for k, v in caches["unit"][i].items()}
            for u in range(n_units) for i in range(len(unit))]
     return out + [{k: np.asarray(v) for k, v in c.items()} for c in caches["rest"]]
+
+
+def _port_layers(caches) -> list[dict]:
+    """The port's caches as one dict a layer (whisper's self and cross
+    entries of a layer merged)."""
+    if isinstance(caches, dict):
+        return [{**s, **c} for s, c in zip(caches["self"], caches["cross"])]
+    return caches
+
+
+def _zero_cache(cfg, B, Smax):
+    specs = jax_model_module(cfg).cache_specs(cfg, B, Smax)
+    return jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype), specs)
 
 
 # ---------------------------------------------------------------------------
@@ -512,9 +532,26 @@ def test_lsh_selection_and_output_match_jax(name):
 
 
 def _memory(cfg, B, rng):
-    if cfg.family != "vlm":
+    """The vlm's image embeddings or the encdec's audio frames, else None."""
+    if cfg.family == "vlm":
+        M = cfg.n_image_tokens
+    elif cfg.family == "encdec":
+        M = cfg.n_audio_frames
+    else:
         return None
-    return (rng.normal(size=(B, cfg.n_image_tokens, cfg.d_model)) * 0.1).astype(np.float32)
+    return (rng.normal(size=(B, M, cfg.d_model)) * 0.1).astype(np.float32)
+
+
+def _jax_forward(jc, jp, tok, mem, **kw):
+    if jc.family == "encdec":
+        return jax_model_module(jc).forward(jp, tok, mem, jc, **kw)
+    return jt.forward(jp, tok, jc, memory=mem, **kw)
+
+
+def _port_forward(tc, tp, tok, mem, **kw):
+    if tc.family == "encdec":
+        return model_module(tc).forward(tp, tok, mem, tc, **kw)
+    return tt.forward(tp, tok, tc, memory=mem, **kw)
 
 
 def _logits_close(got, want, tol=1e-4):
@@ -525,30 +562,71 @@ def _logits_close(got, want, tol=1e-4):
 @pytest.mark.parametrize("arch", LM_ARCHS)
 def test_param_layout_and_count_match_jax(arch):
     jc, tc, jp, tp = _params(arch)
+    mod = model_module(tc)
     leaves = jax.tree.leaves(jp)
     assert sum(p.numel() for p in tp.parameters()) == sum(x.size for x in leaves)
-    own = tt.init_params(tc, 0, device="cpu")
+    own = mod.init_params(tc, 0, device="cpu")
     assert [(n, p.shape, p.dtype) for n, p in own.named_parameters()] == [
-        (n, p.shape, p.dtype) for n, p in tt.abstract_params(tc).named_parameters()]
-    assert all(p.device.type == "meta" for p in tt.abstract_params(tc).parameters())
-    # cache layout: the reference's spec, one dict a layer
-    want = _layer_caches(jc, jt.init_cache(jc, 2, 24))
-    got = tt.cache_specs(tc, 2, 24)
-    assert [{n: tuple(t.shape) for n, t in c.items()} for c in got] == [
-        {n: tuple(t.shape) for n, t in c.items()} for c in want]
+        (n, p.shape, p.dtype) for n, p in mod.abstract_params(tc).named_parameters()]
+    assert all(p.device.type == "meta" for p in mod.abstract_params(tc).parameters())
+    # cache layout: the reference's spec, one dict a layer, in its dtypes
+    want = _layer_caches(jc, _zero_cache(jc, 2, 24))
+    got = _port_layers(mod.cache_specs(tc, 2, 24))
+    assert [{n: (tuple(t.shape), str(t.dtype).split(".")[-1]) for n, t in c.items()}
+            for c in got] == [{n: (tuple(t.shape), str(t.dtype)) for n, t in c.items()}
+                              for c in want]
 
 
-@pytest.mark.parametrize("arch", LM_ARCHS)
-@pytest.mark.parametrize("logits_slice", ["all", "last", "hidden"])
+def _shape_counts(tree, stacked_keys) -> collections.Counter:
+    """(shape, dtype) → how many tensors of it a reference tree holds, a
+    stacked leaf (under one of ``stacked_keys``) counting once a layer."""
+    out = collections.Counter()
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        shape, n = tuple(leaf.shape), 1
+        if getattr(path[0], "key", None) in stacked_keys:
+            n, shape = shape[0], shape[1:]
+        out[shape, str(leaf.dtype)] += n
+    return out
+
+
+def _port_counts(tensors) -> collections.Counter:
+    return collections.Counter((tuple(t.shape), str(t.dtype).split(".")[-1]) for t in tensors)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_full_config_layout_and_cache_match_the_reference(arch):
+    """At the published widths and depth, on the meta device: the same
+    tensors as the reference's abstract parameters and cache specs, the
+    same count as ``param_count`` plus the norms (and LSH projections)
+    it leaves out, and every layer's kind in the reference's order."""
+    jc, tc = jcb.get_config(arch), tcb.get_config(arch)
+    jmod, tmod = jax_model_module(jc), model_module(tc)
+    assert tmod.__name__.rsplit(".", 1)[-1] == jmod.__name__.rsplit(".", 1)[-1]
+    aparams = tmod.abstract_params(tc)
+    stacked = ("unit", "encoder", "decoder")
+    assert _port_counts(aparams.parameters()) == _shape_counts(jmod.abstract_params(jc), stacked)
+    if tc.family != "encdec":
+        unit, n_units, rest = jt.layer_plan(jc)
+        assert tt.layer_kinds(tc) == unit * n_units + rest == tuple(aparams.kinds)
+    cache = tmod.cache_specs(tc, 1, 8)
+    tensors = [t for c in _port_layers(cache) for t in c.values()]
+    assert all(t.device.type == "meta" for t in tensors)
+    assert _port_counts(tensors) == _shape_counts(jmod.cache_specs(jc, 1, 8), stacked + ("self",
+                                                                                        "cross"))
+
+
+@pytest.mark.parametrize("arch,logits_slice", [
+    (arch, s) for arch in LM_ARCHS for s in ("all", "last", "hidden")
+    if not (arch == "whisper_base" and s == "hidden")])  # whisper's has no "hidden"
 def test_forward_matches_jax(arch, logits_slice):
     jc, tc, jp, tp = _params(arch)
     rng = np.random.default_rng(11)
     tok = rng.integers(0, jc.vocab_size, (2, 16)).astype(np.int32)
     mem = _memory(jc, 2, rng)
-    want, _ = jt.forward(jp, jnp.asarray(tok), jc, logits_slice=logits_slice,
-                         memory=None if mem is None else jnp.asarray(mem))
-    got, caches = tt.forward(tp, _t(tok), tc, logits_slice=logits_slice,
-                             memory=None if mem is None else _t(mem))
+    want, _ = _jax_forward(jc, jp, jnp.asarray(tok), None if mem is None else jnp.asarray(mem),
+                           logits_slice=logits_slice)
+    got, caches = _port_forward(tc, tp, _t(tok), None if mem is None else _t(mem),
+                                logits_slice=logits_slice)
     assert caches is None and got.dtype == torch.float32
     assert got.shape == want.shape
     _logits_close(got, want)
@@ -557,7 +635,8 @@ def test_forward_matches_jax(arch, logits_slice):
 @pytest.mark.parametrize("arch", LM_ARCHS)
 def test_prefill_and_decode_match_jax(arch):
     """Prefill 32 tokens into a 40-row cache, then 4 decode steps: past
-    the smoke configs' T = 32, so PM-LSH selects from kv_len 33–36."""
+    the smoke configs' T = 32, so PM-LSH selects from kv_len 33–36.  Every
+    layer's cache or state is held after the prefill and after each step."""
     jc, tc, jp, tp = _params(arch)
     rng = np.random.default_rng(12)
     B, S, Smax = 2, 32, 40
@@ -565,24 +644,35 @@ def test_prefill_and_decode_match_jax(arch):
     mem = _memory(jc, B, rng)
     jb = {"tokens": jnp.asarray(tok)}
     tb = {"tokens": _t(tok)}
-    if mem is not None:
-        jb["image_embeds"], tb["image_embeds"] = jnp.asarray(mem), _t(mem)
-    want, jcaches = jt.prefill(jp, jb, jc, max_seq=Smax)
-    got, tcaches = tt.prefill(tp, tb, tc, max_seq=Smax)
+    if jc.family == "encdec":
+        jmod, tmod = jax_model_module(jc), model_module(tc)
+        want, jcaches = jmod.forward(jp, jb["tokens"], jnp.asarray(mem), jc,
+                                     caches=_zero_cache(jc, B, Smax), logits_slice="last")
+        got, tcaches = tmod.forward(tp, tb["tokens"], _t(mem), tc,
+                                    caches=tmod.init_cache(tc, B, Smax, device="cpu"),
+                                    logits_slice="last")
+    else:
+        jmod, tmod = jt, tt
+        if mem is not None:
+            jb["image_embeds"], tb["image_embeds"] = jnp.asarray(mem), _t(mem)
+        want, jcaches = jt.prefill(jp, jb, jc, max_seq=Smax)
+        got, tcaches = tt.prefill(tp, tb, tc, max_seq=Smax)
     _logits_close(got, want)
-    for step in range(4):
-        for layer, (g, w) in enumerate(zip(tcaches, _layer_caches(jc, jcaches))):
+    for step in range(5):
+        for layer, (g, w) in enumerate(zip(_port_layers(tcaches), _layer_caches(jc, jcaches))):
             assert set(g) == set(w)
             for n in w:
                 np.testing.assert_allclose(_np(g[n]), w[n], rtol=0,
                                            atol=1e-5 * float(np.abs(w[n]).max()),
                                            err_msg=f"step {step} layer {layer} {n}")
+        if step == 4:
+            break
         nxt = np.asarray(jnp.argmax(want, axis=-1)).astype(np.int32)
         assert np.array_equal(torch.argmax(got, dim=-1).numpy(), nxt)
         jb = {**jb, "tokens": jnp.asarray(nxt), "position": jnp.int32(S + step)}
         tb = {**tb, "tokens": _t(nxt), "position": S + step}
-        want, jcaches = jt.decode_step(jp, jcaches, jb, jc)
-        got, tcaches = tt.decode_step(tp, tcaches, tb, tc)
+        want, jcaches = jmod.decode_step(jp, jcaches, jb, jc)
+        got, tcaches = tmod.decode_step(tp, tcaches, tb, tc)
         _logits_close(got, want)
 
 
@@ -609,13 +699,14 @@ def test_decode_consistency_with_prefill(arch):
     B, S = 1, 8
     tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32))
     mem = None
-    if cfg.family == "vlm":
-        mem = torch.ones((B, cfg.n_image_tokens, cfg.d_model), dtype=cfg.dtype) * 0.01
-    full, _ = mod.forward(params, tok, cfg, memory=mem)
+    if cfg.family in ("vlm", "encdec"):
+        M = cfg.n_image_tokens if cfg.family == "vlm" else cfg.n_audio_frames
+        mem = torch.ones((B, M, cfg.d_model), dtype=cfg.dtype) * 0.01
+    full, _ = _port_forward(cfg, params, tok, mem)
     caches = mod.init_cache(cfg, B, S, device="cpu")
-    _, caches = mod.forward(params, tok[:, : S - 1], cfg, caches=caches, memory=mem)
+    _, caches = _port_forward(cfg, params, tok[:, : S - 1], mem, caches=caches)
     step = {"tokens": tok[:, S - 1:], "position": torch.tensor(S - 1, dtype=torch.int32)}
-    if mem is not None:
+    if cfg.family == "vlm":
         step["image_embeds"] = mem
     dec, _ = mod.decode_step(params, caches, step, cfg)
     corr = np.corrcoef(full[:, -1].numpy().ravel(), dec[:, -1].numpy().ravel())[0, 1]

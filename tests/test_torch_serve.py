@@ -1417,19 +1417,27 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry):
 
 def test_exports_match_the_reference_and_lm_steps_name_their_slice():
     """Every export of the reference, the model steps included (ported
-    with the LM's serving side); a family still to port is refused by
-    the steps naming its slice of ROADMAP A12."""
+    with the LM's serving side); the encoder-decoder's steps build too,
+    with the reference's info keys and its frames among the batch
+    inputs."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch import make_host_mesh
 
     assert sorted(tserve.__all__) == sorted(jserve.__all__)
     assert tserve.make_retrieval_step is tserve_step.make_retrieval_step
     mesh = make_host_mesh(device="cpu")
+    cfg = get_smoke_config("whisper_base")
     for name in ("make_prefill", "make_decode_step"):
         step = getattr(tserve, name)
         assert step is getattr(tserve_step, name)
-        with pytest.raises(NotImplementedError, match="ROADMAP A12b"):
-            step(get_smoke_config("whisper_base"), mesh, batch=1, max_seq=8,
-                 **({"seq_len": 8} if name == "make_prefill" else {}))
+        fn, info = step(cfg, mesh, batch=1, max_seq=8,
+                        **({"seq_len": 8} if name == "make_prefill" else {}))
+        assert callable(fn)
+        assert set(info) == {"params", "batch", "cache", "abstract_params", "cache_specs",
+                             "batch_specs"}
+        assert info["cache"]["cross"][0]["ck"] == (1, cfg.n_audio_frames, cfg.n_kv_heads,
+                                                   cfg.head_dim)
+        if name == "make_prefill":
+            assert info["batch"]["audio_frames"] == (1, cfg.n_audio_frames, cfg.d_model)
     with pytest.raises(AttributeError):
         tserve.no_such_name  # noqa: B018
