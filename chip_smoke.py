@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's flat ANN, quantized, closest-pair, streaming,
-PM-tree and sharded paths, its serving front end and its LM serving path
-(every model family) on one NVIDIA GPU, and check them.
+PM-tree and sharded paths, its serving front end, its LM serving path
+(every model family) and its LM training path on one NVIDIA GPU, and
+check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -265,6 +266,28 @@ Phases, each printing one JSON line:
            the three smoke configs in float32 through ``serve_batch(gen=8)``
            on the card and on the CPU port: tokens identical, logits
            within 1e-4 of the largest.
+  lm_train (after lm_families) the training path.  (a) yi-6b at its
+           published widths and depth, bfloat16 parameters and float32
+           AdamW moments from ``--seed``, B = 1 × 4,096 tokens (train_4k's
+           sequence), remat="unit", 4 steps through ``TrainLoop.run``:
+           losses and gradient norms (all finite), step ms (CUDA events,
+           the median of steps 2–4), tokens/s, peak bytes, a profiled
+           step (busy ms, idle share, ms by kernel) and the bound
+           (bfloat16 matmul FLOP at the tensor-core peak plus flash
+           attention's float32 FLOP over the causal pairs at the float32
+           peak, against the parameters' and moments' bytes), beside
+           what remat's recompute and the masked chunks the port
+           computes add to it.  (b)
+           ``FlashAttention``'s dq / dk / dv at yi's attention shape (1,
+           4,096, 32 / 4 heads, 128, causal, chunk 1,024) against
+           float64 autograd through plain softmax attention: relative L2
+           ≤ 1e-5 in float32, the bfloat16 case printed.  (c) the ten
+           smoke configs in float32: 4 AdamW steps (lr 3e-3, no warm-up)
+           on the card and on the CPU port from the same parameters,
+           losses within 1e-5 relative, the last below the first.  (d) a
+           smoke ``TrainLoop`` checkpointing every 2 steps under
+           ``build/``, stopped at 4 and resumed to 6: its losses equal an
+           unbroken run's.
 
 Then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -400,6 +423,17 @@ LM_FAMILY_TAIL = 64
 # 118 of whisper's ≈ 1,000 kernels); a busy prefill's one trace shows a
 # lost run as busy time short of its wall
 LM_PROFILE_PAUSE_S, LM_PROFILE_TRACES = 0.25, 2
+# the training path: yi-6b at its published widths and depth in bfloat16
+# with float32 AdamW moments, B = 1 × S = 4,096 (train_4k's sequence; its
+# global batch of 256 is a cluster's), TrainLoop's remat="unit", 4 steps
+# through TrainLoop.run, no cut.  (b) flash attention's backward at yi's attention shape
+# against float64 autograd through plain softmax attention, relative L2;
+# (c) the ten smoke configs in float32, 4 AdamW steps on the card against
+# the CPU port from the same parameters (losses relative); (d) a smoke
+# TrainLoop checkpointing every 2 steps, stopped at 4, resumed to 6.
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 1, 4096, 4
+LM_TRAIN_FLASH_TOL, LM_TRAIN_SMOKE_TOL = 1e-5, 1e-5
+LM_TRAIN_SMOKE_STEPS, LM_TRAIN_RESUME_STEPS, LM_TRAIN_RESUME_EVERY = 4, (4, 6), 2
 # the span trees of one traced call of each path, (name, parent index):
 # the reference's trees (a CPU test holds them to repro's)
 EXPECTED_SPAN_TREES = {
@@ -2970,6 +3004,199 @@ def lm_families_phase(torch, dev, seed: int) -> None:
           "seconds": time.perf_counter() - t_phase})
 
 
+def _train_bounds(cfg, params, opt, B: int, S: int) -> dict:
+    """The least time of one training step, from this run's shapes.
+    ``step_ms`` is the step's own: the bfloat16 matmuls (the layers' and
+    the head's, forward and the backward's two products) at the
+    tensor-core peak, plus flash attention's float32 products over the
+    (query, key) pairs the causal mask keeps (QKᵀ and PV forward; QKᵀ,
+    dV, dP, dQ, dK backward) at the float32 peak, or the bytes of the
+    parameters and both moments, each read and written once, at the
+    memory rate, the larger.  ``remat_ms`` is what remat="unit"'s
+    recompute adds (a forward pass of the matmuls, the loss's slabs
+    included, and of the kept pairs' two products); ``port_ms`` the work
+    the port does: that too, and the masked pairs' nine products, since
+    it computes every key chunk."""
+    from repro_torch.models.transformer import layer_kinds
+
+    d, H, hd, Vp = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.padded_vocab()
+    mats = sum(p.numel() for n, p in params.blocks.named_parameters()
+               if p.ndim == 2 and not n.endswith("lsh_a")) + d * Vp
+    pass_flop = 2 * B * S * mats  # one pass of the bf16 matmuls
+    pos = np.arange(S)
+    kept = sum(int(np.minimum(pos + 1, (cfg.window if kind == "local" else 0) or S).sum())
+               for kind in layer_kinds(cfg))  # causal (query, key) pairs, all layers
+    pair_flop = 2 * B * H * hd  # one product's FLOP a pair
+    masked = cfg.n_layers * S * S - kept
+    flop = {"step": (3 * pass_flop, 7 * kept * pair_flop),
+            "remat": (pass_flop, 2 * kept * pair_flop),
+            "masked": (0, 9 * masked * pair_flop)}
+    ms = {k: {"bf16_matmul": bf / PEAK_BF16_PER_S * 1e3,
+              "f32_attention": f32 / PEAK_F32_PER_S * 1e3} for k, (bf, f32) in flop.items()}
+    param_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    moment_bytes = sum(t.numel() * t.element_size() for part in ("mu", "nu")
+                       for t in opt[part].values())
+    state_bytes = 2 * (param_bytes + moment_bytes)
+    ops_ms, bytes_ms = sum(ms["step"].values()), state_bytes / PEAK_BYTES_PER_S * 1e3
+    remat_ms = sum(ms["remat"].values())
+    return {"step_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "parts_ms": {**ms["step"], "bytes": bytes_ms}, "remat_ms": remat_ms,
+            "remat_parts_ms": ms["remat"],
+            "port_ms": max(ops_ms + remat_ms + sum(ms["masked"].values()), bytes_ms),
+            "masked_f32_attention_ms": ms["masked"]["f32_attention"],
+            "bf16_flop": flop["step"][0], "f32_attention_flop": flop["step"][1],
+            "remat_flop": list(flop["remat"]), "masked_f32_flop": flop["masked"][1],
+            "causal_pairs": kept, "state_bytes_moved": state_bytes,
+            "param_bytes": param_bytes, "moment_bytes": moment_bytes}
+
+
+def _plain_attention(torch, q, k, v):
+    """Causal softmax attention, GQA by repeating K/V over each group."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    kk, vv = k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kk) * hd**-0.5
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vv)
+
+
+def lm_train_phase(torch, dev, seed: int) -> None:
+    """The training path: (a) yi-6b at its published widths and depth
+    through ``TrainLoop.run`` (losses, gradient norms, step ms, tokens/s,
+    peak bytes, a profiled step, the bounds); (b) flash attention's
+    backward at yi's attention shape against float64 autograd; (c) the
+    ten smoke configs' AdamW steps on the card against the CPU port; (d)
+    a checkpointed smoke run stopped and resumed against an unbroken
+    one."""
+    import shutil
+
+    from repro_torch.configs import get_config, get_smoke_config, list_archs
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.models import model_module
+    from repro_torch.models.flash_attention import FlashAttention
+    from repro_torch.train import AdamWConfig, adamw_update, init_opt_state, loss_and_grads
+    from repro_torch.train.train_step import batch_to_device, train_step
+
+    t_phase = time.perf_counter()
+    mesh = make_host_mesh(device=dev)
+
+    # -- (a) yi-6b at its published widths, 4 steps through TrainLoop ----------
+    cfg = get_config(LM_ARCH)
+    B, S = LM_TRAIN_BATCH, LM_TRAIN_SEQ
+    H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    check((cfg.n_layers, d, H, KV, hd, cfg.d_ff, cfg.vocab_size) == (32, 4096, 32, 4, 128, 11008,
+                                                                      64000)
+          and cfg.dtype == torch.bfloat16, f"lm_train: {cfg.name} is not yi-6b's configuration")
+    torch.cuda.reset_peak_memory_stats()
+    loop = TrainLoop(cfg, mesh, batch=B, seq_len=S, seed=seed)
+    t0 = time.perf_counter()
+    out = loop.run(LM_TRAIN_STEPS, log_every=0)
+    run_s = time.perf_counter() - t0
+    losses, norms, step_ms = out["losses"], out["grad_norms"], out["step_ms"]
+    check(len(losses) == LM_TRAIN_STEPS and np.isfinite(losses + norms).all(),
+          f"lm_train (a): losses {losses}, gradient norms {norms} not all finite")
+    peak = torch.cuda.max_memory_allocated()
+    params, opt = out["params"], out["opt"]
+    del out
+    n_params = sum(p.numel() for p in params.parameters())
+    step_med = statistics.median(step_ms[1:])
+    bounds = _train_bounds(cfg, params, opt, B, S)
+    batch = batch_to_device(loop.data.batch_at(LM_TRAIN_STEPS), dev)
+
+    def one_step():  # the loop's step without its host reads
+        _, grads = loss_and_grads(params, batch, cfg=cfg)
+        adamw_update(loop.opt_cfg, params, grads, opt)
+
+    profile = profile_call(torch, one_step, step_med, rows=8, pause=LM_PROFILE_PAUSE_S)
+    del loop, params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (b) flash attention's backward at yi's attention shape ---------------
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, dout = (torch.randn((1, S, H, hd), generator=gen, device=dev) for _ in range(2))
+    k, v = (torch.randn((1, S, KV, hd), generator=gen, device=dev) for _ in range(2))
+    flash = {}
+    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        ins = [t.detach().to(dt).requires_grad_() for t in (q, k, v)]
+        FlashAttention.apply(*ins, True, 0, 1024).backward(dout.to(dt))
+        ref = [t.detach().to(dt).double().requires_grad_() for t in (q, k, v)]
+        _plain_attention(torch, *ref).backward(dout.to(dt).double())
+        flash[name] = {g: _rel_err(torch, a.grad.double(), b.grad)
+                       for g, a, b in zip(("dq", "dk", "dv"), ins, ref)}
+        del ins, ref
+        torch.cuda.empty_cache()
+    worst = max(flash["float32"].values())
+    check(worst <= LM_TRAIN_FLASH_TOL,
+          f"lm_train (b): float32 flash gradients {flash['float32']} against float64 > "
+          f"{LM_TRAIN_FLASH_TOL}")
+    del q, k, v, dout
+
+    # -- (c) the ten smoke configs: AdamW steps on the card against the CPU ---
+    ocfg = AdamWConfig(lr=3e-3, warmup_steps=0)
+    smoke = {}
+    for arch in list_archs():
+        scfg = get_smoke_config(arch).replace(dtype=torch.float32)
+        mod = model_module(scfg)
+        batch = SyntheticTokens(scfg.vocab_size, 2, 32, seed=seed).batch_at(0)
+        rng = np.random.default_rng(seed)
+        for name, rows in (("image_embeds", scfg.n_image_tokens),
+                           ("audio_frames", scfg.n_audio_frames)):
+            if name == {"vlm": "image_embeds", "encdec": "audio_frames"}.get(scfg.family):
+                batch[name] = (rng.normal(size=(2, rows, scfg.d_model)) * 0.1).astype(np.float32)
+        runs = {}
+        for where in ("cpu", dev):
+            params = mod.init_params(scfg, seed, device="cpu").to(where)
+            opt, b = init_opt_state(params), batch_to_device(batch, torch.device(where))
+            runs[str(where)] = []
+            for _ in range(LM_TRAIN_SMOKE_STEPS):
+                params, opt, metrics = train_step(params, opt, b, cfg=scfg, opt_cfg=ocfg)
+                runs[str(where)].append(float(metrics["loss"]))
+        want, got = runs["cpu"], runs[str(dev)]
+        err = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+        check(np.isfinite(got).all() and err <= LM_TRAIN_SMOKE_TOL and got[-1] < got[0],
+              f"lm_train (c): {arch} losses on the card {got}, on the CPU {want}")
+        smoke[arch] = {"losses": got, "max_rel_err": err}
+
+    # -- (d) checkpoint every 2 steps, stop at 4, resume to 6 ------------------
+    scfg = get_smoke_config(LM_ARCH)
+    root = os.path.join(ROOT, "build", "lm_train_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    kw = dict(batch=2, seq_len=32, seed=seed)
+    stop, end = LM_TRAIN_RESUME_STEPS
+    try:
+        whole = TrainLoop(scfg, mesh, **kw).run(end, log_every=0)["losses"]
+        first = TrainLoop(scfg, mesh, ckpt_dir=root, ckpt_every=LM_TRAIN_RESUME_EVERY,
+                          **kw).run(stop, log_every=0)["losses"]
+        again = TrainLoop(scfg, mesh, ckpt_dir=root, ckpt_every=LM_TRAIN_RESUME_EVERY, **kw)
+        rest = again.run(end, log_every=0)["losses"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(again.restarts == 1 and first + rest == whole,
+          f"lm_train (d): resumed losses {first} + {rest} (restarts {again.restarts}) are not "
+          f"the unbroken run's {whole}")
+
+    emit({"phase": "lm_train", "arch": cfg.name, "layers": cfg.n_layers, "d_model": d,
+          "heads": [H, KV], "head_dim": hd, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+          "dtype": "bfloat16", "moments": "float32", "batch": B, "seq_len": S,
+          "remat": "unit", "steps": LM_TRAIN_STEPS, "reduced": {}, "params": n_params,
+          "losses": losses, "grad_norms": norms, "step_ms": step_ms,
+          "step_ms_median_2_4": step_med, "tokens_per_s": B * S / step_med * 1e3,
+          "run_s": run_s, "peak_bytes": peak, "peak_gib": peak / 2**30,
+          "card_bytes": torch.cuda.get_device_properties(dev).total_memory,
+          "bounds": bounds, "step_ms_over_bound": step_med / bounds["step_ms"],
+          "step_ms_over_port_work": step_med / bounds["port_ms"],
+          "tokens_per_s_bound": B * S / bounds["step_ms"] * 1e3, "profile": profile,
+          "check_b": {"flash_rel_l2": flash, "tol": LM_TRAIN_FLASH_TOL},
+          "check_c": {"archs": smoke, "tol": LM_TRAIN_SMOKE_TOL},
+          "check_d": {"whole": whole, "first": first, "resumed": rest},
+          "seconds": time.perf_counter() - t_phase})
+
+
 def index_phases(torch, dev, seed: int) -> None:
     """Every phase of the index side, from the Deep1M twin's data to the
     durable stream, on kernels already built."""
@@ -3326,6 +3553,11 @@ def main(argv=None) -> int:
 
     # -- the hybrid, ssm and encdec families at their published widths -------
     lm_families_phase(torch, dev, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- yi-6b trained at its published widths, then the training checks ------
+    lm_train_phase(torch, dev, args.seed)
 
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

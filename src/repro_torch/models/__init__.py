@@ -1,6 +1,6 @@
 """The LMs and their building blocks, the port of ``repro.models``:
 ``layers`` (norms, RoPE, chunked attention, GQA and cross attention,
-MLPs), ``flash_attention`` (its forward), ``lsh_attention`` (PM-LSH
+MLPs), ``flash_attention`` (its forward and backward), ``lsh_attention`` (PM-LSH
 decode attention), ``moe``, ``scan`` (the linear-recurrence scan),
 ``recurrent`` (RG-LRU), ``xlstm`` (mLSTM, sLSTM), ``transformer`` (the
 dense, moe, vlm, hybrid and ssm families) and ``whisper`` (the

@@ -19,9 +19,16 @@ donated decode buffers), with the reference's clamped write offset.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 # ---------------------------------------------------------------------------
 # parameter containers and draws
@@ -30,8 +37,10 @@ from torch import nn
 
 class Params(nn.Module):
     """A module whose tensors are addressed by name, ``p["wq"]``, like the
-    reference's parameter dicts.  Tensors are frozen: the port serves,
-    and training (with gradients) comes later."""
+    reference's parameter dicts.  Tensors are created frozen, as serving
+    wants them; ``requires_grad_()`` (``nn.Module``'s switch, on a block
+    or a whole model) makes them trainable, as ``train.train_step``
+    does."""
 
     def __init__(self, **tensors):
         super().__init__()
@@ -49,6 +58,34 @@ class Params(nn.Module):
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
+
+
+REMAT_MODES = ("unit", "dots", "none")
+
+# matmuls without batch dimensions (x @ W): what the reference's
+# dots_with_no_batch_dims_saveable policy keeps; the attention and
+# expert einsums run as bmm and are recomputed, as there
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(fn, *args, remat: str = "unit"):
+    """``fn(*args)``, its activations recomputed in the backward as the
+    reference's ``jax.checkpoint`` recomputes them: ``"unit"`` saves
+    nothing (``nothing_saveable``), ``"dots"`` keeps the outputs of the
+    matmuls without batch dimensions, ``"none"`` calls ``fn`` plainly.
+    Where no gradient is recorded every mode calls ``fn`` plainly."""
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat={remat!r}: one of {REMAT_MODES}")
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _save_dots))
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 def normal(gen: torch.Generator | None, shape, device: torch.device) -> torch.Tensor:
@@ -150,9 +187,15 @@ def chunked_attention(
             mask = mask & (qpos[:, None] >= kpos[None, :])
         if window:
             mask = mask & (qpos[:, None] - kpos[None, :] < window)
-        s.masked_fill_(~mask[None, :, None, None, :], -1e30)
+        # in place only where no gradient is recorded (amax saves s for
+        # its backward); the same arithmetic out of place where one is
+        fill = ~mask[None, :, None, None, :]
+        s = s.masked_fill(fill, -1e30) if s.requires_grad else s.masked_fill_(fill, -1e30)
         m_new = torch.maximum(m, s.amax(dim=-1))
-        p = s.sub_(m_new[..., None]).exp_()
+        if s.requires_grad:
+            p = torch.exp(s - m_new[..., None])
+        else:
+            p = s.sub_(m_new[..., None]).exp_()
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bqkgc,bckd->bqkgd", p, vb)
@@ -242,7 +285,7 @@ def attention_apply(
         out = lsh_decode_attention(q, cache["k"], cache["v"], cache["pk"], p["lsh_a"],
                                    kv_len=kv_len, topk=cfg.lsh_topk)
     elif cache is None and k_all.shape[1] % min(1024, k_all.shape[1]) == 0:
-        # the reference's TRAIN route (its flash custom VJP); forward only here
+        # the TRAIN route: flash attention with the reference's custom VJP
         from .flash_attention import flash_attention
 
         out = flash_attention(q, k_all, v_all, causal, window)

@@ -55,9 +55,10 @@ def moe_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
 
     xt = x.reshape(T, d)
     logits = xt.float() @ p["router"]  # (T, E)
-    # mask padding experts (beyond the real expert count)
+    # mask padding experts (beyond the real expert count); out of place:
+    # "dots" remat keeps this matmul's output for the backward
     if E > cfg.n_experts:
-        logits[:, cfg.n_experts:] = -1e30
+        logits = logits.masked_fill(torch.arange(E, device=x.device) >= cfg.n_experts, -1e30)
     gates, eidx = top_k_lowest_index(logits, k)  # (T, k)
     gates = torch.softmax(gates, dim=-1)
 

@@ -213,27 +213,42 @@ def forward(
     caches: list[dict] | None = None,
     position0: torch.Tensor | int = 0,
     memory: torch.Tensor | None = None,  # vlm image embeddings (B, M, d)
-    remat: str = "unit",  # accepted for the reference's signature; no autograd here
+    remat: str = "unit",  # "unit" | "dots" | "none"
     logits_slice: str = "all",  # "all" | "last" | "hidden"
 ) -> tuple[torch.Tensor, list[dict] | None]:
     """Returns (logits, caches): float32 logits (B, S or 1, Vp), or the
     final-normed hidden states for ``logits_slice="hidden"``; the caches
-    are written in place and returned."""
-    del remat
+    are written in place and returned.
+
+    Under autograd without caches each unit of the layer plan runs
+    under ``remat`` (:func:`~repro_torch.models.layers.remat_call`), as
+    the reference's scanned unit body runs under ``jax.checkpoint``; the
+    remainder layers are not checkpointed."""
     if logits_slice not in ("all", "last", "hidden"):
         raise ValueError(f"logits_slice={logits_slice!r}")
+    if remat not in L.REMAT_MODES:
+        raise ValueError(f"remat={remat!r}: one of {L.REMAT_MODES}")
     kinds = layer_kinds(cfg)
     if caches is not None and len(caches) != len(kinds):
         raise ValueError(f"{len(caches)} layer caches for {len(kinds)} layers")
+    unit, n_units, _ = layer_plan(cfg)
     B, S = tokens.shape
     x = params.embed[tokens].to(cfg.dtype)
     positions = position0 + torch.arange(S, device=x.device)
-    for i, kind in enumerate(kinds):
-        x, _ = _block_apply(
-            kind, params.blocks[i], x, cfg,
-            positions=positions, cache=None if caches is None else caches[i],
-            cache_index=position0, memory=memory,
-        )
+
+    def run(x, lo: int, hi: int):
+        for i in range(lo, hi):
+            x, _ = _block_apply(
+                kinds[i], params.blocks[i], x, cfg,
+                positions=positions, cache=None if caches is None else caches[i],
+                cache_index=position0, memory=memory,
+            )
+        return x
+
+    unit_remat = remat if caches is None else "none"
+    for u in range(n_units):
+        x = L.remat_call(run, x, u * len(unit), (u + 1) * len(unit), remat=unit_remat)
+    x = run(x, n_units * len(unit), len(kinds))
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     if logits_slice == "hidden":  # loss paths do their own (chunked) head
         return x, caches
@@ -241,6 +256,57 @@ def forward(
         x = x[:, -1:, :]
     logits = (x @ params.head).float()
     return logits, caches
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+
+def _token_losses(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """lse − the gold logit per token; the gold logit by a one-hot
+    contraction, as the reference takes it (a gather over a model-sharded
+    vocabulary would all-gather the logits)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    onehot = torch.zeros_like(logits).scatter_(-1, labels.long()[..., None], 1.0)
+    gold = torch.sum(logits * onehot, dim=-1)
+    return lse - gold
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int):
+    """Mean CE over tokens; the lse runs over the padded vocabulary, as
+    the reference's does (``vocab_size`` is accepted for its signature)."""
+    del vocab_size
+    return torch.mean(_token_losses(logits, labels))
+
+
+def _slab_loss(xc: torch.Tensor, head: torch.Tensor, lc: torch.Tensor) -> torch.Tensor:
+    return torch.sum(_token_losses((xc @ head).float(), lc))
+
+
+def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                          chunk: int = 512):
+    """CE without the full (B, S, V) logits: slabs of ``chunk`` positions,
+    each recomputed in the backward, summed in order from 0 as the
+    reference's scan sums them.  A sequence that is not a multiple of the
+    chunk takes the full logits, as the reference does."""
+    B, S, d = x.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        return cross_entropy((x @ head).float(), labels, head.shape[1])
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(S // chunk):
+        rows = slice(c * chunk, (c + 1) * chunk)
+        total = total + L.remat_call(_slab_loss, x[:, rows], head, labels[:, rows])
+    return total / (B * S)
+
+
+def loss_fn(params: DecoderLM, batch: dict, cfg, *, remat: str = "unit", ce_chunk: int = 512):
+    """Mean next-token CE of ``batch`` ({"tokens", "labels"} (B, S)
+    integer tensors, and the vlm's "image_embeds")."""
+    hidden, _ = forward(params, batch["tokens"], cfg, memory=batch.get("image_embeds"),
+                        remat=remat, logits_slice="hidden")
+    return chunked_cross_entropy(hidden, params.head, batch["labels"], ce_chunk)
 
 
 def prefill(params: DecoderLM, batch: dict, cfg, *, max_seq: int | None = None):

@@ -9,10 +9,14 @@ cross-attention.  A prefill fills each decoder layer's self-attention KV
 cache and computes its cross K/V once; decode reads them.
 
 The cache is {"self": [{"k", "v"}, …], "cross": [{"ck", "cv"}, …]}, one
-entry a decoder layer, written in place.  The loss waits for ROADMAP
-A12c, where the cross entropy is ported.
+entry a decoder layer, written in place.  Trained without caches, each
+decoder layer is recomputed in the backward, as the reference's scan
+body is under ``jax.checkpoint``; ``loss_fn`` is the mean CE over the
+full logits.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
@@ -52,7 +56,7 @@ class EncDecLM(nn.Module):
         self.cfg = cfg
         self.encoder = nn.ModuleList(encoder)
         self.decoder = nn.ModuleList(decoder)
-        frozen = dict(requires_grad=False)
+        frozen = dict(requires_grad=False)  # requires_grad_() makes them trainable
         self.embed = nn.Parameter(embed, **frozen)
         self.enc_norm = nn.Parameter(enc_norm, **frozen)
         self.final_norm = nn.Parameter(final_norm, **frozen)
@@ -139,9 +143,13 @@ def forward(params: EncDecLM, tokens: torch.Tensor, frames: torch.Tensor, cfg, *
     x = params.embed[tokens].to(cfg.dtype)
     positions = position0 + torch.arange(S, device=x.device)
     for i, p in enumerate(params.decoder):
-        x = _dec_layer_apply(p, x, cfg, positions=positions,
-                             cache=None if caches is None else caches["self"][i],
-                             cache_index=position0, memory=memory)
+        if caches is None:  # the train path: each layer recomputed in the backward
+            x = L.remat_call(functools.partial(_dec_layer_apply, p, cfg=cfg, positions=positions,
+                                               cache=None, cache_index=position0,
+                                               memory=memory), x)
+        else:
+            x = _dec_layer_apply(p, x, cfg, positions=positions, cache=caches["self"][i],
+                                 cache_index=position0, memory=memory)
     if caches is not None:  # compute + cache the cross K/V once
         KV, hd = cfg.n_kv_heads, cfg.head_dim
         M = memory.shape[1]
@@ -183,3 +191,12 @@ def init_cache(cfg, batch: int, max_seq: int, *, device: str | torch.device = "c
     return {part: [{n: torch.zeros(t.shape, dtype=t.dtype, device=dev) for n, t in c.items()}
                    for c in layers]
             for part, layers in cache_specs(cfg, batch, max_seq).items()}
+
+
+def loss_fn(params: EncDecLM, batch: dict, cfg, **_):
+    """Mean next-token CE of ``batch`` ({"tokens", "labels", "audio_frames"})
+    over the full logits, as the reference's."""
+    from .transformer import cross_entropy
+
+    logits, _ = forward(params, batch["tokens"], batch["audio_frames"], cfg)
+    return cross_entropy(logits, batch["labels"], cfg.vocab_size)

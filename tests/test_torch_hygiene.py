@@ -74,7 +74,9 @@ def test_importing_the_port_loads_no_jax():
                                    "lm_params_from_numpy", "init_params[hybrid]",
                                    "init_cache[ssm]", "whisper.init_params",
                                    "whisper.init_cache", "make_prefill[encdec]",
-                                   "serve_batch[hybrid]", "serve_batch[encdec]"])
+                                   "serve_batch[hybrid]", "serve_batch[encdec]",
+                                   "TrainLoop", "make_train_step", "checkpoint.restore",
+                                   "opt_state_from_numpy", "launch.train.main"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device works here")
@@ -94,7 +96,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
     from repro_torch.core.cp_fused import cp_fused_search
     from repro_torch.index import FlatBackend, IndexConfig, PMTreeBackend, build_index
     from repro_torch.configs import get_smoke_config
-    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.convert import lm_params_from_numpy, opt_state_from_numpy
+    from repro_torch.launch import checkpoint
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.train import make_train_step
     from repro_torch.launch import make_data_mesh, make_host_mesh
     from repro_torch.launch.serve import serve_batch
     from repro_torch.models import whisper
@@ -158,7 +164,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
             "make_prefill[encdec]": lambda: make_prefill(encdec, batch=1, seq_len=8),
             "serve_batch[hybrid]": lambda: serve_batch(hybrid, batch=1, prompt_len=8, gen=2),
             "serve_batch[encdec]": lambda: serve_batch(encdec, batch=1, prompt_len=8,
-                                                       gen=2)}[entry]
+                                                       gen=2),
+            "TrainLoop": lambda: TrainLoop(lm, batch=1, seq_len=8),
+            "make_train_step": lambda: make_train_step(lm),
+            "checkpoint.restore": lambda: checkpoint.restore(saved(), 1, {"a": None}),
+            "opt_state_from_numpy": lambda: opt_state_from_numpy(lm, {}),
+            "launch.train.main": lambda: train_main(["--arch", "yi-6b", "--smoke",
+                                                     "--steps", "1"])}[entry]
+
+    def saved():  # a checkpoint written on the CPU, restored by default
+        checkpoint.save(tmp_path / "ckpt", 1, {"a": torch.ones(2)})
+        return tmp_path / "ckpt"
 
     def durable_dir():  # a directory a CPU index wrote, recovered by default
         d = tmp_path / "durable"
