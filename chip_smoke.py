@@ -266,7 +266,43 @@ Phases, each printing one JSON line:
            the three smoke configs in float32 through ``serve_batch(gen=8)``
            on the card and on the CPU port: tokens identical, logits
            within 1e-4 of the largest.
-  lm_train (after lm_families) the training path.  (a) yi-6b at its
+  lm_shard (after lm_families, on the card it left) the LM's data axis:
+           yi-6b (full configuration, bfloat16, seeded parameters) with
+           its KV cache's sequence split over the host mesh's data axis,
+           each step the PM-LSH tournament merge.  (a) A 4,096-token
+           prompt at B = 1 through ``make_prefill`` into max_seq 8,192 on
+           emulated meshes of data = 2, 4 and 8, then 8 greedy tokens
+           through ``make_decode_step``: the sharded form taken, every
+           logit finite, layer 0's gathered cache positions at every step
+           equal to a plain per-shard recomputation (stable sort) of the
+           same scores; the yi smoke config in float32 the same way on
+           the card and on the CPU port (64-token prompt, max_seq 128):
+           positions identical, logits within 1e-5 of the largest.  (b)
+           long_500k's shape: B = 1, max_seq 524,288, T = 2,048, m = 16,
+           the cache filled from seeded draws on the card (pk through
+           ``attention_apply``'s projection) to kv_len 524,280, 8 decode
+           steps through ``make_decode_step`` at P = 1 (the unsharded
+           form) and P = 2, 4, 8: ms a token (CUDA events, median), peak
+           bytes, the bytes that cross a layer beside the k and v it
+           holds, the decode's bound.  (c) the tournament over an NCCL
+           group of one (file store under ``build/``) on layer 0's
+           tensors of (b), bit for bit the emulated P = 1 form.
+  lm_dp_train  (after lm_shard) data-parallel training: xlstm-125m at its
+           published widths, 4 of its 12 layers (two (mlstm, slstm)
+           units: its sLSTM scan makes a step launch-bound, and each
+           emulated shard costs a whole one), float32 parameters, B = 4 ×
+           4,096 tokens, from one seeded state: 3 steps of
+           ``make_train_step`` on one device, then on emulated meshes of
+           data = 2 and 4 and an NCCL group of one, each with 3 steps of
+           ``make_compressed_train_step`` (the int8 error-feedback
+           reduction): finite losses; the data-parallel step's first loss
+           and gradient norm within 1e-5 (relative) of the one-device
+           step's; on data = 2 and the group, each shard's int8 codes,
+           scales and residuals of the first compressed step bit for bit
+           the CPU port's on the same gradients copied to the host; step
+           ms (CUDA events) and the bytes each reduction would send (int8
+           codes, and the int32 psum as written, against float32).
+  lm_train (after lm_dp_train) the training path.  (a) yi-6b at its
            published widths and depth, bfloat16 parameters and float32
            AdamW moments from ``--seed``, B = 1 × 4,096 tokens (train_4k's
            sequence), remat="unit", 4 steps through ``TrainLoop.run``:
@@ -434,6 +470,26 @@ LM_PROFILE_PAUSE_S, LM_PROFILE_TRACES = 0.25, 2
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 1, 4096, 4
 LM_TRAIN_FLASH_TOL, LM_TRAIN_SMOKE_TOL = 1e-5, 1e-5
 LM_TRAIN_SMOKE_STEPS, LM_TRAIN_RESUME_STEPS, LM_TRAIN_RESUME_EVERY = 4, (4, 6), 2
+# the LM's data axis: yi-6b's sequence-sharded PM-LSH decode, (a) a
+# 4,096-token prompt into max_seq 8,192 on emulated data = 2, 4, 8 and 8
+# greedy tokens, its smoke config in float32 on the card and the CPU
+# (positions identical, logits within 1e-5 of the largest); (b) long_500k's
+# shape (B = 1, max_seq 524,288) from a cache drawn on the card to kv_len
+# 524,280 (a 524,288-token prefill is out of a run's reach), 8 decode
+# steps at P = 1, 2, 4, 8.  Then xlstm-125m (arXiv:2405.04517) trained
+# data-parallel at its published widths with float32 parameters, B = 4 ×
+# 4,096 (train_4k's sequence), 3 steps a form, the first step's loss and
+# gradient norm within 1e-5 of the one-device step's.
+LM_SHARD_PROMPT, LM_SHARD_MAX_SEQ, LM_SHARD_GEN, LM_SHARD_P = 4096, 8192, 8, (2, 4, 8)
+LM_SHARD_SMOKE_PROMPT, LM_SHARD_SMOKE_MAX_SEQ, LM_SHARD_SMOKE_TOL = 64, 128, 1e-5
+LM_LONG_SEQ, LM_LONG_KV, LM_LONG_GEN, LM_LONG_P = 524_288, 524_280, 8, (1, 2, 4, 8)
+LM_DP_ARCH, LM_DP_BATCH, LM_DP_SEQ, LM_DP_STEPS, LM_DP_P = "xlstm-125m", 4, 4096, 3, (2, 4)
+LM_DP_TOL = 1e-5
+# xlstm-125m's depth cut from 12 layers to 4 (two (mlstm, slstm) units),
+# widths whole: the sLSTM's scan over 4,096 steps makes each shard's step
+# launch-bound, so an emulated shard costs a whole step; at 12 layers the
+# phase took 226.1 s of the script's 662.8 (NVIDIA H100 80GB HBM3, 700 W)
+LM_DP_LAYERS = 4
 # the span trees of one traced call of each path, (name, parent index):
 # the reference's trees (a CPU test holds them to repro's)
 EXPECTED_SPAN_TREES = {
@@ -3004,6 +3060,387 @@ def lm_families_phase(torch, dev, seed: int) -> None:
           "seconds": time.perf_counter() - t_phase})
 
 
+def _layer0_query(torch, params, cfg, tok, pos: int):
+    """Layer 0's decode query for token ``tok`` at ``pos``, as
+    ``attention_apply`` forms it (rms_norm, wq, RoPE)."""
+    from repro_torch.models import layers as L
+
+    blk = params.blocks[0]
+    x = L.rms_norm(L.embed_lookup(params.embed, tok).to(cfg.dtype), blk["ln1"], cfg.norm_eps)
+    B = tok.shape[0]
+    q = (x @ blk["attn"]["wq"]).reshape(B, 1, cfg.n_heads, cfg.head_dim)
+    return L.rope(q, torch.tensor([pos], device=q.device), cfg.rope_theta)
+
+
+def _plain_shard_positions(torch, q, pk, a, kv_len: int, topk: int, P: int):
+    """The tournament's candidates recomputed plainly: shard by shard, the
+    estimate of its rows, rows ≥ kv_len at −inf, a stable descending sort,
+    its first ⌈T/P⌉ as global positions, in shard order."""
+    B, _, H, _ = q.shape
+    KV, m = pk.shape[2], pk.shape[3]
+    Sl, Tl = pk.shape[1] // P, -(-topk // P)
+    qg = (q.float() @ a.float()).reshape(B, KV, H // KV, m).mean(dim=2).to(pk.dtype).float()
+    out = []
+    for p in range(P):
+        s = torch.einsum("bskm,bkm->bks", pk[:, p * Sl:(p + 1) * Sl].float(), qg)
+        rows = p * Sl + torch.arange(Sl, device=s.device)
+        s = torch.where(rows < kv_len, s, torch.full_like(s, float("-inf")))
+        out.append(p * Sl + torch.sort(s, dim=-1, descending=True, stable=True)[1][..., :Tl])
+    return torch.cat(out, dim=-1)
+
+
+def _shard_decode(torch, cfg, params, P: int, dev, prompt, gen: int, max_seq: int,
+                  tokens=None) -> dict:
+    """make_prefill then ``gen`` steps of make_decode_step on an emulated
+    mesh of P data shards; after each step layer 0's gathered positions
+    (``lsh_decode_attention_sharded`` on the cache the step wrote) beside
+    their plain recomputation.  ``tokens`` (B, gen) teacher-forces the
+    steps; else each takes the argmax."""
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.models import lsh_attention as lsh
+    from repro_torch.serve.serve_step import make_decode_step, make_prefill
+
+    B, S = prompt.shape
+    mesh = make_host_mesh(data=P, device=dev)
+    pre, pinfo = make_prefill(cfg, mesh, batch=B, seq_len=S, max_seq=max_seq)
+    dec, dinfo = make_decode_step(cfg, mesh, batch=B, max_seq=max_seq)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if dev.type == "cuda" else None
+    if ev:
+        ev[0].record()
+    lg, caches = pre(params, {"tokens": prompt})
+    if ev:
+        ev[1].record()
+    steps, fed, pos_ok, positions = [lg], [], True, []
+    for i in range(gen):
+        tok = (torch.argmax(lg, dim=-1).to(torch.int32) if tokens is None
+               else tokens[:, i:i + 1].to(dev))
+        fed.append(tok)
+        lg, caches = dec(params, caches, {"tokens": tok, "position": S + i})
+        steps.append(lg)
+        with torch.inference_mode():
+            q0 = _layer0_query(torch, params, cfg, tok, S + i)
+            c0, a = caches[0], params.blocks[0]["attn"]["lsh_a"]
+            _, got = lsh.lsh_decode_attention_sharded(
+                q0, c0["k"], c0["v"], c0["pk"], a, kv_len=S + i + 1, topk=cfg.lsh_topk,
+                mesh=mesh, axis=dinfo["lsh_shard"], return_positions=True)
+            want = _plain_shard_positions(torch, q0, c0["pk"], a, S + i + 1, cfg.lsh_topk, P)
+        pos_ok = pos_ok and bool(torch.equal(got, want))
+        positions.append(got.cpu())
+    if ev:
+        torch.cuda.synchronize()
+    logits = torch.cat(steps, dim=1)
+    del caches
+    return {"forms": (pinfo["lsh_shard"], dinfo["lsh_shard"]), "logits": logits,
+            "tokens": torch.cat(fed, dim=1).cpu(), "positions": torch.stack(positions),
+            "positions_plain": pos_ok, "prefill_ms": ev[0].elapsed_time(ev[1]) if ev else None}
+
+
+def lm_shard_phase(torch, dev, seed: int) -> None:
+    """The sequence-sharded PM-LSH decode: (a) the entry points at yi-6b's
+    full width on emulated data = 2, 4, 8 and the smoke config on the card
+    against the CPU port; (b) long_500k's shape at P = 1, 2, 4, 8 from a
+    cache drawn on the card; (c) an NCCL group of one against the emulated
+    P = 1 form."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.models import lsh_attention as lsh
+    from repro_torch.models import transformer as tt
+    from repro_torch.serve.serve_step import make_decode_step
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    H, KV, hd, m, T = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.lsh_m, cfg.lsh_topk
+    check((cfg.n_layers, cfg.d_model, H, KV, hd, cfg.d_ff, cfg.vocab_size) == (
+        32, 4096, 32, 4, 128, 11008, 64000) and cfg.dtype == torch.bfloat16
+        and cfg.lsh_attention and T == 2048 and m == 16,
+        f"lm_shard: {cfg.name} is not yi-6b's full configuration")
+    params = tt.init_params(cfg, seed, device=dev)
+    rng = np.random.default_rng(seed + 26)
+    sharded = ("data", "model")
+
+    # -- (a) the entry points on emulated data = 2, 4, 8 ------------------------
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, LM_SHARD_PROMPT))
+                              .astype(np.int32)).to(dev)
+    entry = {}
+    for P in LM_SHARD_P:
+        torch.cuda.reset_peak_memory_stats()
+        run = _shard_decode(torch, cfg, params, P, dev, prompt, LM_SHARD_GEN, LM_SHARD_MAX_SEQ)
+        check(run["forms"] == (sharded, sharded),
+              f"lm_shard (a): data = {P}, B = 1 took the forms {run['forms']}")
+        check(bool(torch.isfinite(run["logits"]).all()),
+              f"lm_shard (a): data = {P} logits not all finite")
+        check(run["positions_plain"],
+              f"lm_shard (a): data = {P} layer 0's gathered positions differ from the plain "
+              "per-shard recomputation")
+        entry[str(P)] = {"prefill_ms": run["prefill_ms"], "tokens": run["tokens"][0].tolist(),
+                         "peak_bytes": torch.cuda.max_memory_allocated()}
+        del run
+    scfg = get_smoke_config(LM_ARCH).replace(dtype=torch.float32)
+    sp = tt.init_params(scfg, seed, device="cpu")
+    sprompt = torch.from_numpy(rng.integers(0, scfg.vocab_size, (1, LM_SHARD_SMOKE_PROMPT))
+                               .astype(np.int32))
+    sp_dev = tt.init_params(scfg, seed, device="cpu").to(dev)  # Module.to moves in place
+    smoke = {}
+    for P in LM_SHARD_P:
+        want = _shard_decode(torch, scfg, sp, P, torch.device("cpu"), sprompt, LM_SHARD_GEN,
+                             LM_SHARD_SMOKE_MAX_SEQ)
+        got = _shard_decode(torch, scfg, sp_dev, P, dev, sprompt.to(dev), LM_SHARD_GEN,
+                            LM_SHARD_SMOKE_MAX_SEQ, tokens=want["tokens"])
+        err = float((got["logits"].cpu() - want["logits"]).abs().max())
+        scale = float(want["logits"].abs().max())
+        check(torch.equal(got["positions"], want["positions"]) and got["positions_plain"],
+              f"lm_shard (a): smoke data = {P} gathered positions on the card differ from the "
+              "CPU port's")
+        check(err <= LM_SHARD_SMOKE_TOL * scale,
+              f"lm_shard (a): smoke data = {P} logits differ by {err} > "
+              f"{LM_SHARD_SMOKE_TOL * scale}")
+        smoke[str(P)] = {"max_abs_err": err, "max_abs": scale}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (b) long_500k's shape: a cache drawn on the card ------------------------
+    S, kv_len = LM_LONG_SEQ, LM_LONG_KV
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    caches = tt.init_cache(cfg, 1, S, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.inference_mode():
+        for c, blk in zip(caches, params.blocks):
+            c["k"].normal_(generator=gen)
+            c["v"].normal_(generator=gen)
+            # pk through attention_apply's projection of the cached keys
+            c["pk"].copy_(torch.einsum("bskd,dm->bskm", c["k"].float(),
+                                       blk["attn"]["lsh_a"].float()).to(cfg.dtype))
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    cache_bytes = sum(t.numel() * t.element_size() for c in caches for t in c.values())
+    pk_bytes = sum(c["pk"].numel() * c["pk"].element_size() for c in caches)
+    param_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    start = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 1)).astype(np.int32)).to(dev)
+    long = {}
+    for P in LM_LONG_P:
+        mesh = make_host_mesh(data=P, device=dev)
+        dec, info = make_decode_step(cfg, mesh, batch=1, max_seq=S)
+        check(info["lsh_shard"] == (None if P == 1 else sharded),
+              f"lm_shard (b): P = {P} took the form {info['lsh_shard']}")
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(LM_LONG_GEN + 1)]
+        tok, toks = start, []
+        ev[0].record()
+        for i in range(LM_LONG_GEN):
+            lg, caches = dec(params, caches, {"tokens": tok, "position": kv_len + i})
+            tok = torch.argmax(lg, dim=-1).to(torch.int32)
+            toks.append(tok)
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(LM_LONG_GEN)]
+        check(bool(torch.isfinite(lg).all()), f"lm_shard (b): P = {P} logits not all finite")
+        Tl = -(-T // P)
+        cross_elems = P * Tl * KV * (2 * hd + 1)  # B = 1: k, v and a flag a candidate
+        long[str(P)] = {
+            "form": info["lsh_shard"], "decode_ms": ms, "decode_ms_median": statistics.median(ms),
+            "tokens": torch.cat(toks, 1)[0].tolist(),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "cross_elements_a_layer": None if P == 1 else cross_elems,
+            "cross_bytes_a_layer": None if P == 1 else P * Tl * KV * (2 * hd * 2 + 1)}
+    # the bound: the weights but the embedding table (one row), pk's rows and
+    # the T selected k and v rows of every layer, at the HBM rate
+    kv_layer_bytes = 2 * S * KV * hd * 2
+    sel_bytes = cfg.n_layers * KV * T * hd * 2 * 2
+    weight_bytes = param_bytes - cfg.padded_vocab() * cfg.d_model * 2 + cfg.d_model * 2
+    bound_bytes = weight_bytes + pk_bytes + sel_bytes
+    bound_ms = bound_bytes / PEAK_BYTES_PER_S * 1e3
+
+    # -- (c) an NCCL group of one against the emulated P = 1 form ----------------
+    with torch.inference_mode():
+        q0 = _layer0_query(torch, params, cfg, start, kv_len)
+        c0, a = caches[0], params.blocks[0]["attn"]["lsh_a"]
+        kw = dict(kv_len=kv_len, topk=T, axis="data", return_positions=True)
+        out_e, pos_e = lsh.lsh_decode_attention_sharded(
+            q0, c0["k"], c0["v"], c0["pk"], a, mesh=make_host_mesh(data=1, device=dev), **kw)
+        store = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+        dist.init_process_group("nccl", init_method=f"file://{store}/store", world_size=1,
+                                rank=0)
+        try:
+            gmesh = make_host_mesh(device="cuda")
+            check(not gmesh.data.emulated and gmesh.shape == {"data": 1, "model": 1},
+                  "lm_shard (c): the mesh is not the NCCL group")
+            out_g, pos_g = lsh.lsh_decode_attention_sharded(q0, c0["k"], c0["v"], c0["pk"], a,
+                                                            mesh=gmesh, **kw)
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+            shutil.rmtree(store, ignore_errors=True)
+    check(torch.equal(out_g, out_e) and torch.equal(pos_g, pos_e),
+          "lm_shard (c): the NCCL group of one differs from the emulated P = 1 form")
+    del caches, c0, q0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    emit({"phase": "lm_shard", "arch": cfg.name, "dtype": "bfloat16", "lsh_topk": T,
+          "lsh_m": m, "param_bytes": param_bytes,
+          "check_a": {"prompt": LM_SHARD_PROMPT, "max_seq": LM_SHARD_MAX_SEQ,
+                      "gen": LM_SHARD_GEN, "form": list(sharded), "data": entry,
+                      "positions_plain": True, "smoke": smoke, "smoke_tol": LM_SHARD_SMOKE_TOL},
+          "long_500k": {"batch": 1, "max_seq": S, "kv_len": kv_len, "gen": LM_LONG_GEN,
+                        "cache": "seeded draws on the card, pk through the projection",
+                        "fill_s": fill_s, "cache_bytes": cache_bytes, "pk_bytes": pk_bytes,
+                        "kv_bytes_a_layer": kv_layer_bytes, "by_P": long,
+                        "bound": {"ms": bound_ms, "bytes": bound_bytes,
+                                  "weight_bytes": weight_bytes, "selected_bytes": sel_bytes}},
+          "check_c": {"backend": "nccl", "world_size": 1, "bit_for_bit": True},
+          "seconds": time.perf_counter() - t_phase})
+
+
+def lm_dp_train_phase(torch, dev, seed: int) -> None:
+    """Data-parallel training of xlstm-125m at its published widths in
+    float32: the one-device step, then emulated data = 2 and 4 and an
+    NCCL group of one, each with the plain and the compressed steps."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.models import model_module
+    from repro_torch.train import (
+        AdamWConfig,
+        init_opt_state,
+        init_residuals,
+        make_compressed_train_step,
+        make_train_step,
+    )
+    from repro_torch.train import grad_compression as gcomp
+    from repro_torch.train.train_step import batch_to_device, shard_losses_and_grads
+
+    t_phase = time.perf_counter()
+    full = get_config(LM_DP_ARCH)
+    want_w = LM_FAMILY_WIDTHS[LM_DP_ARCH]
+    check((full.n_layers, full.d_model, full.n_heads, full.vocab_size)
+          == (want_w[0], want_w[2], want_w[3], want_w[7]),
+          f"lm_dp_train: {full.name} is not xlstm-125m's configuration")
+    cfg = full.replace(dtype=torch.float32, n_layers=LM_DP_LAYERS)
+    mod = model_module(cfg)
+    B, S = LM_DP_BATCH, LM_DP_SEQ
+    batch = batch_to_device(SyntheticTokens(cfg.vocab_size, B, S, seed=seed).batch_at(0), dev)
+    specs = {k: torch.empty((B, S), dtype=torch.int32, device="meta") for k in batch}
+    ocfg = AdamWConfig()
+
+    def steps(fn, residuals=None):
+        """LM_DP_STEPS steps from the seeded state: losses, norms, ms."""
+        params = mod.init_params(cfg, seed, device=dev)
+        opt = init_opt_state(params)
+        res = None if residuals is None else residuals(params)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(LM_DP_STEPS + 1)]
+        out = {"losses": [], "grad_norms": []}
+        ev[0].record()
+        for i in range(LM_DP_STEPS):
+            if res is None:
+                params, opt, m_ = fn(params, opt, batch)
+            else:
+                params, opt, res, m_ = fn(params, opt, res, batch)
+            ev[i + 1].record()
+            out["losses"].append(m_["loss"])
+            out["grad_norms"].append(m_["grad_norm"])
+        torch.cuda.synchronize()
+        out = {k: [float(x) for x in v] for k, v in out.items()}
+        out["step_ms"] = [ev[i].elapsed_time(ev[i + 1]) for i in range(LM_DP_STEPS)]
+        return out
+
+    def codes_on_host(mesh) -> bool:
+        """The first compressed step's codes, scales and residuals of each
+        local shard on the card against the CPU port on its gradients."""
+        params = mod.init_params(cfg, seed, device=dev)
+        _, grads = shard_losses_and_grads(params, batch, mesh, cfg=cfg)
+        same = True
+        for g in grads:
+            for name, t in g.items():
+                if t is None or t.numel() < gcomp.MIN_COMPRESSED:
+                    continue
+                zero = torch.zeros(t.shape, dtype=torch.float32, device=dev)
+                card = gcomp.compress_with_feedback(t, zero)
+                host = gcomp.compress_with_feedback(t.cpu(), zero.cpu())
+                same = same and all(torch.equal(a.cpu(), b) for a, b in zip(card, host))
+        return same
+
+    # the bytes a shard hands each reduction of a step: float32 gradients;
+    # int8 codes (a scale a compressed leaf, the small leaves in float32);
+    # and what the psum of the codes moves as the reference writes it, in int32
+    def wire(model_cfg) -> dict:
+        numel = [p.numel() for p in model_module(model_cfg).abstract_params(
+            model_cfg).parameters()]
+        big = [n for n in numel if n >= gcomp.MIN_COMPRESSED]
+        small = sum(numel) - sum(big)
+        return {"params": sum(numel), "float32": 4 * sum(numel),
+                "int8_codes": sum(big) + 4 * len(big) + 4 * small,
+                "int32_psum_as_written": 4 * sum(big) + 4 * len(big) + 4 * small}
+
+    torch.cuda.reset_peak_memory_stats()
+    one_fn, one_info = make_train_step(cfg, make_host_mesh(device=dev), batch_specs=specs,
+                                       opt_cfg=ocfg)
+    check(not one_info["data_parallel"], "lm_dp_train: the one-device step split its batch")
+    one = steps(one_fn)
+    one["peak_bytes"] = torch.cuda.max_memory_allocated()
+    check(np.isfinite(one["losses"] + one["grad_norms"]).all(),
+          f"lm_dp_train: one-device losses {one['losses']} not all finite")
+    forms = {}
+
+    def run_form(name, mesh, check_codes: bool):
+        torch.cuda.reset_peak_memory_stats()
+        fn, info = make_train_step(cfg, mesh, batch_specs=specs, opt_cfg=ocfg)
+        check(info["data_parallel"], f"lm_dp_train: {name} did not split its batch")
+        dp = steps(fn)
+        dp["peak_bytes"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        comp = steps(make_compressed_train_step(cfg, mesh, ocfg),
+                     residuals=lambda p: init_residuals(p, mesh))
+        comp["peak_bytes"] = torch.cuda.max_memory_allocated()
+        l_err = abs(dp["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
+        n_err = abs(dp["grad_norms"][0] - one["grad_norms"][0]) / abs(one["grad_norms"][0])
+        check(np.isfinite(dp["losses"] + comp["losses"] + comp["grad_norms"]).all(),
+              f"lm_dp_train: {name} losses {dp['losses']} / {comp['losses']} not all finite")
+        check(l_err <= LM_DP_TOL and n_err <= LM_DP_TOL,
+              f"lm_dp_train: {name} first loss / grad norm off the one-device step's by "
+              f"{l_err} / {n_err} > {LM_DP_TOL}")
+        # one more forward and backward a shard: on two shards and on the group
+        codes = codes_on_host(mesh) if check_codes else None
+        check(codes is not False, f"lm_dp_train: {name} int8 codes, scales or residuals on the "
+                                  "card differ from the CPU port's")
+        forms[name] = {"shards": mesh.data.size, "emulated": mesh.data.emulated,
+                       "dp": dp, "compressed": comp, "first_loss_rel_err": l_err,
+                       "first_grad_norm_rel_err": n_err, "codes_bit_for_bit": codes}
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for P in LM_DP_P:
+        run_form(f"emulated{P}", make_host_mesh(data=P, device=dev), check_codes=P == 2)
+    store = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", world_size=1, rank=0)
+    try:
+        gmesh = make_host_mesh(device="cuda")
+        check(not gmesh.data.emulated, "lm_dp_train: the mesh is not the NCCL group")
+        run_form("nccl1", gmesh, check_codes=True)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+    emit({"phase": "lm_dp_train", "arch": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "heads": cfg.n_heads, "vocab": cfg.vocab_size,
+          "dtype": "float32", "batch": B, "seq_len": S, "steps": LM_DP_STEPS,
+          "reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
+          "one_device": one, "forms": forms,
+          "reduction_bytes_a_shard": {"run": wire(cfg), "published_depth": wire(full),
+                                      "min_compressed": gcomp.MIN_COMPRESSED},
+          "tol": LM_DP_TOL, "seconds": time.perf_counter() - t_phase})
+
+
 def _train_bounds(cfg, params, opt, B: int, S: int) -> dict:
     """The least time of one training step, from this run's shapes.
     ``step_ms`` is the step's own: the bfloat16 matmuls (the layers' and
@@ -3553,6 +3990,14 @@ def main(argv=None) -> int:
 
     # -- the hybrid, ssm and encdec families at their published widths -------
     lm_families_phase(torch, dev, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the LM's data axis: the sharded decode, data-parallel training -------
+    lm_shard_phase(torch, dev, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_dp_train_phase(torch, dev, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
 

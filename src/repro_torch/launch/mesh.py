@@ -22,9 +22,12 @@ local shard; what comes back is the same in every process.  Nothing
 falls back from one form to the other.
 
 The LM side (``make_host_mesh``, ``dp_axes``, ``axis_size``) is the
-reference's host mesh of ('data', 'model') axes on one device: the
-model steps run on it whole.  Tensor and expert parallelism over
-'model' > 1 come with more than one card (ROADMAP A12d).
+reference's host mesh of ('data', 'model') axes.  Its 'data' axis is a
+:class:`DataMesh` of P shards in either form: the model steps split the
+batch over it (data-parallel training) or, for a batch that does not
+divide it, the KV cache's sequence (the sharded PM-LSH decode).  The
+'model' axis is 1: tensor and expert parallelism over 'model' > 1 are
+ROADMAP A12d3.
 """
 from __future__ import annotations
 
@@ -161,30 +164,42 @@ def make_data_mesh(shards: int | None = None, axis: str = "data", *, group=None,
 
 @dataclasses.dataclass(frozen=True)
 class HostMesh:
-    """The LM steps' mesh: named axes of given sizes over ``device``."""
+    """The LM steps' mesh: ('data', 'model') of sizes (P, 1), whose data
+    axis is the :class:`DataMesh` ``data`` (emulated or a group)."""
 
-    axis_names: tuple[str, ...]
-    axis_sizes: tuple[int, ...]
-    device: torch.device
+    data: DataMesh
+    axis_names = ("data", "model")
+
+    @property
+    def axis_sizes(self) -> tuple[int, ...]:
+        return (self.data.size, 1)
 
     @property
     def shape(self) -> dict[str, int]:
         return dict(zip(self.axis_names, self.axis_sizes))
 
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
 
-def make_host_mesh(model: int = 1, *, device: str | torch.device = "cuda") -> HostMesh:
-    """A ('data', 'model') mesh of one device (tests / examples): the
-    reference's host mesh at one device.  ``model > 1`` raises."""
+
+def make_host_mesh(model: int = 1, *, data: int | None = None,
+                   device: str | torch.device = "cuda") -> HostMesh:
+    """The reference's ('data', 'model') host mesh with a 'data' axis of
+    ``data`` shards, made as :func:`make_data_mesh` makes it: the default
+    process group when one is initialised, one shard a rank, or else
+    ``data`` (default 1) emulated shards on ``device``.  ``model > 1``
+    raises."""
     if model < 1:
         raise ValueError(f"model={model}: a mesh axis needs at least one device")
     if model > 1:
         raise NotImplementedError(
             f"make_host_mesh(model={model}): tensor and expert parallelism over a "
-            "'model' axis come with more than one card (ROADMAP A12d)")
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:  # the device tensors report
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return HostMesh(("data", "model"), (1, 1), dev)
+            "'model' axis are ROADMAP A12d3")
+    dm = make_data_mesh(data, device=device)
+    if dm.device.type == "cuda" and dm.device.index is None:  # the device tensors report
+        dm = dataclasses.replace(dm, device=torch.device("cuda", torch.cuda.current_device()))
+    return HostMesh(dm)
 
 
 def dp_axes(mesh) -> tuple[str, ...]:

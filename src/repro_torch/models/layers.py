@@ -102,6 +102,18 @@ def dense_init(gen, d_in: int, d_out: int, dtype=torch.float32, scale: float = 1
     return (normal(gen, (d_in, d_out), device) * std).to(dtype)
 
 
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(table, tokens, axis=0)`` in its default fill mode: a
+    token t in [−Vp, Vp) reads row t mod Vp (−1 reads the last row), any
+    other token a NaN row.  The index is clamped and the row masked on
+    the device: no host read, no device-side assert."""
+    Vp = table.shape[0]
+    tokens = tokens.to(table.device)  # host tokens index a card's table, as indexing does
+    inside = (tokens >= -Vp) & (tokens < Vp)
+    idx = torch.where(tokens < 0, tokens + Vp, tokens).clamp(0, Vp - 1)
+    return table[idx].masked_fill(~inside[..., None], float("nan"))
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
     x = x.float()
@@ -225,21 +237,40 @@ def init_attention(gen, cfg, dtype=None, *, device: torch.device) -> Params:
     return p
 
 
-def write_rows(buf: torch.Tensor, new: torch.Tensor, index) -> None:
+def write_rows(buf: torch.Tensor, new: torch.Tensor, index, *, base: int = 0,
+               total: int | None = None) -> None:
     """``buf[:, index:index + S] = new`` in place, at the start
     ``lax.dynamic_update_slice`` takes: a negative index counts from the
     end (+ Smax), then the start is clamped to [0, Smax − S].  A tensor
-    ``index`` stays on the device (no host read)."""
-    S, Smax = new.shape[1], buf.shape[1]
+    ``index`` stays on the device (no host read).
+
+    ``buf`` may be one block of a cache of ``total`` rows split along
+    dim 1, holding rows [base, base + buf.shape[1]): the start is taken
+    over the whole cache and only the rows that fall in the block are
+    written (a tensor index with one row: the block's row rewritten with
+    its own value when another block owns the position)."""
+    S, Sl = new.shape[1], buf.shape[1]
+    Smax = Sl if total is None else total
     if S > Smax:
         raise ValueError(f"writing {S} rows into a cache of {Smax}")
     if isinstance(index, torch.Tensor):
         start = torch.clamp(torch.where(index < 0, index + Smax, index), 0, Smax - S)
-        buf.index_copy_(1, start + torch.arange(S, device=buf.device), new)
-    else:
-        index = int(index)
-        start = min(max(index + Smax if index < 0 else index, 0), Smax - S)
-        buf[:, start:start + S] = new
+        if total is None:
+            buf.index_copy_(1, start + torch.arange(S, device=buf.device), new)
+        elif S == 1:  # the row's place in this block, clamped; rewritten as is if not ours
+            j = torch.clamp(start - base, 0, Sl - 1).reshape(1)
+            mine = (start >= base) & (start < base + Sl)
+            buf.index_copy_(1, j, torch.where(mine, new, buf.index_select(1, j)))
+        else:  # block row j takes new row base + j − start where that row exists
+            rows = base - start + torch.arange(Sl, device=buf.device)
+            mine = ((rows >= 0) & (rows < S)).reshape((1, Sl) + (1,) * (buf.ndim - 2))
+            buf.copy_(torch.where(mine, new.index_select(1, rows.clamp(0, S - 1)), buf))
+        return
+    index = int(index)
+    start = min(max(index + Smax if index < 0 else index, 0), Smax - S)
+    lo, hi = max(start, base), min(start + S, base + Sl)
+    if lo < hi:
+        buf[:, lo - base:hi - base] = new[:, lo - start:hi - start]
 
 
 def attention_apply(
@@ -253,11 +284,19 @@ def attention_apply(
     window: int = 0,
     use_lsh: bool = False,
     causal: bool = True,
+    lsh_shard: tuple | None = None,  # (mesh, axis) when the cache's sequence is split
 ) -> tuple[torch.Tensor, dict | None]:
     """Self-attention with optional KV cache and PM-LSH retrieval path.
 
     Returns (out, cache): the cache's buffers are written in place and
     the same dict comes back.
+
+    With ``lsh_shard`` the cache's sequence is split over the mesh's
+    data axis (whole tensors read as P blocks when emulated, the rank's
+    own block in a group): each row goes to the block that owns its
+    position, a one-token step runs :func:`~.lsh_attention.
+    lsh_decode_attention_sharded`, and a prefill from position 0 attends
+    over its own keys, so no shard needs the whole cache.
     """
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -266,13 +305,19 @@ def attention_apply(
     v = (x @ p["wv"]).reshape(B, S, KV, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    if lsh_shard is not None and (cache is None or not use_lsh):
+        raise ValueError("a sequence-split cache is read by the PM-LSH decode only")
 
     if cache is not None:
-        write_rows(cache["k"], k, cache_index)
-        write_rows(cache["v"], v, cache_index)
+        block = {}
+        if lsh_shard is not None and not lsh_shard[0].data.emulated:
+            dm, Sl = lsh_shard[0].data, cache["k"].shape[1]
+            block = {"base": dm.rank * Sl, "total": dm.size * Sl}
+        write_rows(cache["k"], k, cache_index, **block)
+        write_rows(cache["v"], v, cache_index, **block)
         if "pk" in cache:  # PM-LSH projected keys ride along in the cache
             pk_new = torch.einsum("bskd,dm->bskm", k.float(), p["lsh_a"].float())
-            write_rows(cache["pk"], pk_new.to(k.dtype), cache_index)
+            write_rows(cache["pk"], pk_new.to(k.dtype), cache_index, **block)
         k_all, v_all = cache["k"], cache["v"]
         kv_len = cache_index + S
     else:
@@ -280,10 +325,21 @@ def attention_apply(
         kv_len = None
 
     if use_lsh and cache is not None and S == 1:
-        from .lsh_attention import lsh_decode_attention
+        from .lsh_attention import lsh_decode_attention, lsh_decode_attention_sharded
 
-        out = lsh_decode_attention(q, cache["k"], cache["v"], cache["pk"], p["lsh_a"],
-                                   kv_len=kv_len, topk=cfg.lsh_topk)
+        if lsh_shard is not None:
+            out = lsh_decode_attention_sharded(
+                q, cache["k"], cache["v"], cache["pk"], p["lsh_a"], kv_len=kv_len,
+                topk=cfg.lsh_topk, mesh=lsh_shard[0], axis=lsh_shard[1])
+        else:
+            out = lsh_decode_attention(q, cache["k"], cache["v"], cache["pk"], p["lsh_a"],
+                                       kv_len=kv_len, topk=cfg.lsh_topk)
+    elif lsh_shard is not None:
+        if isinstance(cache_index, torch.Tensor) or cache_index != 0:
+            raise NotImplementedError(
+                "several tokens past position 0 on a sequence-split cache would read the "
+                "whole cache; prefill from position 0, then decode one token a step")
+        out = chunked_attention(q, k, v, causal=causal, q_offset=positions[0], window=window)
     elif cache is None and k_all.shape[1] % min(1024, k_all.shape[1]) == 0:
         # the TRAIN route: flash attention with the reference's custom VJP
         from .flash_attention import flash_attention

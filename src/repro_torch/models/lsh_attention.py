@@ -14,10 +14,16 @@ oracle ``lsh_attention_reference``).
             gathered along the sequence axis of the (B, Smax, KV, hd)
             cache without a transposed copy of it.
 
+``lsh_decode_attention_sharded`` is the reference's distributed form
+for a KV cache whose sequence is split over the mesh's data axis (the
+long-context decode at batch 1): the paper's tournament merge.  Each
+shard scores its own slice of ``pk`` and keeps its top-⌈T/P⌉; only the
+selected keys, values and their valid flags cross the wire, gathered in
+shard order, and the softmax runs over the P·⌈T/P⌉ gathered keys.
+
 In the reference this is ``jnp`` code, not a Pallas kernel, so here it
 is plain PyTorch; a hand-written Hopper kernel fusing the three steps is
-queued as speed work.  The sharded form (the tournament merge) comes
-with more than one card (ROADMAP A12d).
+queued as speed work.
 """
 from __future__ import annotations
 
@@ -82,6 +88,96 @@ def lsh_decode_attention(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgt,bktd->bkgd", p, v_sel.float())
     return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def _shard_blocks(mesh, t: torch.Tensor) -> list[tuple[int, torch.Tensor]]:
+    """(shard, block) for each shard this process holds of a cache leaf
+    split along its sequence (dim 1): views of the whole tensor when
+    emulated, the rank's own block in a group."""
+    dm = mesh.data
+    if dm.emulated:
+        Sl = t.shape[1] // dm.size
+        return [(p, t[:, p * Sl:(p + 1) * Sl]) for p in dm.local]
+    return [(dm.rank, t)]
+
+
+def seq_shards(mesh, axis) -> int:
+    """P, the shard count of the sequence axes ``axis`` (a name or a
+    tuple of names) of ``mesh``; only 'data' may exceed one."""
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    sizes = {a: mesh.shape[a] for a in axes}
+    if any(n > 1 for a, n in sizes.items() if a != "data"):
+        raise NotImplementedError(f"sequence axes {sizes}: only 'data' may exceed one "
+                                  "shard (a 'model' axis is ROADMAP A12d3)")
+    Pn = 1
+    for n in sizes.values():
+        Pn *= n
+    return Pn
+
+
+def lsh_decode_attention_sharded(
+    q: torch.Tensor,  # (B, 1, H, hd)
+    k: torch.Tensor,  # (B, Smax, KV, hd) emulated, a rank's (B, Smax/P, KV, hd) block in a group
+    v: torch.Tensor,
+    pk: torch.Tensor,  # (B, ·, KV, m), split as k
+    lsh_a: torch.Tensor,
+    *,
+    kv_len: torch.Tensor | int,
+    topk: int,
+    mesh,
+    axis: str | tuple = "data",
+    return_positions: bool = False,
+):
+    """The tournament merge over the sequence shards of ``mesh``'s
+    ``axis`` (the reference's shard_map body, run for each local shard).
+
+    Shard p holds rows [p·Sl, (p+1)·Sl); rows ≥ ``kv_len`` are masked to
+    −inf and stay in the gathered set with a False flag, which the
+    verify masks with −1e30.  The estimate follows the reference's
+    dtypes: ``q·A`` accumulated in float32, the group query cast to the
+    cache's dtype, the product with ``pk`` accumulated in float32 (on a
+    float32 cache at P = 1 this is :func:`lsh_decode_attention` bit for
+    bit).  With ``return_positions`` it also returns the (B, KV, P·Tl)
+    global cache positions gathered, in shard order."""
+    B, _, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    Pn = seq_shards(mesh, axis)
+    if mesh.data.size != Pn:
+        raise ValueError(f"sequence axes of {Pn} shards on a data axis of {mesh.data.size}")
+    Tl = max(1, -(-topk // Pn))  # local budget: ceil(T / P)
+
+    qp = torch.einsum("bqhd,dm->bqhm", q.float(), lsh_a.float())
+    qp_g = qp.reshape(B, KV, G, -1).mean(dim=2).to(pk.dtype).float()  # (B, KV, m)
+    if mesh.data.emulated and k.shape[1] % Pn:
+        raise ValueError(f"a cache of {k.shape[1]} rows does not split over {Pn} shards")
+    blocks = [_shard_blocks(mesh, t) for t in (k, v, pk)]
+    cands = []
+    for (p, kb), (_, vb), (_, pkb) in zip(*blocks):
+        Sl = pkb.shape[1]
+        if Tl > Sl:
+            raise ValueError(f"local budget ceil({topk}/{Pn}) = {Tl} exceeds the shard "
+                             f"length {Sl}")
+        pos = p * Sl + torch.arange(Sl, device=q.device)
+        score = torch.einsum("bskm,bkm->bsk", pkb.float(), qp_g)
+        score = score.masked_fill(~(pos < kv_len)[None, :, None], float("-inf"))
+        li = top_k_lowest_index(score.transpose(1, 2), Tl)[1]  # (B, KV, Tl)
+        li_s = li.transpose(1, 2)[..., None].expand(B, Tl, KV, hd)
+        sel = p * Sl + li
+        cands.append((torch.gather(kb, 1, li_s).transpose(1, 2),
+                      torch.gather(vb, 1, li_s).transpose(1, 2),
+                      (sel < kv_len).to(torch.uint8), sel))
+    # only the candidates (keys, values, valid flags) cross the wire, in
+    # shard order; the positions only when asked for
+    k_all, v_all, ok_all, *pos_all = (
+        torch.cat(mesh.data.all_gather([c[i] for c in cands]), dim=2)
+        for i in range(4 if return_positions else 3))
+    qg = q.reshape(B, KV, G, hd).float() * hd**-0.5
+    s = torch.einsum("bkgd,bktd->bkgt", qg, k_all.float())
+    s = s.masked_fill(~ok_all.bool()[:, :, None, :], -1e30)
+    prob = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgt,bktd->bkgd", prob, v_all.float()).reshape(B, 1, H, hd).to(q.dtype)
+    return (out, pos_all[0]) if return_positions else out
 
 
 def lsh_attention_reference(q, k, v, *, kv_len) -> torch.Tensor:

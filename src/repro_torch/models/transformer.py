@@ -177,7 +177,8 @@ def init_cache(cfg, batch: int, max_seq: int, *,
 # ---------------------------------------------------------------------------
 
 
-def _block_apply(kind: str, p, x, cfg, *, positions, cache, cache_index, memory):
+def _block_apply(kind: str, p, x, cfg, *, positions, cache, cache_index, memory,
+                 lsh_shard=None):
     """Pre-norm residual block. Returns (x, cache)."""
     eps = cfg.norm_eps
     if kind == "rec":
@@ -195,7 +196,7 @@ def _block_apply(kind: str, p, x, cfg, *, positions, cache, cache_index, memory)
     a, nc = L.attention_apply(
         p["attn"], L.rms_norm(x, p["ln1"], eps), cfg,
         positions=positions, cache=cache, cache_index=cache_index,
-        window=window, use_lsh=use_lsh,
+        window=window, use_lsh=use_lsh, lsh_shard=lsh_shard,
     )
     x = x + a
     if kind == "cross":
@@ -215,6 +216,7 @@ def forward(
     memory: torch.Tensor | None = None,  # vlm image embeddings (B, M, d)
     remat: str = "unit",  # "unit" | "dots" | "none"
     logits_slice: str = "all",  # "all" | "last" | "hidden"
+    lsh_shard: tuple | None = None,  # (mesh, axis): the caches' sequence is split
 ) -> tuple[torch.Tensor, list[dict] | None]:
     """Returns (logits, caches): float32 logits (B, S or 1, Vp), or the
     final-normed hidden states for ``logits_slice="hidden"``; the caches
@@ -233,7 +235,7 @@ def forward(
         raise ValueError(f"{len(caches)} layer caches for {len(kinds)} layers")
     unit, n_units, _ = layer_plan(cfg)
     B, S = tokens.shape
-    x = params.embed[tokens].to(cfg.dtype)
+    x = L.embed_lookup(params.embed, tokens).to(cfg.dtype)
     positions = position0 + torch.arange(S, device=x.device)
 
     def run(x, lo: int, hi: int):
@@ -241,7 +243,7 @@ def forward(
             x, _ = _block_apply(
                 kinds[i], params.blocks[i], x, cfg,
                 positions=positions, cache=None if caches is None else caches[i],
-                cache_index=position0, memory=memory,
+                cache_index=position0, memory=memory, lsh_shard=lsh_shard,
             )
         return x
 
@@ -266,9 +268,12 @@ def forward(
 def _token_losses(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """lse − the gold logit per token; the gold logit by a one-hot
     contraction, as the reference takes it (a gather over a model-sharded
-    vocabulary would all-gather the logits)."""
+    vocabulary would all-gather the logits).  The one-hot is
+    ``jax.nn.one_hot``'s own definition, ``labels == arange(Vp)``: a label
+    outside [0, Vp) gives a zero row, so its token adds its lse alone."""
     lse = torch.logsumexp(logits, dim=-1)
-    onehot = torch.zeros_like(logits).scatter_(-1, labels.long()[..., None], 1.0)
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    onehot = (labels.long()[..., None] == vocab).to(logits.dtype)
     gold = torch.sum(logits * onehot, dim=-1)
     return lse - gold
 
@@ -317,10 +322,11 @@ def prefill(params: DecoderLM, batch: dict, cfg, *, max_seq: int | None = None):
                    memory=batch.get("image_embeds"), logits_slice="last")
 
 
-def decode_step(params: DecoderLM, caches: list[dict], batch: dict, cfg):
+def decode_step(params: DecoderLM, caches: list[dict], batch: dict, cfg, lsh_shard=None):
     """One-token decode against a filled cache.  batch: tokens (B,1),
     position (an int or a 0-d tensor). Returns (logits (B,1,V), caches),
-    the caches written in place."""
+    the caches written in place; ``lsh_shard`` (mesh, axis) when their
+    sequence is split (the sharded PM-LSH decode)."""
     return forward(params, batch["tokens"], cfg, caches=caches,
                    position0=batch["position"], memory=batch.get("image_embeds"),
-                   logits_slice="last", remat="none")
+                   logits_slice="last", remat="none", lsh_shard=lsh_shard)

@@ -140,7 +140,7 @@ def forward(params: EncDecLM, tokens: torch.Tensor, frames: torch.Tensor, cfg, *
                          f"caches for {len(params.decoder)} decoder layers")
     memory = encode(params, frames, cfg)
     B, S = tokens.shape
-    x = params.embed[tokens].to(cfg.dtype)
+    x = L.embed_lookup(params.embed, tokens).to(cfg.dtype)
     positions = position0 + torch.arange(S, device=x.device)
     for i, p in enumerate(params.decoder):
         if caches is None:  # the train path: each layer recomputed in the backward
@@ -165,7 +165,7 @@ def decode_step(params: EncDecLM, caches: dict, batch: dict, cfg):
     (logits (B, 1, Vp), caches), the self caches written in place."""
     tokens, position0 = batch["tokens"], batch["position"]
     S = tokens.shape[1]
-    x = params.embed[tokens].to(cfg.dtype)
+    x = L.embed_lookup(params.embed, tokens).to(cfg.dtype)
     positions = position0 + torch.arange(S, device=x.device)
     for p, c_self, c_cross in zip(params.decoder, caches["self"], caches["cross"]):
         x = _dec_layer_apply(p, x, cfg, positions=positions, cache=c_self,

@@ -20,11 +20,20 @@ backpressure.
 
 The model steps ``make_prefill`` (fills the KV cache) and
 ``make_decode_step`` (one token against it) return ``(fn, info)`` as the
-reference's do.  The port runs eagerly on one device, so ``fn`` is a
-plain function under ``torch.inference_mode()`` and ``info`` carries the
-shapes where the reference carries shardings; the decode step writes
-the cache in place, the counterpart of the reference's donated cache.
-Meshes with a 'model' axis past one device come with ROADMAP A12d.
+reference's do.  The port runs eagerly, so ``fn`` is a plain function
+under ``torch.inference_mode()`` and ``info`` carries the shapes where
+the reference carries shardings, and ``lsh_shard``, the decode's form;
+the decode step writes the cache in place, the counterpart of the
+reference's donated cache.
+
+On a mesh whose data axis is P > 1 the reference's rule picks the form
+(:func:`lsh_shard_rule`): a batch that does not divide the axis, with
+PM-LSH attention, splits the cache's SEQUENCE over the axis as
+``launch.sharding.cache_pspecs`` lays it out, and each step runs the
+tournament merge (``models.lsh_attention.lsh_decode_attention_sharded``):
+a group rank holds only its (B, max_seq/P, KV, ·) blocks.  Otherwise
+every shard runs the whole batch on a whole cache.  A 'model' axis past
+one device is ROADMAP A12d3.
 """
 from __future__ import annotations
 
@@ -33,11 +42,13 @@ import torch
 
 from ..configs.base import InputShape, input_specs
 from ..index import IndexConfig, build_index
-from ..launch.mesh import make_host_mesh
+from ..launch.mesh import axis_size, dp_axes, make_host_mesh
+from ..launch.sharding import cache_pspecs, local_shape
 from ..models import model_module
 from .batcher import PAD_DISTANCE
 
-__all__ = ["RetrievalStep", "make_decode_step", "make_prefill", "make_retrieval_step"]
+__all__ = ["RetrievalStep", "lsh_shard_rule", "make_decode_step", "make_prefill",
+           "make_retrieval_step"]
 
 
 class RetrievalStep:
@@ -222,51 +233,92 @@ def _check_tokens(batch_in: dict, want: tuple, what: str) -> None:
         raise ValueError(f"{what} was built for tokens {want}, got {got}")
 
 
-def _step_info(cfg, mod, b_specs, c_specs) -> dict:
+def _step_info(cfg, mod, b_specs, c_specs, lsh_shard) -> dict:
     aparams = mod.abstract_params(cfg)
     return {"params": _shapes(aparams), "batch": _shapes(b_specs),
             "cache": _shapes(c_specs), "abstract_params": aparams,
-            "cache_specs": c_specs, "batch_specs": b_specs}
+            "cache_specs": c_specs, "batch_specs": b_specs,
+            "lsh_shard": None if lsh_shard is None else lsh_shard[1]}
+
+
+def lsh_shard_rule(cfg, mesh, *, batch: int, max_seq: int):
+    """The reference's choice of the decode's form: ``(mesh, axes)`` for
+    the sequence-sharded PM-LSH decode — the batch does not divide the
+    data-parallel axes, PM-LSH attention is on, the family is not the
+    encoder-decoder and 'data' > 1; the axes are ('data', 'model') when
+    ``max_seq`` divides both, else 'data' when it divides that — or None
+    for the plain decode."""
+    dp_size = int(np.prod([axis_size(mesh, a) for a in dp_axes(mesh)]))
+    data_sz, model_sz = axis_size(mesh, "data"), axis_size(mesh, "model")
+    if (batch % dp_size != 0 and cfg.lsh_attention and cfg.family != "encdec"
+            and data_sz > 1):
+        if max_seq % (data_sz * model_sz) == 0:
+            return (mesh, ("data", "model"))
+        if max_seq % data_sz == 0:
+            return (mesh, "data")
+    return None
+
+
+def _fresh_cache(cfg, mod, c_specs, mesh, lsh_shard, *, batch: int, max_seq: int):
+    """Zeroed caches: whole on the mesh's device, or, for the sharded
+    decode in a group, the rank's blocks as ``cache_pspecs`` lays them
+    out (an emulated mesh holds the whole tensors, read as P blocks)."""
+    if lsh_shard is None or mesh.data.emulated:
+        return mod.init_cache(cfg, batch, max_seq, device=mesh.device)
+    specs = cache_pspecs(c_specs, mesh, batch=batch, max_seq=max_seq)
+    return [{name: torch.zeros(local_shape(t.shape, spec[name], mesh), dtype=t.dtype,
+                               device=mesh.device) for name, t in c.items()}
+            for c, spec in zip(c_specs, specs)]
 
 
 def make_prefill(cfg, mesh=None, *, batch: int, seq_len: int, max_seq: int | None = None):
     """``fn(params, batch_in) -> (last logits (B, 1, Vp), caches)``: a
     forward over the prompt that fills fresh caches of ``max_seq`` rows
     (recurrent states for the recurrent blocks) on the mesh's device (the
-    card unless the mesh names the CPU).  The encoder-decoder takes
+    card unless the mesh names the CPU), laid out for the decode's form
+    (:func:`lsh_shard_rule`).  The encoder-decoder takes
     ``batch_in["audio_frames"]`` and also fills each layer's cross K/V."""
     mesh = make_host_mesh() if mesh is None else mesh
     mod = model_module(cfg)
     max_seq = max_seq or seq_len
     c_specs = mod.cache_specs(cfg, batch, max_seq)
     b_specs = input_specs(cfg, InputShape("prefill", seq_len, batch, "prefill"))
+    lsh_shard = lsh_shard_rule(cfg, mesh, batch=batch, max_seq=max_seq)
 
     @torch.inference_mode()
     def fn(params, batch_in):
         _check_tokens(batch_in, (batch, seq_len), "make_prefill")
-        caches = mod.init_cache(cfg, batch, max_seq, device=mesh.device)
+        caches = _fresh_cache(cfg, mod, c_specs, mesh, lsh_shard, batch=batch,
+                              max_seq=max_seq)
         if cfg.family == "encdec":
             return mod.forward(params, batch_in["tokens"], batch_in["audio_frames"], cfg,
                                caches=caches, logits_slice="last")
         return mod.forward(params, batch_in["tokens"], cfg, caches=caches, position0=0,
-                           memory=batch_in.get("image_embeds"), logits_slice="last")
+                           memory=batch_in.get("image_embeds"), logits_slice="last",
+                           lsh_shard=lsh_shard)
 
-    return fn, _step_info(cfg, mod, b_specs, c_specs)
+    return fn, _step_info(cfg, mod, b_specs, c_specs, lsh_shard)
 
 
 def make_decode_step(cfg, mesh=None, *, batch: int, max_seq: int):
     """``fn(params, caches, batch_in) -> (logits (B, 1, Vp), caches)``: one
     token per sequence at ``batch_in["position"]`` (an int or a 0-d
-    tensor), the caches written in place.  The encoder-decoder's step
-    reads its cached cross K/V and needs no frames."""
+    tensor), the caches written in place — the sequence-sharded PM-LSH
+    decode where :func:`lsh_shard_rule` picks it (``info["lsh_shard"]``
+    names its axes), on caches ``make_prefill`` on the same mesh filled.
+    The encoder-decoder's step reads its cached cross K/V and needs no
+    frames."""
     mesh = make_host_mesh() if mesh is None else mesh
     mod = model_module(cfg)
     c_specs = mod.cache_specs(cfg, batch, max_seq)
     b_specs = input_specs(cfg, InputShape("decode", max_seq, batch, "decode"))
+    lsh_shard = lsh_shard_rule(cfg, mesh, batch=batch, max_seq=max_seq)
 
     @torch.inference_mode()
     def fn(params, caches, batch_in):
         _check_tokens(batch_in, (batch, 1), "make_decode_step")
-        return mod.decode_step(params, caches, batch_in, cfg)
+        if cfg.family == "encdec":
+            return mod.decode_step(params, caches, batch_in, cfg)
+        return mod.decode_step(params, caches, batch_in, cfg, lsh_shard=lsh_shard)
 
-    return fn, _step_info(cfg, mod, b_specs, c_specs)
+    return fn, _step_info(cfg, mod, b_specs, c_specs, lsh_shard)

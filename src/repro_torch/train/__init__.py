@@ -1,9 +1,9 @@
 """repro_torch.train — the LM's training step (the port of ``repro.train``):
 ``optimizer`` (AdamW with global-norm clipping, applied in place) and
-``train_step`` (loss → gradients → update on the one-device host mesh).
-The reference's int8 error-feedback gradient reduction
-(``grad_compression``) runs over a data axis of several devices and
-comes with the multi-card layouts (ROADMAP A12d).
+``train_step`` (loss → gradients → update, data-parallel over the host
+mesh's data axis when it has several shards) and ``grad_compression``
+(the reference's int8 error-feedback gradient reduction over that axis
+and its data-parallel step).
 """
 from .optimizer import (  # noqa: F401
     AdamWConfig,
@@ -12,5 +12,10 @@ from .optimizer import (  # noqa: F401
     global_norm,
     init_opt_state,
     lr_schedule,
+)
+from .grad_compression import (  # noqa: F401
+    init_residuals,
+    make_compressed_train_step,
+    tree_compress_psum,
 )
 from .train_step import loss_and_grads, make_loss_fn, make_train_step, train_step  # noqa: F401

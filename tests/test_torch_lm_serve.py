@@ -79,7 +79,9 @@ def test_model_steps_match_the_reference_steps(arch):
         jdec, _ = jax_make_decode_step(jc, jmesh, batch=B, max_seq=Smax)
     tpre, tinfo = make_prefill(tc, _mesh(), batch=B, seq_len=S, max_seq=Smax)
     tdec, dinfo = make_decode_step(tc, _mesh(), batch=B, max_seq=Smax)
-    assert set(tinfo) == set(jinfo) == set(dinfo)
+    # the reference's keys, and the decode's form (the one-device mesh: plain)
+    assert set(tinfo) == set(dinfo) == set(jinfo) | {"lsh_shard"}
+    assert tinfo["lsh_shard"] is dinfo["lsh_shard"] is None
     assert {n: tuple(s.shape) for n, s in jinfo["batch_specs"].items()} == tinfo["batch"]
     assert dinfo["batch"]["tokens"] == (B, 1) and dinfo["batch"]["position"] == ()
     kv = (B, Smax, tc.n_kv_heads, tc.head_dim)

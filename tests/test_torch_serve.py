@@ -1434,7 +1434,8 @@ def test_exports_match_the_reference_and_lm_steps_name_their_slice():
                         **({"seq_len": 8} if name == "make_prefill" else {}))
         assert callable(fn)
         assert set(info) == {"params", "batch", "cache", "abstract_params", "cache_specs",
-                             "batch_specs"}
+                             "batch_specs", "lsh_shard"}  # the reference's, and the form
+        assert info["lsh_shard"] is None  # the encoder-decoder: never the sharded decode
         assert info["cache"]["cross"][0]["ck"] == (1, cfg.n_audio_frames, cfg.n_kv_heads,
                                                    cfg.head_dim)
         if name == "make_prefill":

@@ -188,6 +188,94 @@ def test_chunked_cross_entropy_matches_jax(S_, chunk):
     _close_to_largest([tx.grad.numpy(), th.grad.numpy()], jg, 1e-5)
 
 
+# fault C1: labels and tokens outside the padded vocabulary (losses to the
+# reference's 1e-6 relative, gradients to 1e-5 of the largest; embedding
+# rows equal, NaN included; logits NaN where the reference's are, the rest
+# to 1e-4 of the largest)
+
+VP_C1 = 16
+
+
+@pytest.mark.parametrize("label", [-1, VP_C1, -VP_C1 - 1])
+def test_cross_entropy_on_a_label_outside_the_vocabulary_matches_jax(label):
+    """``jax.nn.one_hot`` gives a zero row there: the token adds its lse alone."""
+    r = np.random.default_rng(11)
+    logits = (r.normal(size=(2, 8, VP_C1)) * 2).astype(np.float32)
+    labels = r.integers(0, VP_C1, (2, 8)).astype(np.int32)
+    labels[1, 3] = label
+    want, jg = jax.value_and_grad(lambda z: jt.cross_entropy(z, labels, VP_C1))(logits)
+    t = torch.from_numpy(logits).requires_grad_()
+    got = tt.cross_entropy(t, torch.from_numpy(labels), VP_C1)
+    got.backward()
+    assert np.isfinite(float(want))
+    assert abs(got.item() - float(want)) <= 1e-6 * abs(float(want))
+    _close_to_largest([t.grad.numpy()], [jg], 1e-5)
+
+
+@pytest.mark.parametrize("label", [-1, VP_C1, -VP_C1 - 1])
+def test_chunked_cross_entropy_on_a_label_outside_the_vocabulary_matches_jax(label):
+    r = np.random.default_rng(12)
+    x = r.normal(size=(2, 8, 4)).astype(np.float32)
+    head = r.normal(size=(4, VP_C1)).astype(np.float32)
+    labels = r.integers(0, VP_C1, (2, 8)).astype(np.int32)
+    labels[0, 5] = label
+    want = jt.chunked_cross_entropy(x, head, labels, 4)
+    got = tt.chunked_cross_entropy(torch.from_numpy(x), torch.from_numpy(head),
+                                   torch.from_numpy(labels), 4)
+    assert np.isfinite(float(want))
+    assert abs(got.item() - float(want)) <= 1e-6 * abs(float(want))
+
+
+def test_embedding_lookup_follows_jnp_take_fill_mode():
+    """[−Vp, Vp) wraps (−1 reads the last row), anything else a NaN row."""
+    table = np.random.default_rng(13).normal(size=(VP_C1, 3)).astype(np.float32)
+    tokens = np.array([[-VP_C1 - 1, -VP_C1, -1, 0, VP_C1 - 1, VP_C1, VP_C1 + 7]], np.int32)
+    want = np.asarray(jnp.take(table, tokens, axis=0))
+    got = tL.embed_lookup(torch.from_numpy(table), torch.from_numpy(tokens)).numpy()
+    np.testing.assert_array_equal(got, want)  # NaN where the reference has NaN
+    assert np.isnan(got[0, [0, 5, 6]]).all() and np.isfinite(got[0, 1:5]).all()
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "whisper_base"])
+def test_forward_on_tokens_outside_the_vocabulary_matches_jax(arch):
+    jc, tc, jp, tp = _both(arch, "float32")
+    Vp = tc.padded_vocab()
+    toks = np.random.default_rng(14).integers(0, tc.vocab_size, (3, 8)).astype(np.int32)
+    toks[0, 2], toks[1, 5], toks[2, 1] = -1, Vp, Vp + 7
+    jb, tb = _batches(jc)
+    mem = {n: v for n, v in jb.items() if n in ("image_embeds", "audio_frames")}
+    if jc.family == "encdec":
+        frames = np.asarray(mem["audio_frames"])[:1].repeat(3, axis=0)
+        want, _ = jax_model_module(jc).forward(jp, jnp.asarray(toks), jnp.asarray(frames), jc)
+        got, _ = tt_module(tc).forward(tp, torch.from_numpy(toks), torch.from_numpy(frames), tc)
+    else:
+        want, _ = jt.forward(jp, jnp.asarray(toks), jc)
+        got, _ = tt.forward(tp, torch.from_numpy(toks), tc)
+    want, got = np.asarray(want), got.detach().numpy()
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(want[1:]).any() and np.isfinite(want[0]).all()  # −1 wraps, Vp is NaN
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=0, atol=1e-4 * np.abs(want[fin]).max())
+
+
+def test_whisper_decode_step_reads_tokens_as_jnp_take_does():
+    _, tc, _, tp = _both("whisper_base", "float32")
+    Vp = tc.padded_vocab()
+    mod = tt_module(tc)
+    frames = torch.from_numpy(np.random.default_rng(15).normal(
+        size=(1, tc.n_audio_frames, tc.d_model)).astype(np.float32) * 0.1)
+    logits = {}
+    for tok in (-1, Vp - 1, Vp + 7):
+        with torch.inference_mode():
+            caches = mod.init_cache(tc, 1, 8, device="cpu")
+            mod.forward(tp, torch.zeros((1, 4), dtype=torch.int32), frames, tc, caches=caches,
+                        logits_slice="last")
+            logits[tok], _ = mod.decode_step(tp, caches, {"tokens": torch.full((1, 1), tok),
+                                                          "position": 4}, tc)
+    assert torch.equal(logits[-1], logits[Vp - 1]) and torch.isfinite(logits[-1]).all()
+    assert torch.isnan(logits[Vp + 7]).all()
+
+
 # ---------------------------------------------------------------------------
 # the models' losses and gradients
 # ---------------------------------------------------------------------------
