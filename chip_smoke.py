@@ -490,6 +490,39 @@ LM_DP_TOL = 1e-5
 # launch-bound, so an emulated shard costs a whole step; at 12 layers the
 # phase took 226.1 s of the script's 662.8 (NVIDIA H100 80GB HBM3, 700 W)
 LM_DP_LAYERS = 4
+# The LM's ('data', 'model') mesh (phase lm_tp): (a) qwen3-moe-30b-a3b
+# at its published widths with 2 of its 48 layers, bfloat16 parameters and
+# float32 AdamW moments, capacity_factor 1.25 (the config's), B = 4 × 4,096
+# (train_4k's sequence), 3 steps a form — one device, emulated (2, 2) with
+# FSDP and SP, emulated (1, 4) with SP, an NCCL group of one on the 2-D code path
+# (FSDP at (1, 1)) — the first step's loss and gradient norm held to the
+# one-device step's; (b) yi-6b at full width and depth, B = 4 prompts of
+# 1,024 tokens into max_seq 2,048, 8 greedy tokens, at (1, 2), (1, 4) and
+# (2, 2), and recurrentgemma-9b at (1, 2) (its MQA wk halved mid-head, the
+# RG-LRU split on its width), the first logits held to one device's;
+# (c) lm_shard (b)'s long_500k cache at (4, 2) and (2, 4): layer 0's
+# positions and output bit for bit the data = 8 form.  The tolerances: a
+# row-parallel output is the sum of M bfloat16 partial products where one
+# device rounds one product, so the activations differ by bfloat16 ulps and
+# a router near a tie may pick another expert at a dropping capacity —
+# 1e-2 relative on the first loss, 5e-2 on the first gradient norm (the
+# smoke config in bfloat16 on the CPU reads up to 1.4e-2 on the norm at
+# (1, 4)).  The serve logits are held to a float32 twin of the same
+# weights on one device: a form's first logits at most LM_TP_SERVE_NOISE
+# times as far from it as the one-device bfloat16 logits are (both
+# round their sums in bfloat16, the form M partial sums more), with
+# lm_serve's correlation bound (LM_CONSISTENCY_CORR); chip call 1 read
+# recurrentgemma-9b's (1, 2) logits 0.0546 of the largest off the
+# one-device bfloat16 ones, where lm_families' two bfloat16 orders read
+# 0.0388 (call 8, PR 26).
+LM_TP_ARCH, LM_TP_LAYERS, LM_TP_BATCH, LM_TP_SEQ, LM_TP_STEPS = (
+    "qwen3-moe-30b-a3b", 2, 4, 4096, 3)
+LM_TP_LOSS_TOL, LM_TP_NORM_TOL = 1e-2, 5e-2
+LM_TP_TRAIN_FORMS = (("emulated2x2_fsdp_sp", 2, 2, True), ("emulated1x4_sp", 1, 4, False))
+LM_TP_SERVE = (("yi-6b", ((1, 2), (1, 4), (2, 2))), ("recurrentgemma-9b", ((1, 2),)))
+LM_TP_PROMPT, LM_TP_MAX_SEQ, LM_TP_GEN = 1024, 2048, 8
+LM_TP_SERVE_NOISE = 2.0
+LM_TP_LSH = ((4, 2), (2, 4))
 # the span trees of one traced call of each path, (name, parent index):
 # the reference's trees (a CPU test holds them to repro's)
 EXPECTED_SPAN_TREES = {
@@ -3135,12 +3168,12 @@ def _shard_decode(torch, cfg, params, P: int, dev, prompt, gen: int, max_seq: in
             "positions_plain": pos_ok, "prefill_ms": ev[0].elapsed_time(ev[1]) if ev else None}
 
 
-def lm_shard_phase(torch, dev, seed: int) -> None:
+def lm_shard_phase(torch, dev, seed: int) -> dict:
     """The sequence-sharded PM-LSH decode: (a) the entry points at yi-6b's
     full width on emulated data = 2, 4, 8 and the smoke config on the card
     against the CPU port; (b) long_500k's shape at P = 1, 2, 4, 8 from a
     cache drawn on the card; (c) an NCCL group of one against the emulated
-    P = 1 form."""
+    P = 1 form.  Returns layer 0's long_500k query, cache and budget."""
     import shutil
     import tempfile
 
@@ -3278,6 +3311,9 @@ def lm_shard_phase(torch, dev, seed: int) -> None:
             shutil.rmtree(store, ignore_errors=True)
     check(torch.equal(out_g, out_e) and torch.equal(pos_g, pos_e),
           "lm_shard (c): the NCCL group of one differs from the emulated P = 1 form")
+    # layer 0's long_500k case is lm_tp (c)'s input
+    long_case = {"q": q0, "k": c0["k"], "v": c0["v"], "pk": c0["pk"], "a": a,
+                 "kv_len": kv_len, "topk": T}
     del caches, c0, q0
     gc.collect()
     torch.cuda.empty_cache()
@@ -3295,6 +3331,7 @@ def lm_shard_phase(torch, dev, seed: int) -> None:
                                   "weight_bytes": weight_bytes, "selected_bytes": sel_bytes}},
           "check_c": {"backend": "nccl", "world_size": 1, "bit_for_bit": True},
           "seconds": time.perf_counter() - t_phase})
+    return long_case
 
 
 def lm_dp_train_phase(torch, dev, seed: int) -> None:
@@ -3439,6 +3476,246 @@ def lm_dp_train_phase(torch, dev, seed: int) -> None:
           "reduction_bytes_a_shard": {"run": wire(cfg), "published_depth": wire(full),
                                       "min_compressed": gcomp.MIN_COMPRESSED},
           "tol": LM_DP_TOL, "seconds": time.perf_counter() - t_phase})
+
+
+def _tp_train_forms(torch, dev, seed: int) -> dict:
+    """lm_tp (a): qwen3-moe-30b-a3b cut to LM_TP_LAYERS layers trained on
+    each form from the same seeded state."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.models import model_module
+    from repro_torch.train import AdamWConfig, init_opt_state, make_train_step
+    from repro_torch.train.train_step import batch_to_device, shard_params
+
+    full = get_config(LM_TP_ARCH)
+    check((full.n_layers, full.d_model, full.n_heads, full.n_kv_heads, full.n_experts,
+           full.n_experts_per_token, full.moe_d_ff, full.vocab_size, full.capacity_factor)
+          == (48, 2048, 32, 4, 128, 8, 768, 151936, 1.25) and full.dtype == torch.bfloat16,
+          f"lm_tp (a): {full.name} is not qwen3-moe-30b-a3b's configuration")
+    cfg = full.replace(n_layers=LM_TP_LAYERS)
+    mod = model_module(cfg)
+    B, S = LM_TP_BATCH, LM_TP_SEQ
+    batch = batch_to_device(SyntheticTokens(cfg.vocab_size, B, S, seed=seed).batch_at(0), dev)
+    specs = {k: torch.empty((B, S), dtype=torch.int32, device="meta") for k in batch}
+    ocfg = AdamWConfig()
+
+    def run(name, mesh, fsdp: bool) -> dict:
+        torch.cuda.reset_peak_memory_stats()
+        fn, info = make_train_step(cfg, mesh, batch_specs=specs, opt_cfg=ocfg, fsdp=fsdp)
+        params = mod.init_params(cfg, seed, device=dev)
+        if info["parallel"] and not mesh.emulated:
+            shard_params(params, mesh, info["layouts"])
+        opt = init_opt_state(params)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(LM_TP_STEPS + 1)]
+        losses, norms = [], []
+        ev[0].record()
+        for i in range(LM_TP_STEPS):
+            params, opt, m_ = fn(params, opt, batch)
+            ev[i + 1].record()
+            losses.append(m_["loss"])
+            norms.append(m_["grad_norm"])
+        torch.cuda.synchronize()
+        out = {"mesh": list(mesh.axis_sizes), "emulated": mesh.emulated, "fsdp": fsdp,
+               "parallel": info["parallel"], "sp": info["sp_spec"] is not None,
+               "losses": [float(x) for x in losses], "grad_norms": [float(x) for x in norms],
+               "step_ms": [ev[i].elapsed_time(ev[i + 1]) for i in range(LM_TP_STEPS)],
+               "peak_bytes": torch.cuda.max_memory_allocated()}
+        check(np.isfinite(out["losses"] + out["grad_norms"]).all(),
+              f"lm_tp (a): {name} losses {out['losses']} not all finite")
+        del params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    forms = {"one_device": run("one device", make_host_mesh(device=dev), False)}
+    check(not forms["one_device"]["parallel"], "lm_tp (a): the one-device step ran the layouts")
+    for name, D, M, fsdp_sp in LM_TP_TRAIN_FORMS:
+        forms[name] = run(name, make_host_mesh(M, data=D, device=dev), fsdp_sp)
+        check(forms[name]["parallel"] and forms[name]["sp"],
+              f"lm_tp (a): {name} did not run the layouts with SP (the reference's rule)")
+    store = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", world_size=1, rank=0)
+    try:
+        gmesh = make_host_mesh(device="cuda")
+        check(not gmesh.emulated, "lm_tp (a): the mesh is not the NCCL group")
+        forms["nccl1_fsdp"] = run("nccl1_fsdp", gmesh, True)
+        check(forms["nccl1_fsdp"]["parallel"], "lm_tp (a): the NCCL group took the 1-D path")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    one = forms["one_device"]
+    for name, f in forms.items():
+        f["first_loss_rel_err"] = abs(f["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
+        f["first_grad_norm_rel_err"] = (abs(f["grad_norms"][0] - one["grad_norms"][0])
+                                        / abs(one["grad_norms"][0]))
+        check(f["first_loss_rel_err"] <= LM_TP_LOSS_TOL
+              and f["first_grad_norm_rel_err"] <= LM_TP_NORM_TOL,
+              f"lm_tp (a): {name} first loss / grad norm off the one-device step's by "
+              f"{f['first_loss_rel_err']} / {f['first_grad_norm_rel_err']} > "
+              f"{LM_TP_LOSS_TOL} / {LM_TP_NORM_TOL}")
+    n_params = sum(p.numel() for p in mod.abstract_params(cfg).parameters())
+    # a model-axis psum of one layer's forward: the attention's and the
+    # experts' (B/D, S, d) partial outputs, bfloat16; SP moves the same
+    # bytes as a reduce-scatter and an all-gather
+    psum = {name: 2 * (B // f["mesh"][0]) * S * cfg.d_model * 2
+            for name, f in forms.items() if f["mesh"][1] > 1}
+    return {"arch": cfg.name, "reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
+            "params": n_params, "param_bytes_bf16": 2 * n_params,
+            "moment_bytes_f32": 8 * n_params, "batch": B, "seq_len": S,
+            "steps": LM_TP_STEPS, "capacity_factor": cfg.capacity_factor,
+            "tol": {"loss": LM_TP_LOSS_TOL, "grad_norm": LM_TP_NORM_TOL},
+            "forms": forms, "model_psum_bytes_a_layer_forward": psum}
+
+
+def _tp_serve_forms(torch, dev, seed: int) -> dict:
+    """lm_tp (b): the serving steps at full width on 2-D meshes against
+    one device, and the caches' blocks as ``cache_pspecs`` lays them."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.launch.sharding import cache_pspecs, local_shape
+    from repro_torch.models import model_module
+    from repro_torch.serve.serve_step import make_decode_step, make_prefill, step_form
+
+    out = {}
+    B, P, G, S = LM_BATCH, LM_TP_PROMPT, LM_TP_GEN, LM_TP_MAX_SEQ
+    for arch, meshes in LM_TP_SERVE:
+        cfg = get_config(arch)
+        mod = model_module(cfg)
+        params = mod.init_params(cfg, seed, device=dev)
+        prompts = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (B, P)).astype(np.int32)).to(dev)
+
+        def serve(mesh, tokens=None, model=None, mcfg=cfg, gen=G):
+            model = params if model is None else model
+            pre, _ = make_prefill(mcfg, mesh, batch=B, seq_len=P, max_seq=S)
+            dec, _ = make_decode_step(mcfg, mesh, batch=B, max_seq=S)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(G + 2)]
+            ev[0].record()
+            logits, caches = pre(model, {"tokens": prompts})
+            ev[1].record()
+            first, toks = logits, []
+            for i in range(gen):
+                t = (torch.argmax(logits, dim=-1).to(torch.int32) if tokens is None
+                     else tokens[:, i:i + 1])
+                toks.append(t)
+                logits, caches = dec(model, caches, {"tokens": t, "position": P + i})
+                ev[i + 2].record()
+            torch.cuda.synchronize()
+            del caches
+            return {"first": first.float(), "last": logits.float(),
+                    "tokens": torch.cat(toks, 1) if toks else None,
+                    "prefill_ms": ev[0].elapsed_time(ev[1]),
+                    "decode_ms": [ev[i + 1].elapsed_time(ev[i + 2]) for i in range(gen)]}
+
+        torch.cuda.reset_peak_memory_stats()
+        one = serve(make_host_mesh(device=dev))
+        entry = {"one_device": {"prefill_ms": one["prefill_ms"],
+                                "decode_ms_median": statistics.median(one["decode_ms"]),
+                                "peak_bytes": torch.cuda.max_memory_allocated()}}
+        # the float32 twin of the same (bfloat16-rounded) weights, one device
+        cfg32 = cfg.replace(dtype=torch.float32)
+        twin = mod.init_params(cfg32, device="meta")
+        for (name, w), (_, t) in zip(params.named_parameters(), twin.named_parameters()):
+            mod_name, _, leaf = name.rpartition(".")
+            owner = twin.get_submodule(mod_name) if mod_name else twin
+            owner._parameters[leaf] = torch.nn.Parameter(w.detach().float(),
+                                                          requires_grad=False)
+        ref = serve(make_host_mesh(device=dev), model=twin, mcfg=cfg32, gen=0)["first"]
+        del twin
+        gc.collect()
+        torch.cuda.empty_cache()
+        noise = float((one["first"] - ref).abs().max() / ref.abs().max())
+        entry["one_device"]["first_logits_rel_err_to_f32"] = noise
+        c_specs = mod.cache_specs(cfg, B, S)
+        for D, M in meshes:
+            mesh = make_host_mesh(M, data=D, device=dev)
+            form = step_form(cfg, mesh, batch=B, max_seq=S)
+            check(form["parallel"] and form["split"] == (D > 1),
+                  f"lm_tp (b): {arch} at ({D}, {M}) took the form {form['parallel'], form['split']}")
+            torch.cuda.reset_peak_memory_stats()
+            got = serve(mesh, tokens=one["tokens"])
+            rel = float((got["first"] - one["first"]).abs().max() / one["first"].abs().max())
+            rel32 = float((got["first"] - ref).abs().max() / ref.abs().max())
+            corr = _corr(torch, got["first"], one["first"])
+            check(bool(torch.isfinite(got["last"]).all()),
+                  f"lm_tp (b): {arch} at ({D}, {M}) logits not all finite")
+            check(rel32 <= LM_TP_SERVE_NOISE * noise and corr >= LM_CONSISTENCY_CORR,
+                  f"lm_tp (b): {arch} at ({D}, {M}) first logits {rel32} off the float32 "
+                  f"twin's against one device's {noise} (× {LM_TP_SERVE_NOISE}), corr {corr}")
+            # the blocks a shard holds, as cache_pspecs lays them out: rows
+            # B/D, kv heads over 'model' where M divides them, else the width
+            specs = cache_pspecs(c_specs, mesh, batch=B, max_seq=S)
+            blocks = {}
+            for c, sp in zip(c_specs, specs):
+                for n, t in c.items():
+                    blocks.setdefault(n, local_shape(tuple(t.shape), sp[n], mesh))
+            KV, hd = cfg.n_kv_heads, cfg.head_dim
+            kv_block = ((B // D, S, KV // M, hd) if KV % M == 0
+                        else (B // D, S, KV, hd // M))
+            check(blocks["k"] == kv_block,
+                  f"lm_tp (b): {arch} at ({D}, {M}) k block {blocks['k']}, not {kv_block}")
+            if "h" in blocks:
+                rw = cfg.rnn_width or cfg.d_model
+                check(blocks["h"] == (B // D, rw // M),
+                      f"lm_tp (b): {arch} RG-LRU state block {blocks['h']}")
+            entry[f"{D}x{M}"] = {"first_logits_rel_err": rel, "first_logits_corr": corr,
+                                 "first_logits_rel_err_to_f32": rel32,
+                                 "same_greedy_first": bool(torch.equal(
+                                     torch.argmax(got["first"], -1),
+                                     torch.argmax(one["first"], -1))),
+                                 "prefill_ms": got["prefill_ms"],
+                                 "decode_ms_median": statistics.median(got["decode_ms"]),
+                                 "peak_bytes": torch.cuda.max_memory_allocated(),
+                                 "cache_blocks": {n: list(v) for n, v in blocks.items()}}
+        out[arch] = entry
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_tp_phase(torch, dev, long_case: dict, seed: int) -> None:
+    """The ('data', 'model') mesh: (a) training with TP, EP, FSDP and SP,
+    (b) serving on 2-D meshes, (c) the 2-D PM-LSH decode."""
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.models import lsh_attention as lsh
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    train = _tp_train_forms(torch, dev, seed)
+    train["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve = _tp_serve_forms(torch, dev, seed)
+    serve_s = time.perf_counter() - t0
+
+    # -- (c) the 2-D PM-LSH decode against the data = 8 form ---------------------
+    x = long_case
+    kw = dict(kv_len=x["kv_len"], topk=x["topk"], return_positions=True)
+    with torch.inference_mode():
+        want, wpos = lsh.lsh_decode_attention_sharded(
+            x["q"], x["k"], x["v"], x["pk"], x["a"], mesh=make_host_mesh(data=8, device=dev),
+            axis="data", **kw)
+        lsh2d = {}
+        for D, M in LM_TP_LSH:
+            got, pos = lsh.lsh_decode_attention_sharded(
+                x["q"], x["k"], x["v"], x["pk"], x["a"],
+                mesh=make_host_mesh(M, data=D, device=dev), axis=("data", "model"), **kw)
+            same = bool(torch.equal(got, want) and torch.equal(pos, wpos))
+            check(same, f"lm_tp (c): the ({D}, {M}) decode differs from the data = 8 form")
+            lsh2d[f"{D}x{M}"] = {"bit_for_bit": same, "positions": int(pos.numel())}
+    emit({"phase": "lm_tp", "train": train,
+          "serve": {"batch": LM_BATCH, "prompt": LM_TP_PROMPT, "max_seq": LM_TP_MAX_SEQ,
+                    "gen": LM_TP_GEN, "by_arch": serve, "seconds": serve_s,
+                    "noise_factor": LM_TP_SERVE_NOISE, "corr_tol": LM_CONSISTENCY_CORR},
+          "lsh_2d": {"max_seq": LM_LONG_SEQ, "kv_len": x["kv_len"], "topk": x["topk"],
+                     "by_mesh": lsh2d},
+          "seconds": time.perf_counter() - t_phase})
 
 
 def _train_bounds(cfg, params, opt, B: int, S: int) -> dict:
@@ -3994,10 +4271,16 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # -- the LM's data axis: the sharded decode, data-parallel training -------
-    lm_shard_phase(torch, dev, args.seed)
+    long_case = lm_shard_phase(torch, dev, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
     lm_dp_train_phase(torch, dev, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the LM's ('data', 'model') mesh ------------------------------------------
+    lm_tp_phase(torch, dev, long_case, args.seed)
+    del long_case
     gc.collect()
     torch.cuda.empty_cache()
 

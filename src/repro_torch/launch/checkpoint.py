@@ -42,6 +42,7 @@ import torch
 
 from ..device import resolve_device
 from ..resilience import _msgpack
+from .sharding import LeafLayout, local_block
 from ..resilience.fsio import commit_dir
 
 
@@ -58,6 +59,18 @@ def _flatten(tree: Any) -> tuple[list, Any]:
         return ([x for leaves, _ in parts for x in leaves],
                 (type(tree).__name__, None, [s for _, s in parts]))
     return [tree], "*"
+
+
+def _specs_like(like: Any, specs: Any) -> list:
+    """The spec of each of ``like``'s leaves, in :func:`_flatten`'s order
+    (a spec is a tuple, so the walk follows ``like``'s structure)."""
+    if like is None:
+        return []
+    if isinstance(like, dict):
+        return [x for k in sorted(like) for x in _specs_like(like[k], specs[k])]
+    if isinstance(like, (tuple, list)):
+        return [x for a, b in zip(like, specs) for x in _specs_like(a, b)]
+    return [specs]
 
 
 def _unflatten(structure: Any, leaves) -> Any:
@@ -200,10 +213,16 @@ def latest_step(ckpt_dir: str | os.PathLike) -> int | None:
 
 
 def restore(ckpt_dir: str | os.PathLike, step: int, like: Any, *,
-            device: str | torch.device = "cuda") -> tuple[Any, dict]:
+            device: str | torch.device = "cuda", shardings: Any | None = None,
+            mesh=None) -> tuple[Any, dict]:
     """Restore into the structure of ``like`` (its leaves' values are not
-    read), each leaf a tensor on ``device`` in its stored dtype.  Returns
-    (tree, extra)."""
+    read), each leaf a tensor on ``device`` in its stored dtype.  With
+    ``shardings`` (a tree of specs shaped as ``like``, e.g.
+    ``launch.sharding.param_pspecs`` of the reference's stacked tree) and
+    a process group's ``mesh``, each leaf is the block this rank holds —
+    any mesh, whatever the mesh that wrote it, as the reference's
+    ``restore(..., shardings)`` remeshes; emulated meshes hold leaves
+    whole.  Returns (tree, extra)."""
     dev = resolve_device(device)
     base = Path(ckpt_dir) / f"step_{step:08d}"
     if not (base / "COMMIT").exists():
@@ -223,7 +242,17 @@ def restore(ckpt_dir: str | os.PathLike, step: int, like: Any, *,
             f"checkpoint has {manifest['n_leaves']} leaves, target structure "
             f"has {len(leaves_like)} — incompatible trees"
         )
+    specs = None
+    if shardings is not None and mesh is not None and not mesh.emulated:
+        specs = _specs_like(like, shardings)
+        if len(specs) != len(leaves_like):
+            raise ValueError(f"{len(specs)} specs for {len(leaves_like)} leaves")
     with data:
-        out = [_np_to_leaf(data[f"leaf_{i}"], meta["dtype"], dev)
-               for i, meta in enumerate(manifest["leaves"])]
+        out = []
+        for i, meta in enumerate(manifest["leaves"]):
+            leaf = _np_to_leaf(data[f"leaf_{i}"], meta["dtype"], dev)
+            if specs is not None and specs[i]:
+                leaf = local_block(leaf, LeafLayout("", tuple(leaf.shape), tuple(specs[i])),
+                                   mesh, mesh.coords)
+            out.append(leaf)
     return _unflatten(structure, iter(out)), manifest.get("extra", {})

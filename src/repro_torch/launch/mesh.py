@@ -22,24 +22,32 @@ local shard; what comes back is the same in every process.  Nothing
 falls back from one form to the other.
 
 The LM side (``make_host_mesh``, ``dp_axes``, ``axis_size``) is the
-reference's host mesh of ('data', 'model') axes.  Its 'data' axis is a
-:class:`DataMesh` of P shards in either form: the model steps split the
-batch over it (data-parallel training) or, for a batch that does not
-divide it, the KV cache's sequence (the sharded PM-LSH decode).  The
-'model' axis is 1: tensor and expert parallelism over 'model' > 1 are
-ROADMAP A12d3.
+reference's host mesh of ('data', 'model') axes, D × M shards.  Each
+axis is a :class:`DataMesh` in one of three forms: emulated (D·M shards
+in one process, every reduction in shard order), gloo ranks on the CPU
+or an NCCL group of one on the card.  In a group, rank r is shard
+(r // M, r % M), data-major as the reference's device array: the 'data'
+axis of rank r is the column of ranks with its model coordinate, the
+'model' axis the row with its data coordinate, and the combined
+('data', 'model') axis the whole world.  The model steps split the
+batch over 'data' (or, for a batch that does not divide it, the KV
+cache's sequence) and the parameters over 'model' (tensor and expert
+parallelism, ``models.parallel``).  :func:`make_production_mesh` is the
+reference's production mesh as shapes and names only: it holds no
+device and is the dry run's input.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
 
-__all__ = ["DataMesh", "HostMesh", "axis_size", "dp_axes", "make_data_mesh",
-           "make_host_mesh"]
+__all__ = ["DataMesh", "HostMesh", "ProductionMesh", "axis_size", "dp_axes",
+           "make_data_mesh", "make_host_mesh", "make_production_mesh"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +115,26 @@ class DataMesh:
         dist.all_gather(out, x, group=self.group)
         return out
 
+    def ordered_sum(self, xs: list[torch.Tensor]) -> torch.Tensor:
+        """The float sum over shards, added in shard order 0..P−1 in
+        every form (a group gathers, then adds), so it is the same bits
+        emulated and in a group of any size."""
+        every = self.all_gather(xs)
+        out = every[0]
+        for x in every[1:]:
+            out = out + x
+        return out
+
+    def reduce_scatter(self, xs: list[torch.Tensor], dim: int) -> list[torch.Tensor]:
+        """:meth:`ordered_sum`, split along ``dim`` into P equal blocks:
+        local shard p gets block p."""
+        total = self.ordered_sum(xs)
+        if total.shape[dim] % self.size:
+            raise ValueError(f"dimension {dim} of {tuple(total.shape)} does not split "
+                             f"over {self.size} shards")
+        blocks = total.chunk(self.size, dim=dim)
+        return [blocks[p] for p in self.local]
+
     def ring(self, xs: list[tuple[torch.Tensor, ...]]) -> list[tuple[torch.Tensor, ...]]:
         """Ring permute p → p + 1 (mod P) of a tuple of tensors per shard:
         local shard p gets back what shard p − 1 sent."""
@@ -164,15 +192,26 @@ def make_data_mesh(shards: int | None = None, axis: str = "data", *, group=None,
 
 @dataclasses.dataclass(frozen=True)
 class HostMesh:
-    """The LM steps' mesh: ('data', 'model') of sizes (P, 1), whose data
-    axis is the :class:`DataMesh` ``data`` (emulated or a group)."""
+    """The LM steps' mesh: ('data', 'model') of sizes (D, M).  ``data``,
+    ``model`` and ``world`` are the :class:`DataMesh` of the 'data' axis,
+    the 'model' axis and the combined ('data', 'model') axis (D·M shards,
+    data-major), all emulated or all process groups."""
 
     data: DataMesh
+    model: DataMesh = None
+    world: DataMesh = None
     axis_names = ("data", "model")
+
+    def __post_init__(self):
+        if self.model is None:  # the 1-D form: a 'model' axis of one shard
+            object.__setattr__(self, "model", DataMesh(size=1, device=self.data.device,
+                                                       axis="model"))
+        if self.world is None:
+            object.__setattr__(self, "world", self.data)
 
     @property
     def axis_sizes(self) -> tuple[int, ...]:
-        return (self.data.size, 1)
+        return (self.data.size, self.model.size)
 
     @property
     def shape(self) -> dict[str, int]:
@@ -182,24 +221,101 @@ class HostMesh:
     def device(self) -> torch.device:
         return self.data.device
 
+    @property
+    def emulated(self) -> bool:
+        return self.data.emulated
+
+    @property
+    def coords(self) -> tuple[int, int] | None:
+        """(data, model) coordinates of this process's shard in a group,
+        None when emulated."""
+        if self.emulated:
+            return None
+        return (self.data.rank, 0 if self.model.emulated else self.model.rank)
+
+    def axis(self, axes) -> DataMesh:
+        """The :class:`DataMesh` of ``axes``: 'data', 'model', or the
+        combined ('data', 'model') (a tuple of names; a one-name tuple is
+        that name)."""
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        if names == ("data",):
+            return self.data
+        if names == ("model",):
+            return self.model
+        if names == ("data", "model"):
+            return self.world
+        raise ValueError(f"axes {axes!r}: 'data', 'model' or ('data', 'model')")
+
+
+def _new_groups(ranks_each: list[list[int]]):
+    """Every rank makes every group, in the same order (as ``new_group``
+    requires); returns the one holding this rank."""
+    me, mine = dist.get_rank(), None
+    for ranks in ranks_each:
+        g = dist.new_group(ranks)
+        if me in ranks:
+            mine = g
+    return mine
+
 
 def make_host_mesh(model: int = 1, *, data: int | None = None,
                    device: str | torch.device = "cuda") -> HostMesh:
-    """The reference's ('data', 'model') host mesh with a 'data' axis of
-    ``data`` shards, made as :func:`make_data_mesh` makes it: the default
-    process group when one is initialised, one shard a rank, or else
-    ``data`` (default 1) emulated shards on ``device``.  ``model > 1``
-    raises."""
+    """The reference's ('data', 'model') host mesh of ``data`` × ``model``
+    shards.  With the default process group initialised it is that group,
+    one shard a rank, rank r at (r // model, r % model), and ``data``
+    (if given) must be world / model; the model axis is a group of each
+    row, the data axis one of each column.  Otherwise it is the emulated
+    mesh of ``data`` (default 1) × ``model`` shards on ``device``."""
     if model < 1:
         raise ValueError(f"model={model}: a mesh axis needs at least one device")
-    if model > 1:
-        raise NotImplementedError(
-            f"make_host_mesh(model={model}): tensor and expert parallelism over a "
-            "'model' axis are ROADMAP A12d3")
-    dm = make_data_mesh(data, device=device)
-    if dm.device.type == "cuda" and dm.device.index is None:  # the device tensors report
-        dm = dataclasses.replace(dm, device=torch.device("cuda", torch.cuda.current_device()))
-    return HostMesh(dm)
+    grouped = dist.is_available() and dist.is_initialized()
+    if not grouped:
+        dm = make_data_mesh(data, device=device)
+        if dm.device.type == "cuda" and dm.device.index is None:  # the device tensors report
+            dm = dataclasses.replace(dm, device=torch.device("cuda", torch.cuda.current_device()))
+        if model == 1:
+            return HostMesh(dm)
+        mm = DataMesh(size=model, device=dm.device, axis="model")
+        return HostMesh(dm, mm, DataMesh(size=dm.size * model, device=dm.device,
+                                         axis="data_model"))
+    world = dist.get_world_size()
+    if world % model:
+        raise ValueError(f"model={model} does not divide a process group of {world} ranks")
+    if data is not None and int(data) * model != world:
+        raise ValueError(f"data={data} × model={model} for a process group of {world} ranks")
+    wm = make_data_mesh(None, axis="data_model", device=device)
+    if model == 1:
+        return HostMesh(dataclasses.replace(wm, axis="data"))
+    D = world // model
+    cols = _new_groups([[d * model + m for d in range(D)] for m in range(model)])
+    rows = _new_groups([[d * model + m for m in range(model)] for d in range(D)])
+    return HostMesh(DataMesh(size=D, device=wm.device, axis="data", group=cols),
+                    DataMesh(size=model, device=wm.device, axis="model", group=rows), wm)
+
+
+@dataclasses.dataclass(frozen=True)
+class ProductionMesh:
+    """A mesh as shapes and names only (no device): what the layout
+    tables (``launch.sharding``) read, ``axis_names`` and ``shape``."""
+
+    axis_names: tuple[str, ...]
+    axis_sizes: tuple[int, ...]
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axis_sizes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ProductionMesh:
+    """The reference's production mesh: (16, 16) ('data', 'model'), one
+    pod of 256 chips, or (2, 16, 16) ('pod', 'data', 'model')."""
+    if multi_pod:
+        return ProductionMesh(("pod", "data", "model"), (2, 16, 16))
+    return ProductionMesh(("data", "model"), (16, 16))
 
 
 def dp_axes(mesh) -> tuple[str, ...]:

@@ -6,7 +6,9 @@ greedily — the port of ``repro.launch.serve``.
 
 Uses the model steps of ``repro_torch.serve.serve_step`` (in-place KV
 caches, PM-LSH retrieval attention at decode when the config enables
-it) on the one-device host mesh, on the card unless ``--device cpu``.
+it) on the host mesh, on the card unless ``--device cpu``;
+``--model-parallel M`` serves over a 'model' axis of M shards (emulated
+on the one device, or a process group's ranks when one is initialised).
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ import torch
 
 from ..configs import get_config, get_smoke_config
 from ..models import model_module
-from ..serve.serve_step import make_decode_step, make_prefill
+from ..serve.serve_step import make_decode_step, make_prefill, step_form
+from ..train.train_step import shard_params
 from .mesh import make_host_mesh
 
 
@@ -46,6 +49,9 @@ def serve_batch(cfg, mesh=None, *, batch: int, prompt_len: int, gen: int,
         params = mod.init_params(cfg, seed, device=dev)
     elif params.device != dev:
         raise ValueError(f"params on {params.device}, the mesh on {dev}")
+    form = step_form(cfg, mesh, batch=batch, max_seq=max_seq)
+    if form["parallel"] and not mesh.emulated:  # a group rank serves its blocks
+        params = shard_params(params, mesh, form["layouts"])
 
     rng = np.random.default_rng(seed)
     prompts = rng.integers(0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)

@@ -37,8 +37,22 @@ from ..configs import get_config, get_smoke_config
 from ..convert import lm_params_from_numpy, lm_params_to_tree, opt_state_from_numpy
 from ..data.pipeline import Prefetcher, SyntheticTokens
 from ..models import model_module
-from ..train.optimizer import AdamWConfig, abstract_opt_state, adamw_update, init_opt_state
-from ..train.train_step import batch_to_device, loss_and_grads
+from ..launch.sharding import layer_layouts, local_block
+from ..train.optimizer import (
+    AdamWConfig,
+    abstract_opt_state,
+    adamw_update,
+    init_opt_state,
+    sharded_global_norm,
+)
+from ..train.train_step import (
+    batch_to_device,
+    loss_and_grads,
+    shard_params,
+    sp_rule,
+    tp_loss_and_grads,
+    unshard_params,
+)
 from . import checkpoint as ckpt
 from .mesh import make_host_mesh
 
@@ -60,8 +74,18 @@ class TrainLoop:
             name, rows = extras
             self.batch_extras[name] = torch.zeros((batch, rows, cfg.d_model), dtype=cfg.dtype,
                                                   device=self.device)
-        # the train step's two halves, so the loop can check between them
-        self.grads = functools.partial(loss_and_grads, cfg=cfg)
+        # the train step's two halves, so the loop can check between them;
+        # on a 'model' axis past one shard the parameter layouts run
+        # (models.parallel) and a group rank holds its blocks
+        self.parallel = self.mesh.shape["model"] > 1
+        self.layouts = layer_layouts(cfg, self.mesh) if self.parallel else None
+        if self.parallel:
+            self.grads = functools.partial(
+                tp_loss_and_grads, mesh=self.mesh, cfg=cfg, layouts=self.layouts,
+                sp_spec=sp_rule(cfg, self.mesh, seq_len),
+                split=batch % self.mesh.shape["data"] == 0)
+        else:
+            self.grads = functools.partial(loss_and_grads, cfg=cfg)
         self.data = SyntheticTokens(cfg.vocab_size, batch, seq_len, seed=seed)
         self.ckpt_dir = ckpt_dir
         self.ckpt_every = ckpt_every
@@ -73,19 +97,37 @@ class TrainLoop:
 
     # -- state ------------------------------------------------------------
 
+    def _local(self, params):
+        """The seeded or restored (whole) parameters as this process holds
+        them: a group rank's blocks on a 'model' axis past one shard."""
+        if self.parallel and not self.mesh.emulated:
+            shard_params(params, self.mesh, self.layouts)
+        return params
+
     def init_state(self, seed: int = 0):
-        params = self.mod.init_params(self.cfg, seed, device=self.device)
+        params = self._local(self.mod.init_params(self.cfg, seed, device=self.device))
         return params, init_opt_state(params), 0
 
     def state_tree(self, params, opt) -> dict:
         """The reference's checkpoint tree of (params, opt), one host copy
-        a leaf; from meta tensors (the abstract state) a structure with
-        no data."""
+        a leaf, whole (a group's blocks gathered first); from meta tensors
+        (the abstract state) a structure with no data."""
         step = opt["step"]
-        return {"params": lm_params_to_tree(self.cfg, params),
-                "opt": {"mu": lm_params_to_tree(self.cfg, opt["mu"]),
-                        "nu": lm_params_to_tree(self.cfg, opt["nu"]),
+
+        def whole(tensors):
+            if self.parallel and not step.is_meta:
+                return unshard_params(tensors, self.layouts, self.mesh)
+            return tensors
+
+        return {"params": lm_params_to_tree(self.cfg, whole(params)),
+                "opt": {"mu": lm_params_to_tree(self.cfg, whole(opt["mu"])),
+                        "nu": lm_params_to_tree(self.cfg, whole(opt["nu"])),
                         "step": step if step.is_meta else step.to("cpu", copy=True)}}
+
+    @property
+    def writer(self) -> bool:
+        """Whether this process writes the checkpoints (rank 0 of a group)."""
+        return self.mesh.emulated or self.mesh.world.rank == 0
 
     def try_resume(self, params, opt):
         """(params, opt, step) from the latest committed checkpoint, else
@@ -102,9 +144,13 @@ class TrainLoop:
         like = self.state_tree(aparams, abstract_opt_state(aparams))
         state, extra = ckpt.restore(self.ckpt_dir, latest, like, device="cpu")
         self.restarts += 1
-        return (lm_params_from_numpy(self.cfg, state["params"], device=self.device),
-                opt_state_from_numpy(self.cfg, state["opt"], device=self.device),
-                int(extra.get("step", latest)))
+        params = self._local(lm_params_from_numpy(self.cfg, state["params"], device=self.device))
+        opt = opt_state_from_numpy(self.cfg, state["opt"], device=self.device)
+        if self.parallel and not self.mesh.emulated:  # the moments' blocks, as the parameters'
+            for part in ("mu", "nu"):
+                opt[part] = {n: local_block(t, self.layouts[n], self.mesh, self.mesh.coords)
+                             for n, t in opt[part].items()}
+        return params, opt, int(extra.get("step", latest))
 
     # -- stepping ---------------------------------------------------------
 
@@ -152,7 +198,10 @@ class TrainLoop:
                     self.stragglers += 1
                     del grads
                     _, grads = self.grads(params, batch)
-                params, opt, metrics = adamw_update(self.opt_cfg, params, grads, opt)
+                gnorm = (sharded_global_norm(grads, self.layouts, self.mesh) if self.parallel
+                         else None)
+                params, opt, metrics = adamw_update(self.opt_cfg, params, grads, opt,
+                                                    grad_norm=gnorm)
                 del grads
                 if cuda:
                     timer[1].record()
@@ -163,8 +212,10 @@ class TrainLoop:
                 norms.append(metrics["grad_norm"])
                 timers.append(timer)
                 if self.checkpointer and (step + 1) % self.ckpt_every == 0:
-                    self.checkpointer.save(step + 1, self.state_tree(params, opt),
-                                           extra={"step": step + 1}, copy=False)
+                    tree = self.state_tree(params, opt)  # a collective in a group
+                    if self.writer:
+                        self.checkpointer.save(step + 1, tree, extra={"step": step + 1},
+                                               copy=False)
                 if log_every and step % log_every == 0:
                     print(f"step {step:5d} loss {loss:.4f} ({dt*1e3:.0f} ms)", flush=True)
                 step += 1

@@ -310,9 +310,9 @@ def attention_apply(
 
     if cache is not None:
         block = {}
-        if lsh_shard is not None and not lsh_shard[0].data.emulated:
-            dm, Sl = lsh_shard[0].data, cache["k"].shape[1]
-            block = {"base": dm.rank * Sl, "total": dm.size * Sl}
+        if lsh_shard is not None and not lsh_shard[0].emulated:
+            am, Sl = lsh_shard[0].axis(lsh_shard[1]), cache["k"].shape[1]
+            block = {"base": am.rank * Sl, "total": am.size * Sl}
         write_rows(cache["k"], k, cache_index, **block)
         write_rows(cache["v"], v, cache_index, **block)
         if "pk" in cache:  # PM-LSH projected keys ride along in the cache

@@ -15,7 +15,8 @@ oracle ``lsh_attention_reference``).
             cache without a transposed copy of it.
 
 ``lsh_decode_attention_sharded`` is the reference's distributed form
-for a KV cache whose sequence is split over the mesh's data axis (the
+for a KV cache whose sequence is split over the mesh's data axis, or
+over the combined ('data', 'model') axis in data-major order (the
 long-context decode at batch 1): the paper's tournament merge.  Each
 shard scores its own slice of ``pk`` and keeps its top-⌈T/P⌉; only the
 selected keys, values and their valid flags cross the wire, gathered in
@@ -90,28 +91,23 @@ def lsh_decode_attention(
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
-def _shard_blocks(mesh, t: torch.Tensor) -> list[tuple[int, torch.Tensor]]:
+def _shard_blocks(am, t: torch.Tensor) -> list[tuple[int, torch.Tensor]]:
     """(shard, block) for each shard this process holds of a cache leaf
-    split along its sequence (dim 1): views of the whole tensor when
-    emulated, the rank's own block in a group."""
-    dm = mesh.data
-    if dm.emulated:
-        Sl = t.shape[1] // dm.size
-        return [(p, t[:, p * Sl:(p + 1) * Sl]) for p in dm.local]
-    return [(dm.rank, t)]
+    split along its sequence (dim 1) over the axis mesh ``am``: views of
+    the whole tensor when emulated, the rank's own block in a group."""
+    if am.emulated:
+        Sl = t.shape[1] // am.size
+        return [(p, t[:, p * Sl:(p + 1) * Sl]) for p in am.local]
+    return [(am.rank, t)]
 
 
 def seq_shards(mesh, axis) -> int:
     """P, the shard count of the sequence axes ``axis`` (a name or a
-    tuple of names) of ``mesh``; only 'data' may exceed one."""
+    tuple of names) of ``mesh``."""
     axes = (axis,) if isinstance(axis, str) else tuple(axis)
-    sizes = {a: mesh.shape[a] for a in axes}
-    if any(n > 1 for a, n in sizes.items() if a != "data"):
-        raise NotImplementedError(f"sequence axes {sizes}: only 'data' may exceed one "
-                                  "shard (a 'model' axis is ROADMAP A12d3)")
     Pn = 1
-    for n in sizes.values():
-        Pn *= n
+    for a in axes:
+        Pn *= mesh.shape[a]
     return Pn
 
 
@@ -129,7 +125,8 @@ def lsh_decode_attention_sharded(
     return_positions: bool = False,
 ):
     """The tournament merge over the sequence shards of ``mesh``'s
-    ``axis`` (the reference's shard_map body, run for each local shard).
+    ``axis`` (the reference's shard_map body, run for each local shard):
+    'data', or ('data', 'model'), whose shards are data-major.
 
     Shard p holds rows [p·Sl, (p+1)·Sl); rows ≥ ``kv_len`` are masked to
     −inf and stay in the gathered set with a False flag, which the
@@ -143,15 +140,16 @@ def lsh_decode_attention_sharded(
     KV = k.shape[2]
     G = H // KV
     Pn = seq_shards(mesh, axis)
-    if mesh.data.size != Pn:
-        raise ValueError(f"sequence axes of {Pn} shards on a data axis of {mesh.data.size}")
+    am = mesh.axis(axis)
+    if am.size != Pn:
+        raise ValueError(f"sequence axes of {Pn} shards on an axis of {am.size}")
     Tl = max(1, -(-topk // Pn))  # local budget: ceil(T / P)
 
     qp = torch.einsum("bqhd,dm->bqhm", q.float(), lsh_a.float())
     qp_g = qp.reshape(B, KV, G, -1).mean(dim=2).to(pk.dtype).float()  # (B, KV, m)
-    if mesh.data.emulated and k.shape[1] % Pn:
+    if am.emulated and k.shape[1] % Pn:
         raise ValueError(f"a cache of {k.shape[1]} rows does not split over {Pn} shards")
-    blocks = [_shard_blocks(mesh, t) for t in (k, v, pk)]
+    blocks = [_shard_blocks(am, t) for t in (k, v, pk)]
     cands = []
     for (p, kb), (_, vb), (_, pkb) in zip(*blocks):
         Sl = pkb.shape[1]
@@ -170,7 +168,7 @@ def lsh_decode_attention_sharded(
     # only the candidates (keys, values, valid flags) cross the wire, in
     # shard order; the positions only when asked for
     k_all, v_all, ok_all, *pos_all = (
-        torch.cat(mesh.data.all_gather([c[i] for c in cands]), dim=2)
+        torch.cat(am.all_gather([c[i] for c in cands]), dim=2)
         for i in range(4 if return_positions else 3))
     qg = q.reshape(B, KV, G, hd).float() * hd**-0.5
     s = torch.einsum("bkgd,bktd->bkgt", qg, k_all.float())

@@ -11,8 +11,17 @@ gathered back weighted by the router's softmaxed gates.
 Experts are padded up to a multiple of 16 (``padded_experts``); the
 padding experts get a −1e30 router logit so no token routes to them.
 The routing top-k breaks ties toward the lowest expert index, as
-``lax.top_k`` does.  Expert parallelism comes with more than one card
-(ROADMAP A12d).
+``lax.top_k`` does.
+
+Over a data axis (:class:`DataRoute`) a shard holds consecutive rows of
+the global batch and routes them as the reference's GSPMD step routes
+the global (B, S, d): capacity comes from the global token count, and an
+assignment's position-in-expert is its local cumulative count plus the
+same expert's assignments on the lower shards, an exclusive scan of the
+shards' per-expert counts in shard order.  A shard dispatches only its
+own kept assignments; the expert FFNs are row-wise, so its rows come out
+as the global step's.  Expert parallelism over a 'model' axis (each
+shard running E/M experts) is ``models.parallel``.
 """
 from __future__ import annotations
 
@@ -45,30 +54,81 @@ def _expert_init(gen, e, d_in, d_out, dtype, device):
     return (normal(gen, (e, d_in, d_out), device) * std).to(dtype)
 
 
-def moe_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
-    """x: (B, S, d) → (B, S, d)."""
-    B, S, d = x.shape
-    T = B * S
-    E = p["router"].shape[1]
-    k = cfg.n_experts_per_token
-    cap = _capacity(T, cfg.n_experts, k, cfg.capacity_factor)
+class DataRoute:
+    """Shard ``shard`` of the data axis ``dm`` (a ``launch.mesh.DataMesh``)
+    routing its rows of a batch split evenly over the axis.  ``below``
+    is shared by the shards of one step when emulated (they run in shard
+    order): each layer's per-expert counts of the shards run so far.  A
+    layer's offsets are kept by the router's identity, so a recomputed
+    forward (remat) reuses them."""
 
-    xt = x.reshape(T, d)
-    logits = xt.float() @ p["router"]  # (T, E)
+    def __init__(self, dm, shard: int, below: dict | None = None):
+        self.dm, self.shard = dm, shard
+        self.below = {} if below is None else below
+        self.offsets: dict = {}
+
+    @property
+    def shards(self) -> int:
+        return self.dm.size
+
+    def offset(self, key, counts: torch.Tensor) -> torch.Tensor:
+        """The (E,) count of each expert's assignments on the lower
+        shards, for this shard's ``counts``."""
+        if key not in self.offsets:
+            if self.dm.emulated:
+                off = self.below.get(key, torch.zeros_like(counts))
+                self.below[key] = off + counts
+            else:
+                every = self.dm.all_gather([counts])
+                off = torch.zeros_like(counts)
+                for c in every[:self.dm.rank]:
+                    off = off + c
+            self.offsets[key] = off
+        return self.offsets[key]
+
+
+def route(p, xt: torch.Tensor, cfg, data_route: DataRoute | None = None, *,
+          router: torch.Tensor | None = None):
+    """Top-k routing of the (T, d) rows ``xt``: (gates (T, k) float32,
+    expert ids (T, k), the (T, k) dispatch slots into an (E·cap + 1)-row
+    buffer — overflow to the scratch row E·cap —, keep (T, k), cap).
+    ``router`` stands in for ``p["router"]`` (a gathered copy of it)."""
+    T = xt.shape[0]
+    router = p["router"] if router is None else router
+    E = router.shape[1]
+    k = cfg.n_experts_per_token
+    shards = 1 if data_route is None else data_route.shards
+    cap = _capacity(T * shards, cfg.n_experts, k, cfg.capacity_factor)
+    logits = xt.float() @ router  # (T, E)
     # mask padding experts (beyond the real expert count); out of place:
     # "dots" remat keeps this matmul's output for the backward
     if E > cfg.n_experts:
-        logits = logits.masked_fill(torch.arange(E, device=x.device) >= cfg.n_experts, -1e30)
+        logits = logits.masked_fill(torch.arange(E, device=xt.device) >= cfg.n_experts, -1e30)
     gates, eidx = top_k_lowest_index(logits, k)  # (T, k)
     gates = torch.softmax(gates, dim=-1)
 
     # position-in-expert: rank each (token, slot) assignment within its
-    # expert by flat order; drop overflow beyond capacity
+    # expert by flat order (after the lower shards'); drop overflow
+    # beyond capacity
     flat = F.one_hot(eidx, E).reshape(T * k, E)  # (T·k, E)
     pos_in_e = torch.cumsum(flat, dim=0) - 1
+    if data_route is not None:
+        pos_in_e = pos_in_e + data_route.offset(id(p["router"]), flat.sum(dim=0))
     pos = torch.sum(pos_in_e * flat, dim=1).reshape(T, k)  # (T, k)
     keep = pos < cap
     slot = torch.where(keep, eidx * cap + pos, E * cap)  # overflow → scratch row
+    return gates, eidx, slot, keep, cap
+
+
+def moe_apply(p, x: torch.Tensor, cfg, data_route: DataRoute | None = None) -> torch.Tensor:
+    """x: (B, S, d) → (B, S, d); ``data_route`` when x is one data
+    shard's rows of the global batch."""
+    B, S, d = x.shape
+    T = B * S
+    E = p["router"].shape[1]
+    k = cfg.n_experts_per_token
+    xt = x.reshape(T, d)
+    gates, eidx, slot, keep, cap = route(p, xt, cfg, data_route)
 
     # scatter tokens into the (E·cap, d) dispatch buffer (+1 scratch row)
     buf = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=x.device)

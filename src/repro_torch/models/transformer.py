@@ -178,7 +178,7 @@ def init_cache(cfg, batch: int, max_seq: int, *,
 
 
 def _block_apply(kind: str, p, x, cfg, *, positions, cache, cache_index, memory,
-                 lsh_shard=None):
+                 lsh_shard=None, data_route=None):
     """Pre-norm residual block. Returns (x, cache)."""
     eps = cfg.norm_eps
     if kind == "rec":
@@ -202,7 +202,8 @@ def _block_apply(kind: str, p, x, cfg, *, positions, cache, cache_index, memory,
     if kind == "cross":
         x = x + L.cross_attention_apply(p["xattn"], L.rms_norm(x, p["lnx"], eps), memory, cfg)
     h = L.rms_norm(x, p["ln2"], eps)
-    x = x + (moe_apply(p["moe"], h, cfg) if kind == "moe" else L.swiglu_apply(p["mlp"], h))
+    x = x + (moe_apply(p["moe"], h, cfg, data_route) if kind == "moe"
+             else L.swiglu_apply(p["mlp"], h))
     return x, nc
 
 
@@ -217,6 +218,7 @@ def forward(
     remat: str = "unit",  # "unit" | "dots" | "none"
     logits_slice: str = "all",  # "all" | "last" | "hidden"
     lsh_shard: tuple | None = None,  # (mesh, axis): the caches' sequence is split
+    data_route=None,  # moe.DataRoute: tokens are one data shard's rows
 ) -> tuple[torch.Tensor, list[dict] | None]:
     """Returns (logits, caches): float32 logits (B, S or 1, Vp), or the
     final-normed hidden states for ``logits_slice="hidden"``; the caches
@@ -244,6 +246,7 @@ def forward(
                 kinds[i], params.blocks[i], x, cfg,
                 positions=positions, cache=None if caches is None else caches[i],
                 cache_index=position0, memory=memory, lsh_shard=lsh_shard,
+                data_route=data_route,
             )
         return x
 
@@ -306,11 +309,13 @@ def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor, labels: torch.Ten
     return total / (B * S)
 
 
-def loss_fn(params: DecoderLM, batch: dict, cfg, *, remat: str = "unit", ce_chunk: int = 512):
+def loss_fn(params: DecoderLM, batch: dict, cfg, *, remat: str = "unit", ce_chunk: int = 512,
+            data_route=None):
     """Mean next-token CE of ``batch`` ({"tokens", "labels"} (B, S)
-    integer tensors, and the vlm's "image_embeds")."""
+    integer tensors, and the vlm's "image_embeds"); ``data_route`` when
+    the batch is one data shard's rows (the MoE routes globally)."""
     hidden, _ = forward(params, batch["tokens"], cfg, memory=batch.get("image_embeds"),
-                        remat=remat, logits_slice="hidden")
+                        remat=remat, logits_slice="hidden", data_route=data_route)
     return chunked_cross_entropy(hidden, params.head, batch["labels"], ce_chunk)
 
 

@@ -28,12 +28,19 @@ reference's donated cache.
 
 On a mesh whose data axis is P > 1 the reference's rule picks the form
 (:func:`lsh_shard_rule`): a batch that does not divide the axis, with
-PM-LSH attention, splits the cache's SEQUENCE over the axis as
+PM-LSH attention, splits the cache's SEQUENCE over the axis — or over
+('data', 'model') where it divides both — as
 ``launch.sharding.cache_pspecs`` lays it out, and each step runs the
 tournament merge (``models.lsh_attention.lsh_decode_attention_sharded``):
-a group rank holds only its (B, max_seq/P, KV, ·) blocks.  Otherwise
-every shard runs the whole batch on a whole cache.  A 'model' axis past
-one device is ROADMAP A12d3.
+a group rank holds only its (B, max_seq/P, KV, ·) blocks.  A batch that
+divides the data axis is split over it, each shard's rows with their
+rows of the caches.  On a 'model' axis past one shard the steps run the
+parameter layouts (``models.parallel``): the caches' kv heads split over
+'model' where it divides them, else their width; the RG-LRU's state on
+its width.  The logits come back whole on every shard, as the
+reference's replicated ``P()`` gives them.  In a group the parameters
+are the rank's blocks (``train.train_step.shard_params`` with
+``info["layouts"]``).
 """
 from __future__ import annotations
 
@@ -43,12 +50,12 @@ import torch
 from ..configs.base import InputShape, input_specs
 from ..index import IndexConfig, build_index
 from ..launch.mesh import axis_size, dp_axes, make_host_mesh
-from ..launch.sharding import cache_pspecs, local_shape
-from ..models import model_module
+from ..launch.sharding import cache_pspecs, layer_layouts, local_shape
+from ..models import model_module, parallel
 from .batcher import PAD_DISTANCE
 
 __all__ = ["RetrievalStep", "lsh_shard_rule", "make_decode_step", "make_prefill",
-           "make_retrieval_step"]
+           "make_retrieval_step", "step_form"]
 
 
 class RetrievalStep:
@@ -259,16 +266,69 @@ def lsh_shard_rule(cfg, mesh, *, batch: int, max_seq: int):
     return None
 
 
-def _fresh_cache(cfg, mod, c_specs, mesh, lsh_shard, *, batch: int, max_seq: int):
-    """Zeroed caches: whole on the mesh's device, or, for the sharded
-    decode in a group, the rank's blocks as ``cache_pspecs`` lays them
-    out (an emulated mesh holds the whole tensors, read as P blocks)."""
-    if lsh_shard is None or mesh.data.emulated:
+def step_form(cfg, mesh, *, batch: int, max_seq: int) -> dict:
+    """How the model steps run on ``mesh``: ``parallel`` — over the
+    mesh's axes (``models.parallel``: a 'model' axis past one shard, or a
+    batch split over 'data'); ``split`` — the batch split over 'data';
+    ``layouts`` — the parameters' per-layer view, whose blocks a group
+    rank holds (``train.train_step.shard_params``)."""
+    return _form(cfg, mesh, lsh_shard_rule(cfg, mesh, batch=batch, max_seq=max_seq), batch)
+
+
+def _form(cfg, mesh, lsh_shard, batch: int) -> dict:
+    data = axis_size(mesh, "data")
+    split = data > 1 and batch % data == 0 and lsh_shard is None
+    tp = axis_size(mesh, "model") > 1 or split
+    return {"parallel": tp, "split": split,
+            "layouts": layer_layouts(cfg, mesh) if tp else None}
+
+
+def _fresh_cache(cfg, mod, c_specs, mesh, lsh_shard, form, *, batch: int, max_seq: int):
+    """Zeroed caches: whole on the mesh's device when emulated (read as
+    blocks), or a group rank's blocks as ``cache_pspecs`` lays them out —
+    a sequence split only for the sharded decode."""
+    if mesh.data.emulated or not (form["parallel"] or lsh_shard is not None):
         return mod.init_cache(cfg, batch, max_seq, device=mesh.device)
     specs = cache_pspecs(c_specs, mesh, batch=batch, max_seq=max_seq)
-    return [{name: torch.zeros(local_shape(t.shape, spec[name], mesh), dtype=t.dtype,
-                               device=mesh.device) for name, t in c.items()}
-            for c, spec in zip(c_specs, specs)]
+
+    def block(t, spec):
+        if lsh_shard is None and t.ndim == 4:  # the sequence stays whole: no sharded decode
+            spec = spec[:1] + (None,) + spec[2:]
+        return torch.zeros(local_shape(t.shape, spec, mesh), dtype=t.dtype,
+                           device=mesh.device)
+
+    if isinstance(c_specs, dict):  # the encoder-decoder's {"self": [...], "cross": [...]}
+        return {part: [{n: block(t, sp[n]) for n, t in c.items()}
+                       for c, sp in zip(c_specs[part], specs[part])] for part in c_specs}
+    return [{n: block(t, sp[n]) for n, t in c.items()} for c, sp in zip(c_specs, specs)]
+
+
+def _rows(caches, lo: int, hi: int):
+    """Rows [lo, hi) of every cache leaf (views; batch is dim 0)."""
+    if isinstance(caches, dict) and "self" in caches:
+        return {part: _rows(v, lo, hi) for part, v in caches.items()}
+    return [{n: t[lo:hi] for n, t in c.items()} for c in caches]
+
+
+def _over_mesh(params, batch_in: dict, caches, mesh, form, step):
+    """``step(sh, params, rows of batch_in, rows of caches)`` for each data shard
+    this process runs (its rows where the batch is split, else the whole
+    batch once), over the model axis; the logits concatenated over the
+    data shards in order, whole in every process."""
+    dm = mesh.data
+    B = batch_in["tokens"].shape[0]
+    if not form["split"]:
+        sh = parallel.Shard(mesh, layouts=form["layouts"], params=params)
+        return step(sh, params, batch_in, caches)
+    rows, outs = B // dm.size, []
+    for d in dm.local:
+        b = {k: (v[d * rows:(d + 1) * rows] if isinstance(v, torch.Tensor) and v.ndim
+                 and v.shape[0] == B else v) for k, v in batch_in.items()}
+        c = _rows(caches, d * rows, (d + 1) * rows) if dm.emulated else caches
+        sh = parallel.Shard(mesh, layouts=form["layouts"], params=params)
+        outs.append(step(sh, params, b, c))
+    return torch.cat(dm.all_gather([o.contiguous() for o in outs]) if not dm.emulated
+                     else outs, dim=0)
 
 
 def make_prefill(cfg, mesh=None, *, batch: int, seq_len: int, max_seq: int | None = None):
@@ -276,20 +336,32 @@ def make_prefill(cfg, mesh=None, *, batch: int, seq_len: int, max_seq: int | Non
     forward over the prompt that fills fresh caches of ``max_seq`` rows
     (recurrent states for the recurrent blocks) on the mesh's device (the
     card unless the mesh names the CPU), laid out for the decode's form
-    (:func:`lsh_shard_rule`).  The encoder-decoder takes
-    ``batch_in["audio_frames"]`` and also fills each layer's cross K/V."""
+    (:func:`lsh_shard_rule`) and the mesh's axes.  The encoder-decoder
+    takes ``batch_in["audio_frames"]`` and also fills each layer's cross
+    K/V."""
     mesh = make_host_mesh() if mesh is None else mesh
     mod = model_module(cfg)
     max_seq = max_seq or seq_len
     c_specs = mod.cache_specs(cfg, batch, max_seq)
     b_specs = input_specs(cfg, InputShape("prefill", seq_len, batch, "prefill"))
     lsh_shard = lsh_shard_rule(cfg, mesh, batch=batch, max_seq=max_seq)
+    form = _form(cfg, mesh, lsh_shard, batch)
+
+    def one(sh, params, b, caches):
+        if cfg.family == "encdec":
+            return parallel.whisper_forward(params, b["tokens"], b["audio_frames"], cfg, sh,
+                                            caches=caches, logits_slice="last")[0]
+        return parallel.forward(params, b["tokens"], cfg, sh, caches=caches, position0=0,
+                                memory=b.get("image_embeds"), logits_slice="last",
+                                lsh_shard=lsh_shard)[0]
 
     @torch.inference_mode()
     def fn(params, batch_in):
         _check_tokens(batch_in, (batch, seq_len), "make_prefill")
-        caches = _fresh_cache(cfg, mod, c_specs, mesh, lsh_shard, batch=batch,
+        caches = _fresh_cache(cfg, mod, c_specs, mesh, lsh_shard, form, batch=batch,
                               max_seq=max_seq)
+        if form["parallel"]:
+            return _over_mesh(params, batch_in, caches, mesh, form, one), caches
         if cfg.family == "encdec":
             return mod.forward(params, batch_in["tokens"], batch_in["audio_frames"], cfg,
                                caches=caches, logits_slice="last")
@@ -313,10 +385,20 @@ def make_decode_step(cfg, mesh=None, *, batch: int, max_seq: int):
     c_specs = mod.cache_specs(cfg, batch, max_seq)
     b_specs = input_specs(cfg, InputShape("decode", max_seq, batch, "decode"))
     lsh_shard = lsh_shard_rule(cfg, mesh, batch=batch, max_seq=max_seq)
+    form = _form(cfg, mesh, lsh_shard, batch)
+
+    def one(sh, params, b, caches):
+        if cfg.family == "encdec":
+            return parallel.whisper_decode_step(params, caches, b, cfg, sh)[0]
+        return parallel.forward(params, b["tokens"], cfg, sh, caches=caches,
+                                position0=b["position"], memory=b.get("image_embeds"),
+                                logits_slice="last", remat="none", lsh_shard=lsh_shard)[0]
 
     @torch.inference_mode()
     def fn(params, caches, batch_in):
         _check_tokens(batch_in, (batch, 1), "make_decode_step")
+        if form["parallel"]:
+            return _over_mesh(params, batch_in, caches, mesh, form, one), caches
         if cfg.family == "encdec":
             return mod.decode_step(params, caches, batch_in, cfg)
         return mod.decode_step(params, caches, batch_in, cfg, lsh_shard=lsh_shard)

@@ -18,4 +18,12 @@ from .grad_compression import (  # noqa: F401
     make_compressed_train_step,
     tree_compress_psum,
 )
-from .train_step import loss_and_grads, make_loss_fn, make_train_step, train_step  # noqa: F401
+from .train_step import (  # noqa: F401
+    loss_and_grads,
+    make_loss_fn,
+    make_train_step,
+    opt_state_shardings,
+    shard_params,
+    train_step,
+    unshard_params,
+)

@@ -21,6 +21,8 @@ import math
 import torch
 from torch import nn
 
+from ..launch.sharding import local_block
+
 _SLICE = 1 << 26  # elements a slice: 256 MiB of float32 temporaries each
 
 
@@ -71,17 +73,57 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
-def adamw_update(cfg: AdamWConfig, params: nn.Module, grads: dict, state: dict
-                 ) -> tuple[nn.Module, dict, dict]:
+def _block_sums(g: torch.Tensor, layout, mesh) -> torch.Tensor:
+    """Σ x² of the leaf's blocks this process holds, summed over the
+    axes the leaf is split on — 'model' first, then 'data', each in
+    shard order — so a replicated leaf counts once and every form adds
+    the same numbers in the same order.  Emulated, ``g`` is whole and
+    its blocks are cut here; in a group it is the rank's block."""
+    if mesh.emulated:
+        D, M = mesh.data.size, mesh.model.size
+
+        def at(d, m):
+            return torch.sum(torch.square(local_block(g, layout, mesh, (d, m)).float()))
+
+        axes = layout.axes()
+        ds = range(D) if "data" in axes else (0,)
+        ms = range(M) if "model" in axes else (0,)
+        total = None
+        for d in ds:
+            row = None
+            for m in ms:
+                row = at(d, m) if row is None else row + at(d, m)
+            total = row if total is None else total + row
+        return total
+    s = torch.sum(torch.square(g.float()))
+    for axis in ("model", "data"):
+        if axis in layout.axes():
+            s = mesh.axis(axis).ordered_sum([s])
+    return s
+
+
+def sharded_global_norm(grads: dict, layouts: dict, mesh) -> torch.Tensor:
+    """:func:`global_norm` of gradients laid out by ``layouts`` over
+    ``mesh`` (whole when emulated, a group rank's blocks otherwise): each
+    leaf's squares summed over its blocks (:func:`_block_sums`), the same
+    bits in every form and every process."""
+    sums = [_block_sums(g, layouts[name], mesh) for name, g in grads.items() if g is not None]
+    return torch.sqrt(torch.sum(torch.stack(sums)))
+
+
+def adamw_update(cfg: AdamWConfig, params: nn.Module, grads: dict, state: dict, *,
+                 grad_norm: torch.Tensor | None = None) -> tuple[nn.Module, dict, dict]:
     """One AdamW step in place: ``params``' tensors and ``state``'s
     ``mu`` / ``nu`` are overwritten and its ``step`` replaced.  ``grads`` maps a
     parameter's name to its gradient (``None`` or absent: zeros).
+    ``grad_norm``: the clip's global norm where the gradients are blocks
+    of sharded leaves (:func:`sharded_global_norm`).
     Returns (params, state, {"grad_norm", "lr"}) as the reference does."""
     named = dict(params.named_parameters())
     if set(grads) - set(named):
         raise ValueError(f"gradients for no parameter: {sorted(set(grads) - set(named))[:4]}")
     step = state["step"] + 1
-    gnorm = global_norm(grads.values())
+    gnorm = global_norm(grads.values()) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = lr_schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2

@@ -894,3 +894,33 @@ def test_flash_backward_on_the_card_matches_float64(cuda, causal, window, S, H, 
     for a, b in zip(ins, ref):
         err = float(torch.linalg.norm(a.grad.double() - b.grad) / torch.linalg.norm(b.grad))
         assert err <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_2d_mesh_step_on_the_card_equals_the_cpu_port(cuda, shape):
+    """The ('data', 'model') mesh's train step (FSDP and SP) on the card,
+    emulated, against the same step on the CPU from the same parameters:
+    the losses of two AdamW steps within 1e-5 relative (float32, the
+    qwen3-moe smoke config at capacity 1.25: experts drop tokens)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.models import model_module
+    from repro_torch.train import AdamWConfig, init_opt_state, make_train_step
+
+    cfg = get_smoke_config("qwen3_moe_30b_a3b").replace(dtype=torch.float32,
+                                                        capacity_factor=1.25)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (8, 64)).astype(np.int32)
+    specs = {k: torch.empty((8, 64), device="meta") for k in ("tokens", "labels")}
+
+    def losses(device):
+        params = model_module(cfg).init_params(cfg, 0, device="cpu").to(device)
+        fn, info = make_train_step(cfg, make_host_mesh(shape[1], data=shape[0], device=device),
+                                   batch_specs=specs, fsdp=True,
+                                   opt_cfg=AdamWConfig(lr=1e-3, warmup_steps=1))
+        assert info["parallel"]
+        opt = init_opt_state(params)
+        return [float(fn(params, opt, {"tokens": toks, "labels": toks})[2]["loss"])
+                for _ in range(2)]
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    np.testing.assert_allclose(losses(cuda), losses(torch.device("cpu")), rtol=1e-5)

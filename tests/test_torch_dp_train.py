@@ -20,6 +20,13 @@ axis, and to the port's own one-device step.
   relative, every gradient leaf within 1e-5 relative L2.  The compressed
   step's losses, parameters and each shard's residuals are the same bits
   in both forms.
+* The MoE over a data axis routes the global batch (fault C2): the
+  qwen3-moe smoke config at ``capacity_factor`` 1.25 (every config's) and
+  1.0, where experts drop tokens, at P = 2 and 4, emulated and in gloo
+  ranks — the plain and the compressed step's loss within 1e-6 relative
+  of the one-device step's, every gradient within 1e-5 of its largest
+  element — and against the reference's GSPMD step on an 8-device mesh
+  in the subprocess (loss within 1e-5, gradient norm within 1e-4).
 """
 
 import jax
@@ -51,6 +58,7 @@ WORLDS = (2, 4)
 SHARDS = (2, 4, 8)
 TP_DP = ("qwen3_moe_30b_a3b", (8, 64), 4, 3)  # arch, batch, data shards, steps
 COMPRESSED = ("yi_6b", (8, 32), 8, 5)
+C2 = ("qwen3_moe_30b_a3b", (8, 64), (1.25, 1.0))  # arch, batch, capacity factors
 
 
 # ---------------------------------------------------------------------------
@@ -186,6 +194,17 @@ with mesh:
         params, opt, res, m = step(params, opt, res, {"tokens": toks, "labels": toks})
         losses.append(float(m["loss"]))
 out["compressed_losses"] = np.array(losses)
+
+arch, (B, S), caps = C2
+mesh = make_submesh((8, 1), ("data", "model"))
+specs = {k: jax.ShapeDtypeStruct((B, S), jnp.int32) for k in ("tokens", "labels")}
+toks = jnp.asarray(np.load(IN)["c2"])
+for cap in caps:
+    cfg = get_smoke_config(arch).replace(dtype=jnp.float32, capacity_factor=cap)
+    step, _ = make_train_step(cfg, mesh, batch_specs=specs, donate=False)
+    params = model_module(cfg).init_params(cfg, jax.random.PRNGKey(0))
+    _, _, m = step(params, init_opt_state(params), {"tokens": toks, "labels": toks})
+    out[f"c2_{cap}"] = np.array([float(m["loss"]), float(m["grad_norm"])])
 np.savez(OUT, **out)
 """
 
@@ -199,9 +218,10 @@ def _tokens(arch: str, shape) -> np.ndarray:
 @pytest.fixture(scope="module")
 def jax_steps(tmp_path_factory):
     inputs = {"tp_dp": _tokens(TP_DP[0], TP_DP[1]),
-              "compressed": _tokens(COMPRESSED[0], COMPRESSED[1])}
+              "compressed": _tokens(COMPRESSED[0], COMPRESSED[1]),
+              "c2": _tokens(C2[0], C2[1])}
     return run_jax(_JAX, inputs, tmp_path_factory.mktemp("jax_dp"), TP_DP=TP_DP,
-                   COMPRESSED=COMPRESSED)
+                   COMPRESSED=COMPRESSED, C2=C2)
 
 
 def _reference_params(arch: str):
@@ -281,6 +301,30 @@ def run_dp(mesh) -> dict:
     out.update({f"c_param:{n}": p.detach().numpy() for n, p in params.named_parameters()})
     for p, r in zip(mesh.data.local, res):
         out.update({f"c_res{p}:{n}": t.numpy() for n, t in r.items()})
+    out.update(run_c2(mesh))
+    return out
+
+
+def _c2_setup(cap: float):
+    arch, (B, S), _ = C2
+    tc = get_smoke_config(arch).replace(dtype=torch.float32, capacity_factor=cap)
+    toks = torch.from_numpy(_tokens(arch, (B, S)))
+    return tc, {"tokens": toks, "labels": toks}
+
+
+def run_c2(mesh) -> dict:
+    """At each dropping capacity: the data-parallel loss and mean
+    gradients, and the compressed step's first loss, on ``mesh``."""
+    out = {}
+    for cap in C2[2]:
+        tc, batch = _c2_setup(cap)
+        params = model_module(tc).init_params(tc, 0, device="cpu")
+        loss, grads = dp_loss_and_grads(params, batch, mesh, cfg=tc)
+        out[f"c2_{cap}:loss"] = loss.numpy()
+        out.update({f"c2_{cap}:grad:{n}": g.numpy() for n, g in grads.items() if g is not None})
+        fn = make_compressed_train_step(tc, mesh)
+        _, _, _, m = fn(params, init_opt_state(params), init_residuals(params, mesh), batch)
+        out[f"c2_{cap}:c_loss"] = m["loss"].numpy()
     return out
 
 
@@ -359,5 +403,52 @@ def test_the_batch_that_does_not_divide_is_replicated_and_the_compressed_step_re
     cfn = make_compressed_train_step(tc, mesh)
     with pytest.raises(ValueError, match="does not split over 2 shards"):
         cfn(params, init_opt_state(params), init_residuals(params, mesh), odd)
-    with pytest.raises(ValueError, match="A12d3"):
-        make_train_step(tc, mesh, fsdp=True)
+    _, finfo = make_train_step(tc, mesh, batch_specs=specs, fsdp=True)  # runs (A12d3)
+    assert finfo["parallel"] and not finfo["data_parallel"]
+
+
+# ---------------------------------------------------------------------------
+# fault C2: the MoE routes the global batch over the data axis
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def c2_one_device():
+    out = {}
+    for cap in C2[2]:
+        tc, batch = _c2_setup(cap)
+        params = model_module(tc).init_params(tc, 0, device="cpu")
+        loss, grads = loss_and_grads(params, batch, cfg=tc)
+        out[cap] = (float(loss), {n: g.numpy() for n, g in grads.items() if g is not None})
+    return out
+
+
+def _largest(got, want) -> float:
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+@pytest.mark.parametrize("cap", C2[2])
+def test_moe_dp_at_dropping_capacity_matches_the_one_device_step(dp_forms, c2_one_device, cap):
+    want_loss, want = c2_one_device[cap]
+    for form, out in dp_forms[1].items():
+        for key in ("loss", "c_loss"):
+            assert abs(float(out[f"c2_{cap}:{key}"]) - want_loss) <= 1e-6 * abs(want_loss), \
+                (form, key)
+        for n, g in want.items():
+            assert _largest(out[f"c2_{cap}:grad:{n}"], g) <= 1e-5, (form, n)
+
+
+@pytest.mark.parametrize("P", WORLDS)
+@pytest.mark.parametrize("cap", C2[2])
+def test_moe_dp_at_dropping_capacity_matches_the_reference_gspmd_step(jax_steps, cap, P):
+    tc, batch = _c2_setup(cap)
+    jc = jax_smoke_config(C2[0]).replace(dtype=jnp.float32, capacity_factor=cap)
+    jp = jax_model_module(jc).init_params(jc, jax.random.PRNGKey(0))
+    params = lm_params_from_numpy(tc, jax.tree.map(np.asarray, jp), device="cpu")
+    specs = {k: torch.empty(tuple(v.shape), device="meta") for k, v in batch.items()}
+    fn, info = make_train_step(tc, make_host_mesh(data=P, device="cpu"), batch_specs=specs)
+    assert info["data_parallel"]
+    m = fn(params, init_opt_state(params), batch)[2]
+    want_loss, want_norm = jax_steps[f"c2_{cap}"]
+    assert abs(float(m["loss"]) - want_loss) <= 1e-5 * abs(want_loss)
+    assert abs(float(m["grad_norm"]) - want_norm) <= 1e-4 * abs(want_norm)

@@ -179,10 +179,11 @@ def test_host_mesh_is_one_device_and_model_parallel_raises_naming_a12d():
 
     assert dp_axes(mesh) == ("data",) and axis_size(mesh, "model") == 1
     assert axis_size(mesh, "pod") == 1
-    with pytest.raises(NotImplementedError, match="A12d"):
-        make_host_mesh(model=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12d"):
-        tlaunch.main(["--arch", "yi-6b", "--smoke", "--model-parallel", "2", "--device", "cpu"])
+    # the 'model' axis runs now (ROADMAP A12d3): an emulated (1, 2) mesh
+    two = make_host_mesh(model=2, device="cpu")
+    assert two.shape == {"data": 1, "model": 2} and axis_size(two, "model") == 2
+    tlaunch.main(["--arch", "yi-6b", "--smoke", "--model-parallel", "2", "--device", "cpu",
+                  "--gen", "2"])
 
 
 def test_serve_package_exports_the_model_steps():

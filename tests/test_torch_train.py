@@ -499,8 +499,8 @@ def test_make_train_step_updates_in_place_and_refuses_the_multi_card_options():
     assert set(metrics) == {"loss", "grad_norm", "lr"}
     with pytest.raises(ValueError, match="batch"):
         fn(params, opt, tpipe.SyntheticTokens(tc.vocab_size, B, S + 1).batch_at(0))
-    with pytest.raises(ValueError, match="A12d"):
-        make_train_step(tc, mesh, fsdp=True)
+    _, finfo = make_train_step(tc, mesh, fsdp=True)  # FSDP runs now (ROADMAP A12d3)
+    assert finfo["parallel"] and set(finfo["opt_pspecs"]) == {"mu", "nu", "step"}
 
 
 # ---------------------------------------------------------------------------
