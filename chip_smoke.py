@@ -325,6 +325,20 @@ Phases, each printing one JSON line:
            ``build/``, stopped at 4 and resumed to 6: its losses equal an
            unbroken run's.
 
+  dryrun   (its cells run in lm_serve's and lm_train's state) the dry run
+           (``repro_torch.launch.dryrun``) at mesh (1, 1), the meta
+           device, held to the card on three cells: lm_train's step (yi-6b,
+           B = 1 × 4,096, remat="unit", one more ``make_train_step`` step on
+           the loop's state), lm_serve's prefill (B = 4 × 4,096 into
+           max_seq 4,128) and one decode step at position 4,096 on its
+           caches.  Checks: the FLOPs on meta equal ``FlopCounterMode``'s
+           count around the step on the card; the argument bytes within
+           0.1% of what the card allocated for the parameters, state and
+           inputs; the card's peak over the predicted one (arguments +
+           temp) inside ``DRYRUN_PEAK_BAND``.  Then one production cell,
+           yi-6b decode_32k on the single-pod mesh (rank (0, 0) of 16 ×
+           16), its record and seconds.
+
 Then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before that line.  Where CUDA is unavailable it exits non-zero at once
@@ -523,6 +537,18 @@ LM_TP_SERVE = (("yi-6b", ((1, 2), (1, 4), (2, 2))), ("recurrentgemma-9b", ((1, 2
 LM_TP_PROMPT, LM_TP_MAX_SEQ, LM_TP_GEN = 1024, 2048, 8
 LM_TP_SERVE_NOISE = 2.0
 LM_TP_LSH = ((4, 2), (2, 4))
+# the dry run (repro_torch.launch.dryrun) at mesh (1, 1) held to the card
+# on the cells it runs on one device: lm_train's step, lm_serve's prefill
+# and one decode step.  The FLOPs on meta equal FlopCounterMode's count
+# on the card; the argument bytes within DRYRUN_ARG_TOL (relative) of the
+# card's allocation for the parameters, state and inputs; the card's
+# peak over the predicted one (arguments + temp) inside DRYRUN_PEAK_BAND,
+# written down before the first chip run (the card adds cuBLAS's
+# workspace and kernel-internal scratch, 512-byte rounding; the meta run
+# sees every other allocation and free).  Then one production cell.
+DRYRUN_ARG_TOL = 1e-3
+DRYRUN_PEAK_BAND = (0.98, 1.05)
+DRYRUN_PRODUCTION = ("yi-6b", "decode_32k", "single")
 # the span trees of one traced call of each path, (name, parent index):
 # the reference's trees (a CPU test holds them to repro's)
 EXPECTED_SPAN_TREES = {
@@ -2606,6 +2632,7 @@ def lm_serve_phase(torch, dev, seed: int) -> dict:
           and m == 16, f"lm_serve: {cfg.name} is not yi-6b's full configuration")
     max_seq = P + G
     mesh = make_host_mesh(device=dev)
+    base = held_bytes(torch)  # before the parameters (the dry run's cells)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = tt.init_params(cfg, seed, device=dev)
@@ -2761,7 +2788,111 @@ def lm_serve_phase(torch, dev, seed: int) -> dict:
           "check_d": smoke, "first_request_tokens": tokens[0].tolist(),
           "decode_profile": decode_profile, "prefill_profile": prefill_profile,
           "seconds": time.perf_counter() - t_phase})
-    return {"params": params, "cfg": cfg, "prompts": prompt_t, "first": tokens[:, 0]}
+    return {"params": params, "cfg": cfg, "prompts": prompt_t, "first": tokens[:, 0],
+            "base": base}
+
+
+def held_bytes(torch) -> int:
+    """The bytes the card's tensors hold: ``memory_allocated`` after a
+    collection, without cuBLAS's workspace (which a matmul re-creates
+    and which no step takes as an argument)."""
+    gc.collect()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def dryrun_cell(torch, name: str, cfg, shape, step, args: tuple, base: int, *,
+                max_seq: int | None = None):
+    """One cell of the ``dryrun`` phase: ``step(*args)`` on the card (its
+    arguments, and nothing else since ``held_bytes`` read ``base``, on
+    the card) under ``FlopCounterMode``, beside the dry run of the same
+    cell at mesh (1, 1) on the meta device.  Checks the FLOPs equal, the
+    argument bytes within DRYRUN_ARG_TOL and the peak inside
+    DRYRUN_PEAK_BAND; returns the step's output and the cell's record."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun as dr
+
+    t0 = time.perf_counter()
+    held = held_bytes(torch) - base
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    with FlopCounterMode(display=False) as fc:
+        out = step(*args)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() - base
+    card_flops = fc.get_total_flops()
+    meta_step, meta_args, arg_bytes = dr.cell_step(cfg, shape, dr.rank_mesh(1, 1),
+                                                   max_seq=max_seq)
+    got = dr.trace(meta_step, meta_args)
+    predicted = arg_bytes + got["temp"]
+    rec = {"cell": name, "kind": shape.kind, "batch": shape.global_batch,
+           "seq_len": shape.seq_len, "max_seq": max_seq, "meta_flops": got["flops"],
+           "card_flops": card_flops, "argument_bytes": arg_bytes, "card_argument_bytes": held,
+           "argument_rel_err": abs(arg_bytes - held) / held, "temp_bytes": got["temp"],
+           "predicted_peak_bytes": predicted, "card_peak_bytes": peak,
+           "peak_ratio": peak / predicted, "meta_bytes_read_written": got["bytes"],
+           "meta_s": got["seconds"], "card_s": card_s, "seconds": time.perf_counter() - t0}
+    check(got["flops"] == card_flops,
+          f"dryrun: {name} FLOPs on meta {got['flops']} != {card_flops} on the card")
+    check(rec["argument_rel_err"] <= DRYRUN_ARG_TOL,
+          f"dryrun: {name} argument bytes {arg_bytes} against the card's {held}")
+    lo, hi = DRYRUN_PEAK_BAND
+    check(lo <= rec["peak_ratio"] <= hi,
+          f"dryrun: {name} card peak {peak} over the predicted {predicted} = "
+          f"{rec['peak_ratio']} outside {DRYRUN_PEAK_BAND}")
+    return out, rec
+
+
+def dryrun_serve_cells(torch, dev, lm: dict) -> list:
+    """The ``dryrun`` phase's lm_serve cells on ``lm_serve``'s parameters
+    and prompts (B = 4 × 4,096 into max_seq 4,128): the prefill, then one
+    decode step at position 4,096 (a 0-d tensor, as the dry run's input
+    specs give it) on the caches it filled.  Returns their records."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.serve.serve_step import make_decode_step, make_prefill
+
+    cfg, params, prompts, base = lm["cfg"], lm["params"], lm["prompts"], lm["base"]
+    B, P = prompts.shape
+    max_seq = P + LM_GEN
+    mesh = make_host_mesh(device=dev)
+    prefill, _ = make_prefill(cfg, mesh, batch=B, seq_len=P, max_seq=max_seq)
+    (logits, caches), pre = dryrun_cell(torch, "lm_serve_prefill", cfg,
+                                        InputShape("lm_serve", P, B, "prefill"), prefill,
+                                        (params, {"tokens": prompts}), base, max_seq=max_seq)
+    batch = {"tokens": torch.argmax(logits, dim=-1).to(torch.int32),
+             "position": torch.tensor(P, dtype=torch.int32, device=dev)}
+    del logits
+    decode, _ = make_decode_step(cfg, mesh, batch=B, max_seq=max_seq)
+    dec = dryrun_cell(torch, "lm_serve_decode", cfg,
+                      InputShape("lm_serve", max_seq, B, "decode"), decode,
+                      (params, caches, batch), base)[1]
+    del caches, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [pre, dec]
+
+
+def dryrun_phase(torch, cells: list) -> None:
+    """Emit the ``dryrun`` line: the ``cells`` held to the card (run in
+    lm_serve's and lm_train's state), then one production cell's record
+    (``DRYRUN_PRODUCTION``) and its seconds."""
+    from repro_torch.launch import dryrun as dr
+
+    t0 = time.perf_counter()
+    rec = dr.run_cell(*DRYRUN_PRODUCTION)
+    production_s = time.perf_counter() - t0
+    check(rec["status"] == "ok" and rec["hlo_flops"] > 0,
+          f"dryrun: the production cell {DRYRUN_PRODUCTION}: {rec.get('error', rec)}")
+    check(len(cells) == 3, f"dryrun: {len(cells)} cells held to the card, not 3")
+    emit({"phase": "dryrun", "arg_tol": DRYRUN_ARG_TOL, "peak_band": DRYRUN_PEAK_BAND,
+          "cells": cells, "production": rec, "production_s": production_s,
+          "seconds": sum(c["seconds"] for c in cells) + production_s})
 
 
 def lm_knn_phase(torch, dev, lm: dict, seed: int) -> None:
@@ -3776,10 +3907,11 @@ def _plain_attention(torch, q, k, v):
     return torch.einsum("bhqk,bkhd->bqhd", p, vv)
 
 
-def lm_train_phase(torch, dev, seed: int) -> None:
+def lm_train_phase(torch, dev, seed: int) -> dict:
     """The training path: (a) yi-6b at its published widths and depth
     through ``TrainLoop.run`` (losses, gradient norms, step ms, tokens/s,
-    peak bytes, a profiled step, the bounds); (b) flash attention's
+    peak bytes, a profiled step, the bounds), then the ``dryrun`` phase's
+    lm_train cell on its state (returns its record); (b) flash attention's
     backward at yi's attention shape against float64 autograd; (c) the
     ten smoke configs' AdamW steps on the card against the CPU port; (d)
     a checkpointed smoke run stopped and resumed against an unbroken
@@ -3792,11 +3924,14 @@ def lm_train_phase(torch, dev, seed: int) -> None:
     from repro_torch.launch.train import TrainLoop
     from repro_torch.models import model_module
     from repro_torch.models.flash_attention import FlashAttention
+    from repro_torch.configs.base import InputShape
     from repro_torch.train import AdamWConfig, adamw_update, init_opt_state, loss_and_grads
+    from repro_torch.train import make_train_step
     from repro_torch.train.train_step import batch_to_device, train_step
 
     t_phase = time.perf_counter()
     mesh = make_host_mesh(device=dev)
+    base = held_bytes(torch)  # before the state (the dry run's cell)
 
     # -- (a) yi-6b at its published widths, 4 steps through TrainLoop ----------
     cfg = get_config(LM_ARCH)
@@ -3826,7 +3961,14 @@ def lm_train_phase(torch, dev, seed: int) -> None:
         adamw_update(loop.opt_cfg, params, grads, opt)
 
     profile = profile_call(torch, one_step, step_med, rows=8, pause=LM_PROFILE_PAUSE_S)
-    del loop, params, opt, batch
+
+    # -- the dry run's lm_train cell: one more step of make_train_step's ------
+    specs = {k: torch.empty(tuple(v.shape), dtype=v.dtype, device="meta")
+             for k, v in batch.items()}
+    step, _ = make_train_step(cfg, mesh, batch_specs=specs, opt_cfg=loop.opt_cfg)
+    dry = dryrun_cell(torch, "lm_train", cfg, InputShape("lm_train", S, B, "train"), step,
+                      (params, opt, batch), base)[1]
+    del loop, params, opt, batch, step
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3909,6 +4051,7 @@ def lm_train_phase(torch, dev, seed: int) -> None:
           "check_c": {"archs": smoke, "tol": LM_TRAIN_SMOKE_TOL},
           "check_d": {"whole": whole, "first": first, "resumed": rest},
           "seconds": time.perf_counter() - t_phase})
+    return dry
 
 
 def index_phases(torch, dev, seed: int) -> None:
@@ -4260,6 +4403,7 @@ def main(argv=None) -> int:
 
     # -- yi-6b served at full width, then its hidden states as a datastore -----
     lm = lm_serve_phase(torch, dev, args.seed)
+    dry_cells = dryrun_serve_cells(torch, dev, lm)
     lm_knn_phase(torch, dev, lm, args.seed)
     del lm
     gc.collect()
@@ -4285,7 +4429,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # -- yi-6b trained at its published widths, then the training checks ------
-    lm_train_phase(torch, dev, args.seed)
+    dry_cells.append(lm_train_phase(torch, dev, args.seed))
+
+    # -- the dry run held to the card, and one production cell ------------------
+    dryrun_phase(torch, dry_cells)
 
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,10 +21,14 @@ def as_tensor(array, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+def resolve_device(device: str | torch.device = "cuda", *, meta: bool = False) -> torch.device:
     """The torch device for ``device``; raises if it names CUDA and there
-    is no CUDA device, or if it is neither a CUDA device nor the CPU."""
+    is no CUDA device, or if it is neither a CUDA device nor the CPU
+    (nor, with ``meta``, the meta device: shapes without data, as the
+    model's abstract parameters and caches and the dry run use it)."""
     dev = torch.device(device)
+    if meta and dev.type == "meta":
+        return dev
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(

@@ -6,16 +6,24 @@ cache and parameter specs (``sharding.batch_pspecs`` / ``cache_pspecs``
 / ``param_pspecs`` and the per-layer view ``layer_layouts``), the
 production mesh as shapes and names (``make_production_mesh``), the
 batched serving driver (``serve``), the fault-tolerant train loop
-(``train``) and its checkpoints in the reference's layout
-(``checkpoint``).  The dry run, which reads the production mesh and the
-parameter layouts, is ROADMAP A12d4.
+(``train``), its checkpoints in the reference's layout
+(``checkpoint``), and the dry run (``dryrun``): each (arch × shape) cell's
+step traced on the meta device as one rank of the production mesh
+(``make_abstract_mesh``), its FLOPs, bytes and collectives and the H100's
+roofline terms.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-6b \
+        --shape train_4k --mesh single
 """
 from .mesh import (  # noqa: F401
+    AbstractDataMesh,
+    CollectiveTally,
     DataMesh,
     HostMesh,
     ProductionMesh,
     axis_size,
     dp_axes,
+    make_abstract_mesh,
     make_data_mesh,
     make_host_mesh,
     make_production_mesh,

@@ -35,6 +35,12 @@ cache's sequence) and the parameters over 'model' (tensor and expert
 parallelism, ``models.parallel``).  :func:`make_production_mesh` is the
 reference's production mesh as shapes and names only: it holds no
 device and is the dry run's input.
+
+A fourth form serves the dry run (``launch.dryrun``):
+:func:`make_abstract_mesh` is one fixed rank of a D × M group on the
+meta device, whose collectives (:class:`AbstractDataMesh`) return the
+shapes a group returns and add what they move to a
+:class:`CollectiveTally`.
 """
 from __future__ import annotations
 
@@ -46,8 +52,9 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 
-__all__ = ["DataMesh", "HostMesh", "ProductionMesh", "axis_size", "dp_axes",
-           "make_data_mesh", "make_host_mesh", "make_production_mesh"]
+__all__ = ["COLLECTIVES", "AbstractDataMesh", "CollectiveTally", "DataMesh", "HostMesh",
+           "ProductionMesh", "axis_size", "dp_axes", "make_abstract_mesh", "make_data_mesh",
+           "make_host_mesh", "make_production_mesh"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,6 +142,17 @@ class DataMesh:
         blocks = total.chunk(self.size, dim=dim)
         return [blocks[p] for p in self.local]
 
+    def broadcast(self, x: torch.Tensor, owner: int, shape: tuple) -> torch.Tensor:
+        """Shard ``owner``'s tensor of ``shape`` in every process: ``x``
+        itself when emulated; in a group the owner's ``x`` (a copy), the
+        other ranks passing a placeholder of its dtype."""
+        if self.group is None:
+            return x
+        out = x.clone() if self.rank == owner else torch.empty(shape, dtype=x.dtype,
+                                                               device=x.device)
+        dist.broadcast(out, src=dist.get_global_rank(self.group, owner), group=self.group)
+        return out
+
     def ring(self, xs: list[tuple[torch.Tensor, ...]]) -> list[tuple[torch.Tensor, ...]]:
         """Ring permute p → p + 1 (mod P) of a tuple of tensors per shard:
         local shard p gets back what shard p − 1 sent."""
@@ -155,6 +173,110 @@ class DataMesh:
         return [got]
 
 
+#: The collectives a compiled program holds, by XLA's names: what a
+#: :class:`CollectiveTally` counts under.
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+
+class CollectiveTally:
+    """The bytes and the count of each collective an abstract rank ran,
+    under :data:`COLLECTIVES`' names.  The bytes are a collective's
+    result as one rank holds it (a gather's P blocks, a reduction's one
+    buffer, the tensors a ring or broadcast receives), as XLA's HLO
+    gives a collective's shape; a roofline applies the wire factors."""
+
+    def __init__(self):
+        self.bytes = dict.fromkeys(COLLECTIVES, 0)
+        self.counts = dict.fromkeys(COLLECTIVES, 0)
+
+    def add(self, kind: str, nbytes: int) -> None:
+        self.bytes[kind] += int(nbytes)
+        self.counts[kind] += 1
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractDataMesh(DataMesh):
+    """One fixed rank (``at``) of a process group of ``size`` on the meta
+    device, for the dry run: the stage code runs that rank's program
+    (``emulated`` is False, ``local`` is the rank), each collective
+    returns meta tensors of the shapes a group returns and adds what the
+    port's group form moves to ``tally``.  The float sums are the port's
+    gathers followed by an ordered add (:meth:`DataMesh.ordered_sum`), so
+    they count as all-gathers of P blocks; a collective over one shard
+    moves nothing and is not counted."""
+
+    at: int = 0
+    tally: CollectiveTally = dataclasses.field(default=None, compare=False)
+
+    @property
+    def emulated(self) -> bool:
+        return False
+
+    @property
+    def rank(self) -> int:
+        return self.at
+
+    @property
+    def local(self) -> tuple[int, ...]:
+        return (self.at,)
+
+    def _moved(self, kind: str, nbytes: int) -> None:
+        if self.size > 1:
+            self.tally.add(kind, nbytes)
+
+    def psum(self, xs: list[torch.Tensor]) -> torch.Tensor:
+        self._check(xs)
+        self._moved("all-reduce", _nbytes(xs[0]))
+        return xs[0].clone()
+
+    def pmax(self, xs: list[torch.Tensor]) -> torch.Tensor:
+        return self.psum(xs)
+
+    def all_gather(self, xs: list[torch.Tensor]) -> list[torch.Tensor]:
+        self._check(xs)
+        x = xs[0].contiguous()
+        self._moved("all-gather", self.size * _nbytes(x))
+        return [torch.empty_like(x) for _ in range(self.size)]
+
+    def broadcast(self, x: torch.Tensor, owner: int, shape: tuple) -> torch.Tensor:
+        out = x.clone() if self.at == owner else torch.empty(shape, dtype=x.dtype,
+                                                             device=x.device)
+        self._moved("collective-permute", _nbytes(out))
+        return out
+
+    def ring(self, xs: list[tuple[torch.Tensor, ...]]) -> list[tuple[torch.Tensor, ...]]:
+        self._check(xs)
+        if self.size == 1:
+            return list(xs)
+        got = tuple(torch.empty_like(t.contiguous()) for t in xs[0])
+        self._moved("collective-permute", sum(_nbytes(t) for t in got))
+        return [got]
+
+
+def make_abstract_mesh(data: int, model: int, coords: tuple[int, int] = (0, 0),
+                       tally: CollectiveTally | None = None) -> HostMesh:
+    """The rank at ``coords`` (data, model) of a ``data`` × ``model``
+    group, as :class:`AbstractDataMesh` axes on the meta device: 'data'
+    the column of ranks, 'model' the row, the world all D·M of them
+    (rank d·M + m), every collective counted in one ``tally``."""
+    d, m = coords
+    if not (0 <= d < data and 0 <= m < model):
+        raise ValueError(f"rank {coords} outside a ({data}, {model}) mesh")
+    tally = CollectiveTally() if tally is None else tally
+    meta = torch.device("meta")
+
+    def axis(size, at, name):
+        return AbstractDataMesh(size=size, device=meta, axis=name, at=at, tally=tally)
+
+    return HostMesh(axis(data, d, "data"), axis(model, m, "model"),
+                    axis(data * model, d * model + m, "data_model"))
+
+
 def make_data_mesh(shards: int | None = None, axis: str = "data", *, group=None,
                    device: str | torch.device = "cuda") -> DataMesh:
     """The 1-D row mesh of the sharded backends.
@@ -163,13 +285,14 @@ def make_data_mesh(shards: int | None = None, axis: str = "data", *, group=None,
     initialised, the mesh is that group: one shard per rank, ``shards``
     (if given) equal to its size, NCCL on ``cuda:rank`` or gloo on the
     CPU (``device`` must name that device type).  Otherwise it is the
-    emulated mesh of ``shards`` (default 1) shards on ``device``.
+    emulated mesh of ``shards`` (default 1) shards on ``device`` (the
+    meta device too: the dry run's one-device steps).
     """
     if group is None and dist.is_available() and dist.is_initialized():
         group = dist.group.WORLD
     if group is None:
         return DataMesh(size=1 if shards is None else int(shards),
-                        device=resolve_device(device), axis=axis)
+                        device=resolve_device(device, meta=True), axis=axis)
     size = dist.get_world_size(group)
     if shards is not None and int(shards) != size:
         raise ValueError(f"shards={shards} for a process group of {size} ranks; "

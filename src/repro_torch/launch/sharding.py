@@ -90,7 +90,8 @@ def batch_pspecs(batch_specs: dict, mesh) -> dict:
     return {k: rule(v) for k, v in batch_specs.items()}
 
 
-def cache_pspecs(cache_specs_tree, mesh, *, batch: int, max_seq: int):
+def cache_pspecs(cache_specs_tree, mesh, *, batch: int, max_seq: int,
+                 seq_split: bool = True):
     """The cache's specs, the reference's rule leaf by leaf: k / v / pk /
     ck / cv (·, B, S, KV, hd|m) split B over the data-parallel axes when
     it divides them, else the SEQUENCE over ('data', 'model') when S
@@ -98,8 +99,9 @@ def cache_pspecs(cache_specs_tree, mesh, *, batch: int, max_seq: int):
     heads, or else the width of a cache whose sequence is whole, over
     'model'.  Recurrent states split their batch dimension (after a
     stacked ``unit`` dimension) and the RG-LRU's width over 'model'.
-    ``batch`` and ``max_seq`` are accepted for the reference's
-    signature."""
+    ``seq_split=False`` keeps every sequence whole (the layout of a
+    decode that is not the sequence-sharded one).  ``batch`` and
+    ``max_seq`` are accepted for the reference's signature."""
     del batch, max_seq
     dp = dp_axes(mesh)
     dp_size = math.prod(axis_size(mesh, a) for a in dp)
@@ -116,12 +118,12 @@ def cache_pspecs(cache_specs_tree, mesh, *, batch: int, max_seq: int):
             seq_sharded = seq_uses_model = False
             if B % dp_size == 0:
                 s[-4] = _entry(dp)
-            elif S % (data * model) == 0:
+            elif seq_split and S % (data * model) == 0:
                 # batch 1: the KEY SEQUENCE over both axes, the tournament
                 # merge over the combined axis
                 s[-3] = ("data", "model")
                 seq_sharded = seq_uses_model = True
-            elif S % data == 0:
+            elif seq_split and S % data == 0:
                 s[-3] = "data"
                 seq_sharded = True
             if shape[-2] % model == 0 and not seq_uses_model:
@@ -391,4 +393,8 @@ def local_block(t, layout: LeafLayout, mesh, coords: tuple[int, int]):
         if n > 1:
             b = t.shape[dim] // n
             t = t.narrow(dim, at * b, b)
-    return t.contiguous()
+    t = t.contiguous()
+    # a block narrowed on its leading dimension is contiguous already but
+    # a view of the whole leaf's storage: copy it, so the shard holds its
+    # block alone
+    return t.clone() if t.untyped_storage().nbytes() > t.numel() * t.element_size() else t

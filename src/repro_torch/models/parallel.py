@@ -51,7 +51,6 @@ from __future__ import annotations
 import functools
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch.autograd import Function
 
@@ -127,18 +126,15 @@ class _Broadcast(Function):
     placeholder); the gradient summed to the owner backward."""
 
     @staticmethod
-    def forward(ctx, x, am, owner, shape, dtype):
+    def forward(ctx, x, am, owner, shape):
         ctx.am, ctx.owner, ctx.like = am, owner, x
-        out = x.clone() if am.rank == owner else torch.empty(shape, dtype=dtype,
-                                                              device=x.device)
-        dist.broadcast(out, src=dist.get_global_rank(am.group, owner), group=am.group)
-        return out
+        return am.broadcast(x, owner, shape)
 
     @staticmethod
     def backward(ctx, g):
         total = ctx.am.ordered_sum([g.contiguous()])
         mine = total if ctx.am.rank == ctx.owner else torch.zeros_like(ctx.like)
-        return mine, None, None, None, None
+        return mine, None, None, None
 
 
 class _Fan(Function):
@@ -230,7 +226,7 @@ class Shard:
         t = w
         if lay.layer_axes is not None and self.mesh.axis(lay.layer_axes).size > 1:
             t = _Broadcast.apply(t, self.mesh.axis(lay.layer_axes), lay.owner,
-                                 lay.local_shape(self.mesh), w.dtype)
+                                 lay.local_shape(self.mesh))
         for dim, e in enumerate(lay.spec):
             if e is not None and "model" not in _names(e):
                 t = _Gather.apply(t, self.mesh.data, dim)

@@ -128,7 +128,7 @@ def init_params(cfg, seed: int = 0, *, device: str | torch.device = "cuda") -> D
     """A :class:`DecoderLM` drawn from a ``torch.Generator`` seeded with
     ``seed`` on ``device`` (the reference draws from a jax key; the draws
     differ, so tests carry the reference's across)."""
-    dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
+    dev = resolve_device(device, meta=True)
     gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     kinds = layer_kinds(cfg)
     Vp, d = cfg.padded_vocab(), cfg.d_model
@@ -167,7 +167,9 @@ def cache_specs(cfg, batch: int, max_seq: int) -> list[dict]:
 
 def init_cache(cfg, batch: int, max_seq: int, *,
                device: str | torch.device = "cuda") -> list[dict]:
-    dev = resolve_device(device)
+    """Zeroed caches of :func:`cache_specs`' shapes on ``device`` (the
+    meta device too, as :func:`init_params` takes it)."""
+    dev = resolve_device(device, meta=True)
     return [{name: torch.zeros(t.shape, dtype=t.dtype, device=dev) for name, t in c.items()}
             for c in cache_specs(cfg, batch, max_seq)]
 

@@ -70,7 +70,7 @@ class EncDecLM(nn.Module):
 def init_params(cfg, seed: int = 0, *, device: str | torch.device = "cuda") -> EncDecLM:
     """An :class:`EncDecLM` drawn from a ``torch.Generator`` seeded with
     ``seed`` on ``device`` (tests carry the reference's draws across)."""
-    dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
+    dev = resolve_device(device, meta=True)
     gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     Vp, d = cfg.padded_vocab(), cfg.d_model
     enc = [_init_enc_layer(gen, cfg, dev) for _ in range(cfg.encoder_layers)]
@@ -187,7 +187,9 @@ def cache_specs(cfg, batch: int, max_seq: int) -> dict:
 
 
 def init_cache(cfg, batch: int, max_seq: int, *, device: str | torch.device = "cuda") -> dict:
-    dev = resolve_device(device)
+    """Zeroed caches of :func:`cache_specs`' shapes on ``device`` (the
+    meta device too, as :func:`init_params` takes it)."""
+    dev = resolve_device(device, meta=True)
     return {part: [{n: torch.zeros(t.shape, dtype=t.dtype, device=dev) for n, t in c.items()}
                    for c in layers]
             for part, layers in cache_specs(cfg, batch, max_seq).items()}

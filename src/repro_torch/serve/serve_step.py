@@ -54,8 +54,8 @@ from ..launch.sharding import cache_pspecs, layer_layouts, local_shape
 from ..models import model_module, parallel
 from .batcher import PAD_DISTANCE
 
-__all__ = ["RetrievalStep", "lsh_shard_rule", "make_decode_step", "make_prefill",
-           "make_retrieval_step", "step_form"]
+__all__ = ["RetrievalStep", "fresh_caches", "lsh_shard_rule", "make_decode_step",
+           "make_prefill", "make_retrieval_step", "step_form"]
 
 
 class RetrievalStep:
@@ -289,11 +289,10 @@ def _fresh_cache(cfg, mod, c_specs, mesh, lsh_shard, form, *, batch: int, max_se
     a sequence split only for the sharded decode."""
     if mesh.data.emulated or not (form["parallel"] or lsh_shard is not None):
         return mod.init_cache(cfg, batch, max_seq, device=mesh.device)
-    specs = cache_pspecs(c_specs, mesh, batch=batch, max_seq=max_seq)
+    specs = cache_pspecs(c_specs, mesh, batch=batch, max_seq=max_seq,
+                         seq_split=lsh_shard is not None)
 
     def block(t, spec):
-        if lsh_shard is None and t.ndim == 4:  # the sequence stays whole: no sharded decode
-            spec = spec[:1] + (None,) + spec[2:]
         return torch.zeros(local_shape(t.shape, spec, mesh), dtype=t.dtype,
                            device=mesh.device)
 
@@ -301,6 +300,16 @@ def _fresh_cache(cfg, mod, c_specs, mesh, lsh_shard, form, *, batch: int, max_se
         return {part: [{n: block(t, sp[n]) for n, t in c.items()}
                        for c, sp in zip(c_specs[part], specs[part])] for part in c_specs}
     return [{n: block(t, sp[n]) for n, t in c.items()} for c, sp in zip(c_specs, specs)]
+
+
+def fresh_caches(cfg, mesh, *, batch: int, max_seq: int):
+    """The zeroed caches :func:`make_prefill` fills on ``mesh`` (and
+    :func:`make_decode_step` reads): whole when emulated, a group rank's
+    blocks as ``cache_pspecs`` lays them out for the decode's form."""
+    mod = model_module(cfg)
+    rule = lsh_shard_rule(cfg, mesh, batch=batch, max_seq=max_seq)
+    return _fresh_cache(cfg, mod, mod.cache_specs(cfg, batch, max_seq), mesh, rule,
+                        _form(cfg, mesh, rule, batch), batch=batch, max_seq=max_seq)
 
 
 def _rows(caches, lo: int, hi: int):

@@ -216,12 +216,7 @@ def unshard_params(named: dict, layouts: dict, mesh) -> dict:
     for name, t in named.items():
         lay, t = layouts[name], t.detach()
         if lay.layer_axes is not None and mesh.axis(lay.layer_axes).size > 1:
-            am = mesh.axis(lay.layer_axes)
-            full = t if am.rank == lay.owner else torch.empty(
-                lay.local_shape(mesh), dtype=t.dtype, device=t.device)
-            torch.distributed.broadcast(full, src=torch.distributed.get_global_rank(
-                am.group, lay.owner), group=am.group)
-            t = full
+            t = mesh.axis(lay.layer_axes).broadcast(t, lay.owner, lay.local_shape(mesh))
         for dim, e in enumerate(lay.spec):
             if e is not None and lay.shape[dim] != t.shape[dim]:
                 t = torch.cat(mesh.axis(e).all_gather([t.contiguous()]), dim=dim)
