@@ -2963,12 +2963,20 @@ def lm_knn_phase(torch, dev, lm: dict, seed: int) -> None:
     check(np.array_equal(vi.cpu().numpy(), res.indices),
           "lm_knn: the stages by hand answer other ids than the search")
     gs = kver.group_size(LM_KNN_QUERIES, d)
-    per_group = sum(int(torch.unique(c[c >= 0]).numel())
-                    for c in cand.split(gs))  # rows each query group reads
+    groups = [(int(torch.unique(c[c >= 0]).numel()), int((c >= 0).sum()))
+              for c in cand.split(gs)]  # each query group's distinct rows and entries
+    per_group = sum(u for u, _ in groups)
     uniq = int(torch.unique(cand[cand >= 0]).numel())
     check(int(rows_read) == per_group,
           f"lm_knn: verify read {int(rows_read)} rows, its groups hold {per_group} distinct")
+    if gs >= LM_KNN_QUERIES:  # one group: each distinct row crosses from HBM once
+        check(int(rows_read) == uniq,
+              f"lm_knn: one group read {int(rows_read)} rows of {uniq} distinct")
     Bq = LM_KNN_QUERIES
+    chunk = kver.chunk_size(Bq, d)
+    traffic = kver.wide_traffic(d, Bq, gs, chunk,
+                                torch.cuda.get_device_properties(0).multi_processor_count,
+                                groups)
     t_bound, by = bound(4 * (uniq * d + Bq * d + Bq * T) + 8 * Bq * LM_KNN_K, 3 * Bq * T * d)
     emit({"phase": "lm_knn", "n": n, "d": d, "k": LM_KNN_K, "B": Bq, "build_s": build_s,
           "launches": {k: launches[k] for k in ("pairwise_sq_dist", "radius_select",
@@ -2977,6 +2985,7 @@ def lm_knn_phase(torch, dev, lm: dict, seed: int) -> None:
           "self_tol": LM_KNN_SELF_TOL, "search_ms": search_ms, "T": T,
           "candidates_selected": int(cnt.sum()),
           "verify": {"rows_read": int(rows_read), "unique_rows": uniq, "group_size": gs,
+                     "chunk": chunk, "traffic": traffic,
                      "max_abs_err": float((vv - pv).abs().max()),
                      "ms": time_ms(torch, lambda: kver.verify_topk(impl.data, q_t, cand,
                                                                    LM_KNN_K)),

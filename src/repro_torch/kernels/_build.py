@@ -43,6 +43,7 @@ SIGNATURES = {
     "radius_select_launch": (_I, [_P, _P, _P, _I, _I, _I, _I,
                                   _P, _P, _P, _P, _P]),
     "verify_topk_group_size": (_I, [_I, _I]),
+    "verify_topk_chunk": (_I, [_I, _I]),
     "verify_topk_scratch_bytes": (_L, [_I, _I, _I, _I, _I]),
     "verify_topk_launch": (_I, [_P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _P]),

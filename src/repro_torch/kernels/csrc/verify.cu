@@ -29,20 +29,59 @@
 //              compact lists rows / starts.
 //   3. scatter each entry b·W + pos goes to its row's offset plus its rank
 //              in entries, with no atomics.
-//   4. distance one block an SM; a warp takes 32 consecutive non-empty
-//              rows a turn and reads each row once into registers, kPer
-//              floats a lane, under an L2 evict-first policy, while it sums
-//              the previous row's entries: Σ(x − q_b)² in the difference
-//              form against the query in shared memory (zero-padded to
-//              32·kPer floats, so no lane tests the width), 8 entries at a
-//              time finished by one reduce-scatter; each d² goes to
-//              dist[b, pos], over the rank.  The queries that fit 64 KB of
-//              shared memory form a group; steps 1–4 run once per group.
+//   4. distance d ≤ 512 (verify_dist_kernel): one block an SM; a warp
+//              takes 32 consecutive non-empty rows a turn and reads each
+//              row once into registers, kPer floats a lane, under an L2
+//              evict-first policy, while it sums the previous row's
+//              entries: Σ(x − q_b)² in the difference form against the
+//              query in shared memory (zero-padded to 32·kPer floats, so no
+//              lane tests the width), 8 entries at a time finished by one
+//              reduce-scatter; each d² goes to dist[b, pos], over the rank.
+//              The queries that fit 64 KB of shared memory form a group.
+//              d > 512 (verify_wide_kernel): see below.  Steps 1–4 run
+//              once per group.
 //   5. answer  rt_topk_launch (topk.cu) on dist: the k smallest by (d²,
 //              position), mapped through cand to ids, −1 where d² = +inf.
 // This is ref.verify_topk's own sequence with the gather replaced, so the
 // ids equal the plain version's by construction.  The distance pass counts
 // the rows it read into rows_read.
+//
+// The wide path (d in (512, 8192]: a kNN-LM datastore keyed on an LM's
+// hidden states, d = 4096 for yi-6b; a flat search of GIST's 960).  A row
+// no longer fits a warp's registers nor a group's whole queries shared
+// memory, and each entry's 4d bytes of query would stream from the L2.
+//   Groups by the L2: as many queries as keep G·d·4 bytes within 8 MiB
+//     (kGroupFloats), at most 512: at d = 4096 a batch of 64 is one group,
+//     so steps 1–3 run once and each distinct row crosses from HBM once.
+//   Feature chunks: the group's queries and the rows go through shared
+//     memory C floats of the row at a time (C = 256 for G ≤ 64; 128, 64,
+//     32 for larger groups, so that G·C fills the 64-KB query buffer).
+//     Chunk c's queries load once a block into one of two buffers while
+//     chunk c − 1 is summed; an entry's partial d² of the chunk goes to
+//     dist[b, pos] (the first chunk writes, the others add), so the
+//     queries cross from the L2 once a block and not once an entry.
+//   Work by entry: persistent blocks, one an SM, each a run of consecutive
+//     non-empty rows balanced by entries + 6·rows (a row's HBM read costs
+//     about six entries' sums), walking (chunk, 8,192 floats of its rows)
+//     stages through a ring of three.  One producer warp loads each stage
+//     by the 1-D TMA (cp.async.bulk, one copy a row chunk, completion on
+//     an mbarrier) where d % 4 == 0 and data and q are 16-byte aligned, by
+//     4-byte cp.async otherwise, with the stage's entry offsets beside it;
+//     eight consumer warps each take an even share of a stage's entries,
+//     so a row named once and a row named 64 times both keep every warp
+//     busy, and free the slot (a second mbarrier) at their own pace.  L
+//     lanes (32, or 16 / 8 for the narrow chunks) sum an entry, 4 floats a
+//     lane at a time, the row's floats held in registers while consecutive
+//     entries name it, 8 entries finished by one reduce-scatter.
+//   Each d² is Σ(x − q)² in float32 on the CUDA cores (no tensor cores:
+//     TF32 would move d² and with it ties), in the order: each lane's 4·V
+//     floats of the chunk, a butterfly over the L lanes, the chunks in
+//     order.  What bounds it at lm_knn's (64, 1,593, 4096) on the H100: not
+//     the distinct rows' bytes from HBM (the ring alone streams them in
+//     0.12 ms) but the consumers' sums, which never wait for a stage: the
+//     issue of each step's shuffles, shared-memory reads (a query's 1 KB
+//     chunk an entry) and FMAs.  PERF.md §6 has the traffic model and the
+//     figures.
 #include "common.cuh"
 
 namespace {
@@ -58,6 +97,16 @@ constexpr int kTile = kScanThreads * kScanPer;  // counts per scan tile
 constexpr int kDistThreads = 1024;  // one block an SM
 constexpr int kDistWarps = kDistThreads / 32;
 constexpr int kMaxPer = 16;  // row floats a lane holds in registers (d ≤ 512)
+// the wide path (d > 32·kMaxPer)
+constexpr int kGroupFloats = 1 << 21;  // a group's queries: 8 MiB of the L2
+constexpr int kWideMaxGroup = 512;     // so that 32 floats of each fill a query buffer
+constexpr int kWideQFloats = 16384;    // one chunk of the group's queries: 64 KB, two buffers
+constexpr int kWideStageFloats = 8192;  // one chunk of a stage's rows: 32 KB
+constexpr int kWideStages = 3;
+constexpr int kWideMaxRows = 96;  // rows a stage holds at most
+constexpr int kWideWarps = 8;     // consumers, and one producer warp
+constexpr int kWideThreads = 32 * (kWideWarps + 1);
+constexpr int kRowEntries = 6;  // a row's HBM read weighs as much as six entries' sums
 
 using u64 = unsigned long long;
 
@@ -238,26 +287,29 @@ verify_tile_write_kernel(int* __restrict__ counts, const u64* __restrict__ tile_
   }
 }
 
-// The sums of 8 entries' lane partials, each over the warp in the order of
-// rt::warp_sum (xor 16, 8, 4, 2, 1), by a reduce-scatter: lane l ends with
-// the sum of entry 4·bit4(l) + 2·bit3(l) + bit2(l).  9 shuffles for 8 sums.
+// The sums of 8 entries' lane partials, each over L lanes (a power of two,
+// 8 ≤ L ≤ 32; L < 32: each sub-warp of L lanes its own 8 entries) in the
+// order of rt::warp_sum (xor L/2, …, 1), by a reduce-scatter: lane l ends
+// with the sum of entry 4·bit(l & L/2) + 2·bit(l & L/4) + bit(l & L/8).
+// 9 shuffles for 8 sums at L = 32.
+template <int L = 32>
 __device__ __forceinline__ float reduce_scatter8(const float (&acc)[8], int lane) {
-  const bool u4 = lane & 16, u3 = lane & 8, u2 = lane & 4;
+  const bool u4 = lane & (L / 2), u3 = lane & (L / 4), u2 = lane & (L / 8);
   float v4[4], v2[2];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float send = u4 ? acc[i] : acc[i + 4];
-    v4[i] = (u4 ? acc[i + 4] : acc[i]) + __shfl_xor_sync(rt::kFullMask, send, 16);
+    v4[i] = (u4 ? acc[i + 4] : acc[i]) + __shfl_xor_sync(rt::kFullMask, send, L / 2);
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const float send = u3 ? v4[i] : v4[i + 2];
-    v2[i] = (u3 ? v4[i + 2] : v4[i]) + __shfl_xor_sync(rt::kFullMask, send, 8);
+    v2[i] = (u3 ? v4[i + 2] : v4[i]) + __shfl_xor_sync(rt::kFullMask, send, L / 4);
   }
   const float send = u2 ? v2[0] : v2[1];
-  float v = (u2 ? v2[1] : v2[0]) + __shfl_xor_sync(rt::kFullMask, send, 4);
-  v += __shfl_xor_sync(rt::kFullMask, v, 2);
-  v += __shfl_xor_sync(rt::kFullMask, v, 1);
+  float v = (u2 ? v2[1] : v2[0]) + __shfl_xor_sync(rt::kFullMask, send, L / 8);
+#pragma unroll
+  for (int o = L / 16; o > 0; o >>= 1) v += __shfl_xor_sync(rt::kFullMask, v, o);
   return v;
 }
 
@@ -282,18 +334,15 @@ __device__ __forceinline__ void load_vec(const float* p, float* out) {
 // The d² of one row's entries [s, e): 32 at a time each lane takes one
 // entry's place and query offset (the first 32 are `first`, loaded ahead),
 // then 8 entries at a time each lane sums its floats' (x − q)² and a
-// reduce-scatter finishes the 8 sums.  kPer > 0: the row is x, kPer floats
-// a lane, kV consecutive ones in each slab of 32·kV, and a query row is dq
-// = 32·kPer floats, zero past d, so (0 − 0)² adds nothing; kPer == 0: the
-// row is read from xr for each entry and a query row is d floats.
+// reduce-scatter finishes the 8 sums.  The row is x, kPer floats a lane,
+// kV consecutive ones in each slab of 32·kV, and a query row is dq =
+// 32·kPer floats, zero past d, so (0 − 0)² adds nothing.
 template <int kPer>
-__device__ __forceinline__ void row_distances(const float (&x)[kPer > 0 ? kPer : 1],
-                                              const float* __restrict__ xr,
-                                              const float* s_q,
+__device__ __forceinline__ void row_distances(const float (&x)[kPer], const float* s_q,
                                               const int* __restrict__ entries, int s, int e,
-                                              int first, float* __restrict__ dist, int d,
-                                              int dq, int W, int g0, int lane) {
-  constexpr int kV = kPer < 4 ? (kPer > 0 ? kPer : 1) : 4;
+                                              int first, float* __restrict__ dist, int dq,
+                                              int W, int g0, int lane) {
+  constexpr int kV = kPer < 4 ? kPer : 4;
   for (int c0 = s; c0 < e; c0 += 32) {
     const int cnt = min(32, e - c0);
     const int my_e = c0 == s ? first : (lane < cnt ? entries[c0 + lane] : 0);
@@ -305,20 +354,13 @@ __device__ __forceinline__ void row_distances(const float (&x)[kPer > 0 ? kPer :
         acc[i] = 0.f;
         const float* qs = s_q + __shfl_sync(rt::kFullMask, my_q, (t0 + i) & 31);
         if (t0 + i < cnt) {  // warp-uniform
-          if constexpr (kPer > 0) {
-            float qv[kPer];
+          float qv[kPer];
 #pragma unroll
-            for (int v = 0; v < kPer; v += kV) load_vec<kV>(qs + 32 * v + kV * lane, qv + v);
+          for (int v = 0; v < kPer; v += kV) load_vec<kV>(qs + 32 * v + kV * lane, qv + v);
 #pragma unroll
-            for (int v = 0; v < kPer; ++v) {
-              const float df = x[v] - qv[v];
-              acc[i] += df * df;
-            }
-          } else {
-            for (int c = lane; c < d; c += 32) {
-              const float df = xr[c] - qs[c];
-              acc[i] += df * df;
-            }
+          for (int v = 0; v < kPer; ++v) {
+            const float df = x[v] - qv[v];
+            acc[i] += df * df;
           }
         }
       }
@@ -371,12 +413,10 @@ __device__ __forceinline__ void load_row(const float* __restrict__ xr, int d, in
   }
 }
 
-// 4.  Persistent warps over the group's U non-empty rows, 32 consecutive
+// 4, d ≤ 512.  Persistent warps over the group's U non-empty rows, 32 consecutive
 // rows a turn: lane l holds row l's id and slice, loaded a turn ahead.
-// kPer > 0: a warp holds the row it sums in registers, kPer floats a lane,
-// while the next row's floats and first 32 entries load.  kPer == 0
-// (d > 32·kMaxPer): a warp takes its rows one by one and each entry reads
-// the row from global memory (L1 / L2 after the first).
+// A warp holds the row it sums in registers, kPer floats a lane, while the
+// next row's floats and first 32 entries load.
 template <int kPer>
 __global__ void __launch_bounds__(kDistThreads, 1)
 verify_dist_kernel(const float* __restrict__ data, const float* __restrict__ q,
@@ -421,17 +461,12 @@ verify_dist_kernel(const float* __restrict__ data, const float* __restrict__ q,
     fs = u < 32 ? s0 : s1;
     fe = u < 32 ? e0 : e1;
   };
-  constexpr int kRegs = kPer > 0 ? kPer : 1;
-  constexpr int kV = kPer < 4 ? kRegs : 4;
+  constexpr int kV = kPer < 4 ? kPer : 4;
   const unsigned long long policy = evict_first_policy();
   int id, s0, e0, first = 0, nid, ns, ne, nfirst = 0;
-  float x[kRegs] = {}, nx[kRegs] = {};
+  float x[kPer] = {}, nx[kPer] = {};
   row_at(0, id, s0, e0);
-  if constexpr (kPer > 0) {
-    if (id >= 0) {
-      load_row<kPer, kV>(data + static_cast<long long>(id) * d, d, lane, vec16, policy, x);
-    }
-  }
+  if (id >= 0) load_row<kPer, kV>(data + static_cast<long long>(id) * d, d, lane, vec16, policy, x);
   if (id >= 0) first = lane < e0 - s0 ? entries[s0 + lane] : 0;
   int read = 0;
   for (int t = 0; id >= 0;) {
@@ -445,20 +480,17 @@ verify_dist_kernel(const float* __restrict__ data, const float* __restrict__ q,
     }
     row_at(t, nid, ns, ne);  // the next row, in flight while this one is summed
     if (nid >= 0) {
-      if constexpr (kPer > 0) {
-        load_row<kPer, kV>(data + static_cast<long long>(nid) * d, d, lane, vec16, policy, nx);
-      }
+      load_row<kPer, kV>(data + static_cast<long long>(nid) * d, d, lane, vec16, policy, nx);
       nfirst = lane < ne - ns ? entries[ns + lane] : 0;
     }
-    row_distances<kPer>(x, data + static_cast<long long>(id) * d, s_q, entries, s0, e0, first,
-                        dist, d, dq, W, g0, lane);
+    row_distances<kPer>(x, s_q, entries, s0, e0, first, dist, dq, W, g0, lane);
     ++read;
     id = nid;
     s0 = ns;
     e0 = ne;
     first = nfirst;
 #pragma unroll
-    for (int i = 0; i < kRegs; ++i) x[i] = nx[i];
+    for (int i = 0; i < kPer; ++i) x[i] = nx[i];
   }
   if (lane == 0) atomicAdd(rows_read, read);
 }
@@ -485,12 +517,336 @@ cudaError_t launch_dist(const float* data, const float* q, const int* rows, cons
   return cudaSuccess;
 }
 
+// ---------------------------------------------------------------------------
+// 4, d > 512: the wide path (see the header).
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(u64* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// Wait until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(u64* bar, int parity) {
+  const unsigned a = smem_addr(bar);
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(u64* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// The producer warp's copy of nr rows, cols floats each, row r from
+// src(r) to dst + r·C: one phase of bar, which also publishes the warp's
+// shared-memory stores before it.  vec16: lane 0 asks for the bytes, then
+// each lane issues a 1-D TMA copy (cp.async.bulk) a row (16-byte aligned
+// source, cols % 4 == 0); bar counts 1 arrival.  Otherwise the lanes copy
+// each row's floats with 4-byte cp.async and arrive as theirs land, and
+// lane 0 arrives once more; bar counts 33.
+template <typename Src>
+__device__ __forceinline__ void warp_copy(float* dst, int nr, int cols, int C, Src src,
+                                          bool vec16, u64* bar, int lane) {
+  __syncwarp();
+  if (vec16) {
+    const unsigned bytes = 4u * static_cast<unsigned>(cols);
+    if (lane == 0) {
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                       smem_addr(bar)),
+                   "r"(bytes * nr)
+                   : "memory");
+    }
+    for (int r = lane; r < nr; r += 32) {
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+          "[%3];\n" ::"r"(smem_addr(dst + r * C)),
+          "l"(src(r)), "r"(bytes), "r"(smem_addr(bar))
+          : "memory");
+    }
+  } else {
+    for (int r = 0; r < nr; ++r) {
+      const float* from = src(r);
+      for (int c = lane; c < cols; c += 32) rt::cp_async4(dst + r * C + c, from + c, 4);
+    }
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+                 : "memory");
+    if (lane == 0) mbar_arrive(bar);
+  }
+}
+
+// One stage's sums for this warp's entries [p0, p1) of the stage's nr rows
+// (row r's chunk at s_x + r·C, its entries from s_st[r] to s_st[r + 1];
+// query b's chunk at s_q + b·C).  A round of 32 entries: lane l takes
+// entry p0 + 32·round + l (its place, loaded a round ahead, the first
+// round's in `ent`; its row; its query; its d² so far).  A step: each
+// sub-warp of L lanes sums 8 of them, lane sl of a sub-warp floats 4·sl +
+// 4·L·u (u < V): the 8 entries' offsets and query floats load first, the
+// row's floats stay in registers while consecutive entries name it, and a
+// reduce-scatter finishes the 8 sums.  The round ends with each lane
+// writing its entry's d² so far.  kTail: the chunk holds cols < C floats.
+template <int L, int V, bool kTail>
+__device__ __forceinline__ void wide_stage(const float* s_x, const float* s_q, const int* s_st,
+                                           int nr, const int* __restrict__ entries, int p0,
+                                           int p1, int ent, float* __restrict__ dist, int W,
+                                           int g0, int cols, bool first, int lane) {
+  constexpr int C = 4 * L * V, kSub = 32 / L;
+  const int sub = lane / L, sl = lane % L;
+  int row = 0;    // lane's row: its entries' rows only grow
+  int xcur = -1;  // the sub-warp's row in xv
+  float4 xv[V];
+  for (int base = p0; base < p1; base += 32) {
+    const int cnt = min(32, p1 - base), p = base + lane;
+    const int ent_next = p + 32 < p1 ? entries[p + 32] : 0;
+    int pk = 0;
+    float prev = 0.f, mine = 0.f;
+    if (lane < cnt) {
+      if (!first) prev = dist[ent];
+      int hi = nr - 1;  // the last row whose entries start at or before p
+      while (row < hi) {
+        const int mid = (row + hi + 1) >> 1;
+        if (s_st[mid] <= p) row = mid; else hi = mid - 1;
+      }
+      pk = (ent / W - g0) * C | (row * C) << 16;  // query and row offsets
+    }
+    for (int t0 = 0; t0 < cnt; t0 += 8 * kSub) {  // warp-uniform
+      // slots past cnt sum row 0 against query 0 and go unused
+      int pko[8];
+      float4 qv[8][V];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) pko[i] = __shfl_sync(rt::kFullMask, pk, (t0 + 8 * sub + i) & 31);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int u = 0; u < V; ++u) {
+          qv[i][u] = *reinterpret_cast<const float4*>(s_q + (pko[i] & 0xffff) + 4 * sl + 4 * L * u);
+        }
+      }
+      float acc[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int xo = pko[i] >> 16;
+        if (xo != xcur) {  // uniform in a sub-warp
+          xcur = xo;
+#pragma unroll
+          for (int u = 0; u < V; ++u) {
+            xv[u] = *reinterpret_cast<const float4*>(s_x + xo + 4 * sl + 4 * L * u);
+          }
+        }
+        acc[i] = 0.f;
+#pragma unroll
+        for (int u = 0; u < V; ++u) {
+          const int c = 4 * sl + 4 * L * u;
+          float d0 = xv[u].x - qv[i][u].x, d1 = xv[u].y - qv[i][u].y, d2 = xv[u].z - qv[i][u].z,
+                d3 = xv[u].w - qv[i][u].w;
+          if (kTail && c + 4 > cols) {  // floats past the chunk add nothing
+            if (c >= cols) d0 = 0.f;
+            if (c + 1 >= cols) d1 = 0.f;
+            if (c + 2 >= cols) d2 = 0.f;
+            d3 = 0.f;
+          }
+          acc[i] += d0 * d0;
+          acc[i] += d1 * d1;
+          acc[i] += d2 * d2;
+          acc[i] += d3 * d3;
+        }
+      }
+      const float sum = reduce_scatter8<L>(acc, lane);
+      // lane t0 + r takes the sum of step entry r = 8·sub' + i, which the
+      // lanes sub'·L + i·(L / 8) + {0, …} hold
+      const int r = lane - t0;
+      const float got = __shfl_sync(rt::kFullMask, sum, ((r >> 3) * L + (r & 7) * (L / 8)) & 31);
+      if (r >= 0 && r < 8 * kSub) mine = got;
+    }
+    if (lane < cnt) dist[ent] = prev + mine;
+    ent = ent_next;
+  }
+}
+
+// Persistent blocks, one an SM: block b takes the non-empty rows j whose
+// key starts[j] + kRowEntries·j falls in its share of the group's, and
+// walks (chunk, kRows of its rows) stages.  Warp kWideWarps produces: for
+// each stage it loads the rows' ids and entry offsets, waits until the
+// consumers have left the ring slot (empty), stores them beside it and
+// issues the copies (full); a query chunk c + 2 once they have left chunk
+// c.  Warps 0 … kWideWarps − 1 consume, each at its own pace: wait for the
+// stage (and at a chunk's first stage its queries), sum its share of the
+// stage's entries, leave the slot.  Shared memory: two query buffers, the
+// ring, its rows' offsets and ids, then the barriers (full, empty, the
+// queries').
+template <int L, int V>
+__global__ void __launch_bounds__(kWideThreads, 1)
+verify_wide_kernel(const float* __restrict__ data, const float* __restrict__ q,
+                   const int* __restrict__ rows, const int* __restrict__ starts,
+                   const int* __restrict__ entries, const int* __restrict__ rows_used,
+                   float* __restrict__ dist, int* __restrict__ rows_read, int d, int W, int g0,
+                   int G, bool vec16) {
+  constexpr int C = 4 * L * V, kS = kWideStages, kSt = kWideMaxRows + 2;
+  constexpr int kRows = kWideStageFloats / C < kWideMaxRows ? kWideStageFloats / C : kWideMaxRows;
+  constexpr int kPerLane = (kRows + 31) / 32;
+  extern __shared__ float4 s_mem[];
+  float* s_q = reinterpret_cast<float*>(s_mem);
+  float* s_ring = s_q + 2 * kWideQFloats;
+  int* s_st = reinterpret_cast<int*>(s_ring + kS * kWideStageFloats);  // [kS][kSt]
+  int* s_rid = s_st + kS * kSt;                                         // [kS][kWideMaxRows]
+  u64* full = reinterpret_cast<u64*>(s_rid + kS * kWideMaxRows);
+  u64* empty = full + kS;
+  u64* qfull = empty + kS;
+  __shared__ int s_span[2];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    const int U = *rows_used;
+    const long long total = starts[U] + static_cast<long long>(kRowEntries) * U;
+    for (int e = 0; e < 2; ++e) {  // the first row whose key reaches the block's share
+      const long long target = total * (blockIdx.x + e) / gridDim.x;
+      int lo = 0, hi = U;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (starts[mid] + static_cast<long long>(kRowEntries) * mid < target) {
+          lo = mid + 1;
+        } else {
+          hi = mid;
+        }
+      }
+      s_span[e] = lo;
+    }
+    for (int i = 0; i < kS; ++i) {
+      mbar_init(full + i, vec16 ? 1 : 33);
+      mbar_init(empty + i, kWideWarps);
+    }
+    for (int i = 0; i < 2; ++i) mbar_init(qfull + i, vec16 ? 1 : 33);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int j_lo = s_span[0], j_hi = s_span[1];
+  if (j_lo >= j_hi) return;
+  const int groups = (j_hi - j_lo + kRows - 1) / kRows;  // stages a chunk
+  const int chunks = (d + C - 1) / C, T = chunks * groups;
+  if (warp == kWideWarps) {  // the producer
+    auto issue_q = [&](int c) {
+      const long long c0 = static_cast<long long>(c) * C;
+      warp_copy(s_q + (c & 1) * kWideQFloats, G, min(C, d - c * C), C,
+                [&](int b) { return q + static_cast<long long>(g0 + b) * d + c0; }, vec16,
+                qfull + (c & 1), lane);
+    };
+    issue_q(0);
+    if (chunks > 1) issue_q(1);
+    for (int t = 0; t < T + kS; ++t) {
+      const int c = t / groups, ja = j_lo + (t - c * groups) * kRows;
+      const int nr = t < T ? min(kRows, j_hi - ja) : 0;
+      int rid[kPerLane], sv[kPerLane + 1];  // in flight while the slot empties
+#pragma unroll
+      for (int i = 0; i <= kPerLane; ++i) {
+        const int r = lane + 32 * i;
+        if (i < kPerLane) rid[i] = r < nr ? rows[ja + r] : 0;
+        sv[i] = r <= nr && nr > 0 ? starts[ja + r] : 0;
+      }
+      if (t >= kS) {  // the consumers have left stage t − kS
+        const int done = t - kS;
+        mbar_wait(empty + done % kS, (done / kS) & 1);
+        if ((done + 1) % groups == 0 && done / groups + 2 < chunks) issue_q(done / groups + 2);
+      }
+      if (t >= T) continue;
+      int* st = s_st + (t % kS) * kSt;
+      int* sr = s_rid + (t % kS) * kWideMaxRows;
+#pragma unroll
+      for (int i = 0; i <= kPerLane; ++i) {
+        const int r = lane + 32 * i;
+        if (i < kPerLane && r < nr) sr[r] = rid[i];
+        if (r <= nr) st[r] = sv[i];
+      }
+      if (lane == 0) st[kSt - 1] = nr;
+      const long long c0 = static_cast<long long>(c) * C;
+      __syncwarp();
+      warp_copy(s_ring + (t % kS) * kWideStageFloats, nr, min(C, d - c * C), C,
+                [&](int r) { return data + static_cast<long long>(sr[r]) * d + c0; }, vec16,
+                full + t % kS, lane);
+    }
+    return;
+  }
+  for (int t = 0; t < T; ++t) {  // a consumer
+    const int c = t / groups, cols = min(C, d - c * C);
+    mbar_wait(full + t % kS, (t / kS) & 1);
+    if (t % groups == 0) mbar_wait(qfull + (c & 1), (c >> 1) & 1);
+    const int* st = s_st + (t % kS) * kSt;
+    const int nr = st[kSt - 1], sa = st[0], sb = st[nr];
+    const int per = (sb - sa + kWideWarps - 1) / kWideWarps;  // this warp's share
+    const int p0 = min(sa + warp * per, sb), p1 = min(p0 + per, sb);
+    const int ent = p0 + lane < p1 ? entries[p0 + lane] : 0;
+    const float* s_x = s_ring + (t % kS) * kWideStageFloats;
+    const float* s_qc = s_q + (c & 1) * kWideQFloats;
+    if (cols == C) {
+      wide_stage<L, V, false>(s_x, s_qc, st, nr, entries, p0, p1, ent, dist, W, g0, cols,
+                              c == 0, lane);
+    } else {
+      wide_stage<L, V, true>(s_x, s_qc, st, nr, entries, p0, p1, ent, dist, W, g0, cols,
+                             c == 0, lane);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + t % kS);
+  }
+  if (threadIdx.x == 0) atomicAdd(rows_read, j_hi - j_lo);
+}
+
+// Floats of a feature chunk for a wide group of G ≤ kWideMaxGroup queries:
+// the widest of 256, 128, 64, 32 whose G rows fit a query buffer.
+int wide_chunk(int G) {
+  const int fit = kWideQFloats / G;
+  return fit >= 256 ? 256 : fit >= 128 ? 128 : fit >= 64 ? 64 : 32;
+}
+
+template <int L, int V>
+cudaError_t launch_wide_at(const float* data, const float* q, const int* rows, const int* starts,
+                           const int* entries, const int* rows_used, float* dist,
+                           int* rows_read, int d, int W, int g0, int G, cudaStream_t st) {
+  constexpr size_t smem =
+      sizeof(float) * (2 * kWideQFloats + kWideStages * kWideStageFloats) +
+      sizeof(int) * kWideStages * (2 * kWideMaxRows + 2) + sizeof(u64) * (2 * kWideStages + 2);
+  static int grid_cache[rt::kMaxDevices];
+  cudaError_t err = cudaSuccess;
+  const int grid = rt::resident_grid(reinterpret_cast<const void*>(verify_wide_kernel<L, V>),
+                                     kWideThreads, smem, grid_cache, &err);
+  if (grid == 0) return err;
+  const bool vec16 = d % 4 == 0 && reinterpret_cast<uintptr_t>(data) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  verify_wide_kernel<L, V><<<grid, kWideThreads, smem, st>>>(
+      data, q, rows, starts, entries, rows_used, dist, rows_read, d, W, g0, G, vec16);
+  return cudaSuccess;
+}
+
+// The wide distance pass over queries [g0, g0 + G), chunk floats a chunk.
+cudaError_t launch_wide(int chunk, const float* data, const float* q, const int* rows,
+                        const int* starts, const int* entries, const int* rows_used,
+                        float* dist, int* rows_read, int d, int W, int g0, int G,
+                        cudaStream_t st) {
+  switch (chunk) {
+#define VERIFY_WIDE(L, V) \
+  return launch_wide_at<L, V>(data, q, rows, starts, entries, rows_used, dist, rows_read, d, W, g0, G, st)
+    case 256: VERIFY_WIDE(32, 2);
+    case 128: VERIFY_WIDE(32, 1);
+    case 64: VERIFY_WIDE(16, 1);
+    default: VERIFY_WIDE(8, 1);
+#undef VERIFY_WIDE
+  }
+}
+
 // The scratch regions, each aligned to 256 bytes.
 struct Layout {
   long long dist, entries, counts, rows, starts, tile_sum, rows_used, part, bytes;
   int W, G, tiles, S_cap;
-  int per;  // row floats a lane holds: a power of two ≤ kMaxPer, or 0 past 32·kMaxPer
-  int dq;   // floats of a query row in shared memory
+  int per;    // row floats a lane holds: a power of two ≤ kMaxPer, or 0 past 32·kMaxPer
+  int dq;     // per > 0: floats of a query row in shared memory
+  int chunk;  // per == 0: floats of a feature chunk (wide_chunk)
 };
 
 long long align256(long long x) { return (x + 255) & ~255ll; }
@@ -505,9 +861,16 @@ bool layout(int n, int d, int B, int Tc, int k, Layout* L) {
   L->per = 1;
   while (32 * L->per < d && L->per <= kMaxPer) L->per *= 2;
   if (L->per > kMaxPer) L->per = 0;
-  L->dq = L->per > 0 ? 32 * L->per : d;
-  L->G = B < kQueryFloats / L->dq ? B : kQueryFloats / L->dq;
+  int cap;  // queries a group holds
+  if (L->per > 0) {
+    L->dq = 32 * L->per;
+    cap = kQueryFloats / L->dq;
+  } else {  // the wide path: the L2 holds the group's queries
+    cap = kGroupFloats / d < kWideMaxGroup ? kGroupFloats / d : kWideMaxGroup;
+  }
+  L->G = B < cap ? B : cap;
   if (L->G < 1) L->G = 1;
+  L->chunk = L->per > 0 ? 0 : wide_chunk(L->G);
   const long long ge = static_cast<long long>(L->G) * L->W;  // entries of one group
   const long long u_max = ge < n ? ge : n;
   L->tiles = (n + kTile - 1) / kTile;
@@ -527,12 +890,20 @@ bool layout(int n, int d, int B, int Tc, int k, Layout* L) {
 
 }  // namespace
 
-// Queries verify_topk_launch verifies at once at width d (a group: its
-// queries fit kQueryFloats of shared memory), or −1 for d outside [1,
-// 8192] or B outside [0, 65535].
+// Queries verify_topk_launch verifies at once at width d (a group: up to
+// d = 512 its queries fit kQueryFloats of shared memory, past it
+// kGroupFloats of the L2, at most kWideMaxGroup), or −1 for d outside
+// [1, 8192] or B outside [0, 65535].
 extern "C" int verify_topk_group_size(int B, int d) {
   Layout L;
   return layout(0, d, B, 0, 1, &L) ? L.G : -1;
+}
+
+// Floats of the wide path's feature chunk at (B, d): 0 up to d = 512, −1
+// where verify_topk_group_size is.
+extern "C" int verify_topk_chunk(int B, int d) {
+  Layout L;
+  return layout(0, d, B, 0, 1, &L) ? L.chunk : -1;
 }
 
 // Bytes of scratch verify_topk_launch takes for these shapes, or −1 where
@@ -593,8 +964,10 @@ extern "C" int verify_topk_launch(const float* data, const float* q, const int* 
       case 4: VERIFY_DIST(4);
       case 8: VERIFY_DIST(8);
       case 16: VERIFY_DIST(16);
-      default: VERIFY_DIST(0);
 #undef VERIFY_DIST
+      default:
+        err = launch_wide(L.chunk, data, q, rows, starts, entries, rows_used, dist, rows_read, d,
+                          L.W, g0, G, st);
     }
     if (err != cudaSuccess) return static_cast<int>(err);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);

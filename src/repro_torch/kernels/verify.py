@@ -12,7 +12,10 @@ The C entry sorts the batch's (query, position) entries by row id, so
 each distinct candidate row is read once per group of queries
 (``group_size``), writes each d² at its (query, position), and answers
 through the topk kernel, as the plain version answers through
-``topk_smallest``.  Ids outside [0, n) count as padding.
+``topk_smallest``.  Ids outside [0, n) count as padding.  Past d = 512
+the rows and the group's queries go through shared memory a feature
+chunk at a time (``chunk_size``); ``wide_traffic`` is that path's
+traffic model.
 """
 from __future__ import annotations
 
@@ -22,17 +25,26 @@ from . import _build
 from ._args import checked, stream_of
 from .counts import bump
 
-__all__ = ["MAX_K", "group_size", "verify_topk"]
+__all__ = ["MAX_K", "chunk_size", "group_size", "verify_topk", "wide_traffic"]
 
 MAX_K = 128
 _MAX_D = 8192
 
 
 def group_size(B: int, d: int) -> int:
-    """Queries the kernel verifies at once at width d (their rows fit its
-    shared memory): a batch of more is verified group by group, and a
+    """Queries the kernel verifies at once at width d: up to d = 512 as
+    many as fit 64 KB of shared memory, past it as many as keep G·d·4
+    bytes within 8 MiB of the L2, at most 512 (a batch of 64 at d = 4096
+    is one group).  A batch of more is verified group by group, and a
     candidate row is read once a group."""
     return _build.load().verify_topk_group_size(B, d)
+
+
+def chunk_size(B: int, d: int) -> int:
+    """Floats of the feature chunk the kernel sums at a time past d = 512
+    (256, 128, 64 or 32: the widest whose chunk of a group's queries fits
+    64 KB); 0 up to d = 512."""
+    return _build.load().verify_topk_chunk(B, d)
 
 
 def verify_topk(data: torch.Tensor, q: torch.Tensor, cand: torch.Tensor, k: int, *,
@@ -68,3 +80,22 @@ def verify_topk(data: torch.Tensor, q: torch.Tensor, cand: torch.Tensor, k: int,
     _build.check(err, "verify_topk")
     bump("verify_topk")
     return (vals, ids, out[2 * B * k:]) if rows_read else (vals, ids)
+
+
+def wide_traffic(d: int, B: int, group: int, chunk: int, blocks: int, groups: list) -> dict:
+    """The wide path's traffic model for one call of B queries.  ``groups``
+    holds a (distinct rows, entries) pair for each group of ``group``
+    queries, ``blocks`` the blocks of the distance pass (one an SM).
+    ``hbm_bytes``: each group's distinct rows once, the queries once;
+    ``l2_bytes``: what crosses from the L2 to the SMs, the rows again,
+    each block that holds rows copying every chunk of its group's queries,
+    and each entry's place read once a chunk and its d² written once a
+    chunk and read once a chunk after the first; ``fmas``: one (x − q)²
+    an entry a float, each beside a subtraction."""
+    chunks = -(-d // chunk)
+    rows = sum(u for u, _ in groups)
+    entries = sum(e for _, e in groups)
+    queries = sum(min(blocks, u) * min(group, B - i * group) for i, (u, _) in enumerate(groups))
+    return {"hbm_bytes": 4 * d * (rows + B),
+            "l2_bytes": 4 * d * (rows + queries) + 4 * entries * (3 * chunks - 1),
+            "fmas": entries * d, "chunks": chunks}

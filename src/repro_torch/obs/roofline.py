@@ -162,8 +162,9 @@ def verify_topk_cost(B: int, Tc: int, d: int, k: int,
     queries once, (B,k)·2 answer writes; exact distances are 2·B·Tc·d
     FLOPs plus the streaming top-k compares.  ``rows_read`` replaces the
     B·Tc candidate rows read where the kernel read fewer: the H100
-    kernel reads each distinct row once per group of queries and
-    reports how many it read."""
+    kernel reads each distinct row once per group of queries (up to 512
+    queries past d = 512, as many as fit 8 MiB of the L2) and reports how
+    many it read."""
     rows = B * Tc if rows_read is None else max(int(rows_read), 0)
     return KernelCost(bytes=(rows * d + B * d + 4 * B * k) * F32,
                       flops=2 * B * Tc * d + B * Tc * k)

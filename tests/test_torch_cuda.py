@@ -231,50 +231,79 @@ def test_verify_exact_ties_go_to_earliest_position(cuda):
 def _verify_card_case(name, device):
     """(data, q, cand, k) on the card: the batch sizes of the main path
     and a batch past one group of queries, row widths the distance pass
-    takes in registers (15, 100: not a multiple of 32, 256), past them
-    (600), and the counting sort's edges."""
+    takes in registers (15, 100: not a multiple of 32, 256), past them on
+    the wide path (513, the first; 600; 999, no 16-byte copy; 1000, a
+    ragged last chunk; 4096 at the kNN-LM datastore's shape and past one
+    L2-sized group; 8192, the widest; rows not 16-byte aligned), each of
+    the wide path's chunk widths (256 at B ≤ 64, 128, 64, 32 at B = 512),
+    and the counting sort's edges, at d = 64 and, suffixed ``_d4096``, on
+    the wide path."""
     rng = np.random.default_rng(len(name) * 31)
+    base, wide = (name[:-6], True) if name.endswith("_d4096") else (name, False)
     B, n, d, Tc, k = {"B1": (1, 20000, 256, 9000, 10), "B16": (16, 20000, 256, 9000, 10),
                       "B64": (64, 20000, 256, 9000, 10), "B130": (130, 20000, 256, 3000, 10),
                       "d15": (16, 5000, 15, 2000, 10), "d100": (16, 5000, 100, 2000, 10),
-                      "d600": (8, 3000, 600, 1000, 10)}.get(name, (12, 3000, 64, 400, 10))
+                      "d600": (8, 3000, 600, 1000, 10), "d513": (16, 3000, 513, 1000, 10),
+                      "d999": (16, 3000, 999, 1000, 10), "d1000": (16, 3000, 1000, 1000, 10),
+                      "d4096_knn": (64, 16_384, 4096, 1593, 8),
+                      "d4096_groups": (600, 4096, 4096, 300, 10),
+                      "d8192": (8, 2000, 8192, 700, 10), "misaligned": (16, 3000, 1024, 1000, 10),
+                      "chunk128": (100, 3000, 600, 500, 10),
+                      "chunk64": (200, 3000, 1000, 300, 10),
+                      }.get(name, (12, 3000, 4096 if wide else 64, 400, 10))
     data = rng.normal(size=(n, d)).astype(np.float32)
     q = rng.normal(size=(B, d)).astype(np.float32)
     cand = np.stack([rng.permutation(n)[:Tc] for _ in range(B)]).astype(np.int32)
-    if name == "hot_row":  # one row named by every query
+    if name == "d4096_groups":
+        # 600 queries × 10 answers at d = 4096: in normal data some answer
+        # lies within the two sides' rounding (≈ 1e-3 of d² ≈ 8,192) of the
+        # next candidate.  On a grid of 1/4 in [−2, 2) every square and
+        # every partial sum is exact in float32, so both sides' d² are
+        # exact whatever their order and each tie goes to the earlier
+        # position on both.
+        data = (rng.integers(-8, 8, size=(n, d)) / 4).astype(np.float32)
+        q = (rng.integers(-8, 8, size=(B, d)) / 4).astype(np.float32)
+    if base == "hot_row":  # one row named by every query
         cand[cand == 77] = 78
         cand[:, 5] = 77
-    elif name == "duplicates":  # a row twice in one query's list: both answer
+    elif base == "duplicates":  # a row twice in one query's list: both answer
         q[0] = data[5] + 0.01
         cand[0][cand[0] == 5] = 6
         cand[0, [3, 300]] = 5
-    elif name == "all_padding":
+    elif base == "all_padding":
         cand[2] = -1
         cand[4, 1:] = -1
-    elif name == "tc_below_k":
+    elif base == "tc_below_k":
         cand, k = cand[:, :6], 10
         cand[1, 4:] = -1
-    elif name == "k_1":
+    elif base == "k_1":
         k = 1
-    elif name == "k_128":
+    elif base == "k_128":
         k = 128
-    elif name == "exact_ties":  # equal rows: the earlier position answers first
+    elif base == "exact_ties":  # equal rows: the earlier position answers first
         data[9], data[8] = data[3], data[4]
         q[:] = data[3] + 0.01
         cand[np.isin(cand, [3, 4, 8, 9])] = 10
         cand[:, :4] = [9, 3, 8, 4]
-    elif name == "nan_row":  # NaN d² sorts after +inf and keeps its id
+    elif base == "nan_row":  # NaN d² sorts after +inf and keeps its id
         data[17, 2] = np.nan
         cand[cand == 17] = 18
         cand[:, 0] = 17
         cand[1, 5:] = -1
         k = 128
-    return tuple(torch.from_numpy(a).to(device) for a in (data, q, cand)) + (k,)
+    data_t = torch.from_numpy(data).to(device)
+    if name == "misaligned":  # rows 4 bytes past a 16-byte boundary: 4-byte cp.async
+        data_t = torch.empty(n * d + 1, device=device)[1:].view(n, d).copy_(data_t)
+    return (data_t,) + tuple(torch.from_numpy(a).to(device) for a in (q, cand)) + (k,)
 
 
 VERIFY_CARD_CASES = ["B1", "B16", "B64", "B130", "d15", "d100", "d600", "hot_row",
                      "duplicates", "all_padding", "tc_below_k", "k_1", "k_128", "exact_ties",
-                     "nan_row"]
+                     "nan_row",
+                     # the wide path (d > 512)
+                     "d513", "d999", "d1000", "d4096_knn", "d4096_groups", "d8192",
+                     "misaligned", "chunk128", "chunk64", "hot_row_d4096",
+                     "duplicates_d4096", "exact_ties_d4096", "nan_row_d4096"]
 
 
 @pytest.mark.parametrize("name", VERIFY_CARD_CASES)
@@ -295,24 +324,37 @@ def test_verify_schedule_cases_match_plain(cuda, name):
     torch.testing.assert_close(gv, wv, rtol=1e-5, atol=1e-5, equal_nan=True)
     G = kver.group_size(q.shape[0], data.shape[1])
     assert int(rows_read) == sum(int(torch.unique(c[c >= 0]).numel()) for c in cand.split(G))
-    if name == "B130":
-        assert G < 130  # the case crosses query groups
-    if name == "duplicates":
+    if name in ("B130", "d4096_groups"):
+        assert G < q.shape[0]  # the case crosses query groups
+    if name.startswith("duplicates"):
         assert gi[0, :2].tolist() == [5, 5]
-    if name == "exact_ties":
+    if name.startswith("exact_ties"):
         assert gi[:, :2].tolist() == [[9, 3]] * cand.shape[0]
 
 
-def test_verify_launches_its_schedule(cuda):
-    """One group: the count, three scan kernels, the scatter, the distance
-    pass and the topk kernel's two launches (one memset before)."""
+@pytest.mark.parametrize("B,d,group,chunk", [
+    (64, 256, 64, 0), (130, 256, 64, 0), (64, 600, 64, 256), (100, 600, 100, 128),
+    (200, 1000, 200, 64), (64, 4096, 64, 256), (600, 4096, 512, 32), (8, 8192, 8, 256),
+    (300, 8192, 256, 64), (5000, 513, 512, 32)])
+def test_verify_plan(cuda, B, d, group, chunk):
+    """The groups and chunks the C side plans are the ones the CPU model
+    of the schedule (test_torch_kernels.py: _wide_plan) assumes: past d =
+    512 a group holds min(B, 2²¹ // d, 512) queries, and a chunk the
+    widest of 256, 128, 64, 32 floats whose group fits 16,384 floats."""
+    from repro_torch.kernels import verify as kver
+
+    assert (kver.group_size(B, d), kver.chunk_size(B, d)) == (group, chunk)
+
+
+def _verify_launched(cuda, case):
+    """Names of the CUDA kernels one verify_topk call of ``case`` ran."""
     import time
 
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.verify import verify_topk
 
-    data, q, cand, k = _verify_card_case("B64", cuda)
+    data, q, cand, k = _verify_card_case(case, cuda)
     verify_topk(data, q, cand, k)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -326,13 +368,35 @@ def test_verify_launches_its_schedule(cuda):
                      key=lambda e: e.time_range.start)
     gaps = [i for i in range(1, len(kernels))
             if kernels[i].time_range.start - kernels[i - 1].time_range.end > 10_000]
-    names = [e.name for e in (kernels[gaps[-1]:] if gaps else kernels)]
+    return [e.name for e in (kernels[gaps[-1]:] if gaps else kernels)]
+
+
+def test_verify_launches_its_schedule(cuda):
+    """One group: the count, three scan kernels, the scatter, the distance
+    pass and the topk kernel's two launches (one memset before)."""
+    names = _verify_launched(cuda, "B64")
     launched = {name: sum(name in n for n in names)
                 for name in ("verify_entries_kernel", "verify_tile_", "verify_dist_kernel",
                              "topk_kernel")}
     assert launched == {"verify_entries_kernel": 2, "verify_tile_": 3,
                         "verify_dist_kernel": 1, "topk_kernel": 2}
     assert not any("select_" in n for n in names)
+
+
+def test_verify_wide_launches_its_schedule(cuda):
+    """The kNN-LM datastore's shape (64 queries at d = 4096) is one group:
+    the count, three scan kernels, the scatter, one wide distance pass and
+    the topk kernel's one (its 1,593 keys a row take one pass), where
+    query groups of 4 took 16 times the first six."""
+    from repro_torch.kernels import verify as kver
+
+    assert kver.group_size(64, 4096) == 64
+    names = _verify_launched(cuda, "d4096_knn")
+    launched = {name: sum(name in n for n in names)
+                for name in ("verify_entries_kernel", "verify_tile_", "verify_wide_kernel",
+                             "verify_dist_kernel", "topk_kernel")}
+    assert launched == {"verify_entries_kernel": 2, "verify_tile_": 3, "verify_wide_kernel": 1,
+                        "verify_dist_kernel": 0, "topk_kernel": 1}
 
 
 @pytest.mark.parametrize("n", [2048, 9000])
@@ -827,8 +891,9 @@ def test_sharded_flat_nccl_group_of_one_matches_emulated(cuda, tmp_path):
 @pytest.mark.parametrize("B,Tc,k", [(64, 2048, 8), (5, 700, 8), (4, 16_384, 10)])
 def test_verify_at_d4096_matches_plain(cuda, B, Tc, k):
     """The kNN-LM datastore's rows (d = 4096, an LM's hidden states): the
-    warp-a-row distance pass past d = 512, query groups of 4; ids exact,
-    d² to rtol 1e-5 (the difference form summed in another order)."""
+    wide distance pass past d = 512, one group of up to 512 queries; ids
+    exact, d² to rtol 1e-5 (the difference form summed in another
+    order)."""
     data, q, cand = _verify_inputs(B, 16_384, 4096, Tc, 3, seed=Tc, device=cuda)
     before = counts.LAUNCHES["verify_topk"]
     gv, gi = ops.verify_topk(data, q, cand, k)

@@ -16,7 +16,9 @@ with the JAX oracle (values and indices, +inf entries included) and
 with the Pallas kernel on values, and on indices where the value is
 finite (the Pallas kernel repeats indices in +inf slots).
 project_dist agrees to |Δ| ≤ 1e-5·(|qp|² + |x·A|²) + 1e-6 (the
-projection is summed in another order).
+projection is summed in another order).  Past d = 512 the near-zero d²
+of a duplicate or tied row differ from the TPU kernel's by its norm
+trick's cancellation, so there the atol is 1e-6·(|x|² + |q|²).
 """
 import numpy as np
 import pytest
@@ -398,6 +400,10 @@ def _verify_inputs(B, n, d, Tc, pad, seed):
     (7, 129, 33, 64, 10, 20),   # -1 padding
     (2, 40, 12, 6, 10, 2),      # k > Tc, and padding
     (4, 513, 96, 200, 1, 0),
+    # the CUDA kernel's wide path (d > 512)
+    (3, 200, 600, 50, 10, 5),
+    (4, 300, 1000, 80, 10, 10),
+    (2, 150, 4096, 40, 8, 0),
 ])
 def test_verify_matches_pallas(B, n, d, Tc, k, pad):
     data, q, cand = _verify_inputs(B, n, d, Tc, pad, seed=B * 100 + n + Tc)
@@ -448,10 +454,58 @@ def test_verify_k_over_128_routes_to_plain():
 # This model repeats that schedule step by step; it must give ref's ids
 # exactly and its d² to rtol 1e-5 (both sum the difference form, in
 # float32, in another order), and read each distinct row once a group.
+# Past d = 512 (the wide path) it also repeats the distance pass's
+# decomposition: groups by the L2, rows shared out to persistent blocks
+# by entries + 6·rows, and each d² summed a feature chunk at a time in
+# the kernel's order (each lane's floats, a butterfly over its L lanes,
+# the chunks in order).
+
+_KEY_ROW = 6  # verify.cu's kRowEntries
 
 
-def _verify_schedule(data, q, cand, k, group):
-    """(d² (B, k), ids (B, k), rows read) by csrc/verify.cu's schedule."""
+def _wide_plan(B, d):
+    """(group, chunk) of verify.cu past d = 512: a group holds min(B,
+    2²¹ // d, 512) queries, a chunk the widest of 256, 128, 64, 32 floats
+    whose group fits a 16,384-float query buffer (test_torch_cuda.py::
+    test_verify_plan holds the C side to these)."""
+    group = min(B, 2**21 // d, 512)
+    fit = 16384 // group
+    return group, next((c for c in (256, 128, 64) if fit >= c), 32)
+
+
+def _chunk_partial(x, qv, chunk):
+    """Each row of x (E, cols) against qv (E, cols), summed as a lane of
+    the wide pass sums a chunk: lane l of L = min(32, chunk // 4) takes
+    floats 4l + 4L·u + j (u < chunk // 4L, j < 4) in that order, then the
+    lanes meet in a butterfly (xor L/2, …, 1); floats past cols add 0."""
+    E, cols = x.shape
+    L = min(32, chunk // 4)
+    V = chunk // (4 * L)
+    diff = np.zeros((E, chunk), np.float32)
+    diff[:, :cols] = x - qv
+    lanes = diff.reshape(E, V, L, 4).transpose(0, 2, 1, 3).reshape(E, L, 4 * V)
+    acc = np.zeros((E, L), np.float32)
+    for j in range(4 * V):
+        acc = acc + lanes[:, :, j] * lanes[:, :, j]
+    o = L // 2
+    while o:
+        acc = acc + acc[:, np.arange(L) ^ o]
+        o //= 2
+    return acc[:, 0]
+
+
+def _wide_blocks(starts, blocks):
+    """Each block's rows [lo, hi) of the U non-empty rows: the rows whose
+    key starts[j] + 6·j falls in its share of the total."""
+    U = starts.size - 1
+    key = starts + _KEY_ROW * np.arange(U + 1)
+    cuts = [np.searchsorted(key, int(key[-1]) * b // blocks) for b in range(blocks + 1)]
+    return list(zip(cuts[:-1], cuts[1:]))
+
+
+def _verify_schedule(data, q, cand, k, group, chunk=None, blocks=5):
+    """(d² (B, k), ids (B, k), rows read) by csrc/verify.cu's schedule;
+    ``chunk`` given: the wide distance pass, over ``blocks`` blocks."""
     n, d = data.shape
     B, Tc = cand.shape
     W = max(Tc, k)
@@ -483,11 +537,24 @@ def _verify_schedule(data, q, cand, k, group):
         entries[offset[ids[real]] + rank[real]] = e[real]
         assert (entries >= 0).all()  # every slot filled once
         # 4. distance: one read of each non-empty row, d² for its entries
-        for j, r in enumerate(rows):
-            ent = entries[starts[j]:starts[j + 1]]
-            rows_read += 1
-            d2 = ((x[r][None, :] - qt[ent // W]) ** 2).sum(-1)
-            dist.reshape(-1)[ent] = d2.numpy()
+        if chunk is None:
+            for j, r in enumerate(rows):
+                ent = entries[starts[j]:starts[j + 1]]
+                rows_read += 1
+                d2 = ((x[r][None, :] - qt[ent // W]) ** 2).sum(-1)
+                dist.reshape(-1)[ent] = d2.numpy()
+            continue
+        read = np.zeros(rows.size, np.int64)
+        for lo, hi in _wide_blocks(starts, blocks):
+            read[lo:hi] += 1  # the block's rows, each read once
+        assert (read == 1).all()
+        rows_read += int(read.sum())
+        row_of = np.repeat(rows, np.diff(starts))  # each entry's row, in entries' order
+        acc = np.zeros(entries.size, np.float32)
+        for c0 in range(0, d, chunk):  # the first chunk writes, the others add
+            c1 = min(c0 + chunk, d)
+            acc = acc + _chunk_partial(data[row_of, c0:c1], q[entries // W, c0:c1], chunk)
+        dist.reshape(-1)[entries] = acc
     # 5. answer: the k smallest by (d², position), positions mapped to ids
     vals, sel = ref.topk_smallest(_t(dist), k)
     padded = np.full((B, W), -1, np.int64)
@@ -497,8 +564,8 @@ def _verify_schedule(data, q, cand, k, group):
     return vals.numpy(), ids.astype(np.int32), rows_read
 
 
-def _verify_schedule_case(name):
-    """(data, q, cand, k, group) for the schedule's edges."""
+def _verify_schedule_case(name, d=16):
+    """(data, q, cand, k, group) for the schedule's edges, rows of d floats."""
     if name.startswith("existing_"):
         B, n, d, Tc, k, pad = {
             "existing_1": (1, 50, 8, 10, 1, 0), "existing_2": (3, 300, 24, 80, 10, 0),
@@ -507,8 +574,8 @@ def _verify_schedule_case(name):
         data, q, cand = _verify_inputs(B, n, d, Tc, pad, seed=B * 100 + n + Tc)
         return data, q, cand, k, 3
     rng = np.random.default_rng(len(name))
-    data = rng.normal(size=(300, 16)).astype(np.float32)
-    q = rng.normal(size=(6, 16)).astype(np.float32)
+    data = rng.normal(size=(300, d)).astype(np.float32)
+    q = rng.normal(size=(6, d)).astype(np.float32)
     cand = np.stack([rng.permutation(300)[:40] for _ in range(6)]).astype(np.int32)
     k, group = 10, 4
     if name == "hot_row":  # one row named by every query
@@ -578,6 +645,80 @@ def test_verify_schedule_matches_plain(name):
         assert np.isnan(gv[0]).sum() == 1 and gi[0][np.isnan(gv[0])].tolist() == [17]
     if name == "hot_row":
         assert read < sum(np.unique(c[c >= 0]).size for c in cand)  # 123 once a group
+
+
+def _wide_schedule_case(name):
+    """(data, q, cand, k, group, chunk) for the wide path: random cases at
+    d = 600, 999 (no 16-byte copy; a ragged last chunk), 4096 and a batch
+    past one group at d = 8192 (chunks of 64, sums over 16 lanes), and the
+    schedule's edges at ``edge@d``."""
+    if "@" in name:
+        edge, d = name.split("@")
+        data, q, cand, k, _ = _verify_schedule_case(edge, int(d))
+    else:
+        B, n, d, Tc, k, pad = {"wide_600": (5, 300, 600, 60, 10, 4),
+                               "wide_999": (4, 200, 999, 50, 10, 0),
+                               "wide_4096": (3, 150, 4096, 40, 8, 3),
+                               "groups_8192": (260, 40, 8192, 4, 2, 0)}[name]
+        data, q, cand = _verify_inputs(B, n, d, Tc, pad, seed=B + n + d)
+    return (data, q, cand, k) + _wide_plan(*q.shape)
+
+
+WIDE_SCHEDULE_CASES = ["wide_600", "wide_999", "wide_4096", "groups_8192", "hot_row@1000",
+                       "duplicates@1000", "all_padding@600", "tc_below_k@600", "k_128@600",
+                       "exact_ties@4096", "nan_row@1000"]
+
+
+@pytest.mark.parametrize("name", WIDE_SCHEDULE_CASES)
+def test_verify_wide_schedule_matches_plain(name):
+    """The wide path's decomposition (groups by the L2, rows shared out to
+    blocks, each d² summed chunk by chunk in the kernel's order) gives
+    ref.verify_topk's ids exactly and its d² to rtol 1e-5, and the JAX
+    kernel's in interpret mode (its batches of a few queries; the NaN row
+    aside).  Each block reads its rows once: the rows read are each
+    group's distinct ids."""
+    data, q, cand, k, group, chunk = _wide_schedule_case(name)
+    gv, gi, read = _verify_schedule(data, q, cand, k, group, chunk)
+    wv, wi = ref.verify_topk(_t(data), _t(q), _t(cand), k)
+    np.testing.assert_array_equal(gi, wi.numpy())
+    np.testing.assert_allclose(gv, wv.numpy(), **TOL)
+    n, B = data.shape[0], q.shape[0]
+    assert read == sum(np.unique(c[(c >= 0) & (c < n)]).size
+                       for c in np.split(cand, range(group, B, group)))
+    if name == "groups_8192":
+        assert (group, chunk) == (256, 64)
+    elif B <= 8 and not name.startswith("nan_row"):
+        pv, pi = verify_topk_pallas(jnp.asarray(data), jnp.asarray(q), jnp.asarray(cand), k,
+                                    interpret=True)
+        np.testing.assert_array_equal(gi, np.asarray(pi))
+        # the TPU kernel's norm trick cancels |x|² + |q|² (≈ 2d) to reach
+        # the near-zero d² of the duplicate and tie cases: a few ulps of 2d
+        near = name.startswith(("duplicates", "exact_ties"))
+        atol = 1e-6 * float((data ** 2).sum(1).max() + (q ** 2).sum(1).max()) if near else 1e-5
+        np.testing.assert_allclose(gv, np.asarray(pv), rtol=1e-5, atol=atol)
+    if name.startswith("duplicates"):
+        assert gi[0, :2].tolist() == [5, 5]
+    if name.startswith("exact_ties"):
+        assert gi[:, 0].tolist() == [9, 9, 9, 3, 9, 9]
+    if name.startswith("nan_row"):
+        assert np.isnan(gv[0]).sum() == 1 and gi[0][np.isnan(gv[0])].tolist() == [17]
+    if name.startswith("hot_row"):
+        assert read < sum(np.unique(c[c >= 0]).size for c in cand)  # 123 once a group
+
+
+def test_wide_traffic_model():
+    """The wide path's traffic model at the kNN-LM datastore's shape: the
+    distinct rows and the queries once from HBM; the query chunks once a
+    block that holds rows; the entries' partials once a chunk."""
+    from repro_torch.kernels.verify import wide_traffic
+
+    t = wide_traffic(4096, 64, 64, 256, 132, [(16_000, 101_952)])
+    assert t["hbm_bytes"] == 4 * 4096 * (16_000 + 64)
+    assert t["l2_bytes"] == 4 * 4096 * (16_000 + 132 * 64) + 4 * 101_952 * (3 * 16 - 1)
+    assert (t["fmas"], t["chunks"]) == (101_952 * 4096, 16)
+    two = wide_traffic(4096, 600, 512, 32, 132, [(3_000, 9_000), (50, 120)])
+    assert two["l2_bytes"] - 4 * 4096 * 3_050 - 4 * 9_120 * (3 * 128 - 1) == \
+        4 * 4096 * (132 * 512 + 50 * 88)  # a block with no rows copies no queries
 
 
 # ---------------------------------------------------------------------------
