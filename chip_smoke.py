@@ -117,6 +117,24 @@ Phases, each printing one JSON line:
            and counters identical, d² to the delta scan's tolerance), its
            launches (the delta scan's pairwise and topk, the merge's
            topk), recall@10 over the live rows, ms a query.
+  stream_backends  streaming indexes whose segments are the reference's
+           other backends: ``sharded-flat`` and ``sharded-flat-pq`` (4
+           emulated shards inside each segment) seeded with the Deep1M
+           twin's first 16,384 rows, then 4 rounds of the stream phase's
+           churn (delta_threshold 8,000, max_segments 3: seals after
+           rounds 2 and 4, the second compacting), searched at B = 1, 16,
+           64 after rounds 3 and 4; ``lscan`` and ``qalsh`` segments on
+           the Audio twin (32,768 seed rows, the rest in batches of 8,192),
+           searched at B = 8 after each.  Each sealed segment's ids
+           identical to its ``use_kernels=False`` twin's (the twin fed the
+           same operations), the whole answer's and its counters too but
+           where a delta row's norm-trick d² ties a segment row's within
+           its rounding (the rows printed), each
+           segment bit for bit a standalone index of its backend over its
+           rows, the launches read (a shard's pairwise and verify a
+           segment, ADC for pq, no radius_select: the sharded global
+           threshold is a bisection over survivor counts; host segments
+           none), recall@10 over the live rows.
   obs_trace  (after the ``kernels`` line) one warm traced call each of
            the fused float search at B = 64, ``flat-pq`` at B = 64 and the
            Audio ``cp_search(10)``: the span tree equal to
@@ -277,12 +295,20 @@ Phases, each printing one JSON line:
            equal to a plain per-shard recomputation (stable sort) of the
            same scores; the yi smoke config in float32 the same way on
            the card and on the CPU port (64-token prompt, max_seq 128):
-           positions identical, logits within 1e-5 of the largest.  (b)
+           positions identical, logits within 1e-5 of the largest.  (a′)
+           A 512-token chunk at position 4,096 after the prompt through
+           ``make_decode_step`` (the shards' attention partials merged)
+           on data = 2, 4, 8 and (2, 2), against one device's: layer 0's
+           cache bit for bit (every layer's prompt rows too on (P, 1)),
+           the last logits within lm_serve's bfloat16 bounds, the chunk's
+           ms beside its bound (phase line ``lm_shard_chunk``).  (b)
            long_500k's shape: B = 1, max_seq 524,288, T = 2,048, m = 16,
            the cache filled from seeded draws on the card (pk through
-           ``attention_apply``'s projection) to kv_len 524,280, 8 decode
-           steps through ``make_decode_step`` at P = 1 (the unsharded
-           form) and P = 2, 4, 8: ms a token (CUDA events, median), peak
+           ``attention_apply``'s projection) to row 524,024, then at each
+           of P = 1 (the unsharded form) and P = 2, 4, 8 a 256-token chunk
+           there (rows 524,024-524,279, real k / v / pk; held to P = 1's as
+           (a′) holds its chunk, its ms beside its bound) and 8 decode
+           steps from 524,280 through ``make_decode_step``: ms a token (CUDA events, median), peak
            bytes, the bytes that cross a layer beside the k and v it
            holds, the decode's bound.  (c) the tournament over an NCCL
            group of one (file store under ``build/``) on layer 0's
@@ -409,6 +435,21 @@ ANN_BASELINES = (("multiprobe", {"w": 8.0}), ("multiprobe", {}), ("qalsh", {}),
 RECALL_FLOOR_EXEMPT = (("multiprobe", {}), ("srs", {}))
 CP_BASELINES = ("lsb_tree", "acp_p", "mkcp", "nlj")
 STREAM_PM_START, STREAM_PM_BATCH, STREAM_PM_ROUNDS, STREAM_PM_THRESHOLD = 32_768, 4096, 4, 8192
+# segments over the reference's other backends (phase stream_backends):
+# sharded-flat and sharded-flat-pq over an emulated mesh of 4 shards
+# inside each segment, on the Deep1M twin's first 16,384 rows (cut from
+# 1M: a sharded-flat-pq seal trains 4 codecs on the host, each on up to
+# 16,384 rows of its shard, and the plain twin and the standalone check
+# train their own; at larger seeds the pq half outran the time this
+# phase may add to the run), then 4 rounds of the
+# stream phase's churn at delta_threshold 8,000 and max_segments 3: seals
+# after rounds 2 and 4, the second compacting, searched after rounds 3
+# and 4; then lscan and qalsh segments on the Audio twin, 32,768 seed
+# rows and the rest in batches of 8,192 (delta_threshold 8,192), B = 8
+STREAM_BK_DEVICE, STREAM_BK_HOST = ("sharded-flat", "sharded-flat-pq"), ("lscan", "qalsh")
+STREAM_BK_SEED, STREAM_BK_ROUNDS, STREAM_BK_THRESHOLD, STREAM_BK_CHECKPOINTS = (
+    16_384, 4, 8000, (3, 4))
+STREAM_BK_HOST_START, STREAM_BK_HOST_BATCH = 32_768, 8192
 # the serve phase: the scheduler over the Deep1M twin at k = 16 (closed
 # loop at C clients, beside one search a request), a ragged trace, a hot
 # trace, an overload burst, a seeded chaos plan and a streaming datastore
@@ -497,6 +538,22 @@ LM_TRAIN_SMOKE_STEPS, LM_TRAIN_RESUME_STEPS, LM_TRAIN_RESUME_EVERY = 4, (4, 6), 
 LM_SHARD_PROMPT, LM_SHARD_MAX_SEQ, LM_SHARD_GEN, LM_SHARD_P = 4096, 8192, 8, (2, 4, 8)
 LM_SHARD_SMOKE_PROMPT, LM_SHARD_SMOKE_MAX_SEQ, LM_SHARD_SMOKE_TOL = 64, 128, 1e-5
 LM_LONG_SEQ, LM_LONG_KV, LM_LONG_GEN, LM_LONG_P = 524_288, 524_280, 8, (1, 2, 4, 8)
+# a chunk past position 0 on a sequence-split cache (the decode step on a
+# (1, S) block, the shards' attention partials merged): (a) 512 tokens at
+# position 4,096 after the prompt on data = 2, 4, 8 and (2, 2), against
+# the one-device form of the same chunk; (b) 256 tokens at 524,024 of
+# long_500k's cache, whose synthetic fill is taken to end there, so the
+# chunk writes rows 524,024-524,279 before the decode from 524,280, at
+# P = 1 (the plain form), 2, 4, 8.  Layer 0 reads the same embedding on
+# every form, so its cache rows must equal the one-device write bit for
+# bit (a (P, 1) form's prefill rows too, in every layer: the one-device
+# pass adds its masked chunks as exact zeros).  A deeper layer's input
+# carries the merge's float32 order: the merged softmax partials differ
+# from one pass in the last float32 bits (the CPU smoke configs: 4e-7 to
+# 9e-7 of the largest logit), which bfloat16 roundings through the
+# layers turn into the noise lm_serve bounds, so the last logits are held
+# to LM_CONSISTENCY_REL / LM_CONSISTENCY_CORR against the one-device form.
+LM_CHUNK, LM_CHUNK_MESHES, LM_LONG_CHUNK = 512, ((2, 1), (4, 1), (8, 1), (2, 2)), 256
 LM_DP_ARCH, LM_DP_BATCH, LM_DP_SEQ, LM_DP_STEPS, LM_DP_P = "xlstm-125m", 4, 4096, 3, (2, 4)
 LM_DP_TOL = 1e-5
 # xlstm-125m's depth cut from 12 layers to 4 (two (mlstm, slstm) units),
@@ -1378,6 +1435,24 @@ def _same_ids(res, want, what: str, d2_tol: float = 0.0) -> None:
           f"{what}: counters {res.stats} differ from {want.stats}")
 
 
+def _same_up_to_ties(res, want, what: str, d2_tol: float) -> list:
+    """Every WorkStats counter identical, squared distances to ``d2_tol``
+    position by position, and ids identical but where the two answers
+    rank rows whose squared distances lie within ``d2_tol`` of each
+    other: the delta scan's norm-trick d² of a row sits within its
+    rounding of a segment row's exact d², and the merge may take either
+    first (a stream over sharded segments meets this where the delta
+    holds a query's k-th neighbour).  Returns the rows whose ids differ."""
+    check(np.array_equal(res.indices >= 0, want.indices >= 0), f"{what}: answers' lengths differ")
+    found = res.indices >= 0
+    d2 = res.distances[found].astype(np.float64) ** 2
+    err = float(np.abs(d2 - want.distances[found].astype(np.float64) ** 2).max(initial=0.0))
+    check(err <= d2_tol, f"{what}: squared distances differ by {err} > {d2_tol}")
+    check(res.stats.as_dict() == want.stats.as_dict(),
+          f"{what}: counters {res.stats} differ from {want.stats}")
+    return np.flatnonzero((res.indices != want.indices).any(1)).tolist()
+
+
 def _contract(res, x: np.ndarray, q: np.ndarray, k: int, what: str) -> None:
     """(B, k) rows, real distances ascending, -1 / +inf only as a tail
     (a bucket baseline may find fewer than k, as the reference's may)."""
@@ -1664,6 +1739,171 @@ def stream_pmtree_phase(torch, dev, audio: np.ndarray, seed: int, *,
               "build_seconds": build_s, "churn_seconds": churn_s,
               "seconds": time.perf_counter() - t_phase})
     check(index.n_flushes >= 2, f"stream_pmtree: {index.n_flushes} flushes")
+
+
+def _segments_alone(torch, dev, index, q: np.ndarray, options: dict, what: str) -> None:
+    """Each sealed segment of ``index`` answers what a standalone index of
+    its backend over the segment's rows answers (the index's A where the
+    backend takes it), in global ids, bit for bit, counters included."""
+    from repro_torch.index import IndexConfig, build_index, get_backend
+    from repro_torch.index.backends import ShardedFlatBackend
+
+    for seg in index.segments:
+        cls = get_backend(seg.backend)
+        cfg = IndexConfig(backend=seg.backend, seed=index.config.seed, options=options)
+        rows = index.get_vectors(seg.ids)
+        alone = (cls.from_arrays(rows, index._a, None, cfg, device=dev)
+                 if issubclass(cls, ShardedFlatBackend) else build_index(rows, cfg, device=dev))
+        gids, dd, st = seg.search(q, K)
+        ra = alone.search(q, K)
+        check(np.array_equal(gids, np.where(ra.indices >= 0, seg.ids[np.maximum(ra.indices, 0)],
+                                            -1))
+              and np.array_equal(dd.view(np.int32), ra.distances.view(np.int32))
+              and st.as_dict() == ra.stats.as_dict(),
+              f"{what}: segment {seg.serial} ({seg.size} rows) differs from a standalone "
+              f"{seg.backend} index over its rows")
+        del alone
+
+
+def stream_backends_phase(torch, dev, data: np.ndarray, audio: np.ndarray, seed: int) -> None:
+    """Streaming indexes whose segments are the reference's other
+    backends: sharded-flat and sharded-flat-pq (4 emulated shards a
+    segment) churned on the Deep1M twin's first rows, lscan and qalsh on
+    the Audio twin.  At each checkpoint each segment's ids equal its
+    use_kernels=False twin's, the whole answer's too but at a delta row
+    tied with a segment row within the delta scan's rounding, each
+    segment answers as a standalone index of its backend over its rows,
+    the kernels' launches are read, recall@10 against the exact answers
+    is printed."""
+    from repro_torch.index import IndexConfig, build_index
+    from repro_torch.kernels import counts
+
+    t_phase = time.perf_counter()
+    seed_rows = data[:STREAM_BK_SEED]
+    n_seed, d = seed_rows.shape
+    fresh = make_clustered_twin(STREAM_BK_ROUNDS * STREAM_BATCH, d, seed, rows_seed=seed + 5)
+    queries = make_queries(data, max(BATCHES), seed + 30)
+    qd = torch.from_numpy(queries).to(dev)
+    d2_tol = 1e-5 * float((queries * queries).sum(1).max() + (data * data).sum(1).max())
+    for name in STREAM_BK_DEVICE:
+        t0 = time.perf_counter()
+        opts = {"segment_backend": name, "shards": SHARDS, "delta_threshold": STREAM_BK_THRESHOLD,
+                "max_segments": 3}
+        cfg = IndexConfig(backend="streaming", seed=seed, options=opts)
+        index = build_index(seed_rows, cfg, device=dev)
+        twin = build_index(seed_rows, cfg.with_options(use_kernels=False), device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        rng = np.random.default_rng(seed + 6)
+        for r in range(STREAM_BK_ROUNDS):
+            rows = fresh[r * STREAM_BATCH:(r + 1) * STREAM_BATCH]
+            check(np.array_equal(index.insert(rows), twin.insert(rows)),
+                  f"stream_backends {name} round {r}: insert ids differ")
+            kill = churn_deletes(rng, index, r, n_seed)
+            check(index.delete(kill) == twin.delete(kill) == kill.size,
+                  f"stream_backends {name} round {r}: deletes differ")
+            if r + 1 not in STREAM_BK_CHECKPOINTS:
+                continue
+            check(all(s.backend == name for s in index.segments + twin.segments)
+                  and all(s.index.impl.P == SHARDS for s in index.segments),
+                  f"stream_backends {name}: segments {[s.backend for s in index.segments]}")
+            counts.reset()
+            answers = {B: index.search(queries[:B], K) for B in BATCHES}
+            used = counts.snapshot()["launches"]
+            per_search = SHARDS * index.segment_count
+            scans = 1 if index.delta_size else 0
+            want = {"verify_topk": per_search * len(BATCHES),
+                    "pairwise_sq_dist": (per_search + scans) * len(BATCHES),
+                    "topk_smallest": (1 + scans) * len(BATCHES), "radius_select": 0,
+                    "adc_dist": per_search * len(BATCHES) if name.endswith("-pq") else 0}
+            check({k: used[k] for k in want} == want,
+                  f"stream_backends {name} after round {r + 1}: launches {used}, expected "
+                  f"{want} (a shard's estimate and verify a segment, ADC for pq; the global "
+                  "threshold is a bisection over survivor counts, not radius_select)")
+            for sk, sp in zip(index.segments, twin.segments):
+                gk, _, _ = sk.search(queries, K + sk.dead)
+                check(np.array_equal(gk, sp.search(queries, K + sp.dead)[0]),
+                      f"stream_backends {name} after round {r + 1}: segment {sk.serial}'s ids "
+                      "differ from the plain twin's")
+            at_ties = {str(B): _same_up_to_ties(
+                answers[B], twin.search(queries[:B], K),
+                f"stream_backends {name} after round {r + 1} at B={B}, against the plain twin",
+                d2_tol) for B in BATCHES}
+            check((index.segment_count, index.delta_size, index.n_flushes, index.n_compactions)
+                  == (twin.segment_count, twin.delta_size, twin.n_flushes, twin.n_compactions),
+                  f"stream_backends {name} after round {r + 1}: state differs from the twin's")
+            live = index.live_ids()
+            xl = torch.from_numpy(index.get_vectors(live)).to(dev)
+            recall = _recall(answers[max(BATCHES)].indices, live[exact_knn(torch, xl, qd, K)], K)
+            del xl
+            check(recall > 0.5, f"stream_backends {name} recall@10 {recall}")
+            ms = {str(B): time_ms(torch, lambda: index.search(queries[:B], K), reps=3, warmup=1)
+                  for B in BATCHES}
+            emit({"phase": "stream_backends", "segment_backend": name, "shards": SHARDS,
+                  "round": r + 1, "n_live": index.n, "segments": index.segment_count,
+                  "segment_sizes": [s.size for s in index.segments],
+                  "segment_dead": [s.dead for s in index.segments], "delta": index.delta_size,
+                  "flushes": index.n_flushes, "compactions": index.n_compactions,
+                  "launches": {k: v for k, v in used.items() if v},
+                  "rows_differing_from_plain_at_ties": at_ties, "recall_at_10": recall,
+                  "median_batch_ms": ms, "build_seconds": build_s})
+        check(index.n_flushes == 3 and index.n_compactions == 1,
+              f"stream_backends {name}: {index.n_flushes} flushes, {index.n_compactions} "
+              "compactions")
+        _segments_alone(torch, dev, index, queries, {"shards": SHARDS},
+                        f"stream_backends {name}")
+        emit({"phase": "stream_backends_alone", "segment_backend": name,
+              "segments": [s.size for s in index.segments], "identical": True,
+              "seconds": time.perf_counter() - t0})
+        del index, twin
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the host baselines as segments on the Audio twin
+    q = make_queries(audio, BASELINE_BATCH, seed + 31)
+    qa = torch.from_numpy(q).to(dev)
+    a_tol = 1e-5 * float((q * q).sum(1).max() + (audio * audio).sum(1).max())
+    for name in STREAM_BK_HOST:
+        t0 = time.perf_counter()
+        cfg = IndexConfig(backend="streaming", seed=seed, options={
+            "segment_backend": name, "delta_threshold": STREAM_BK_HOST_BATCH})
+        index = build_index(audio[:STREAM_BK_HOST_START], cfg, device=dev)
+        twin = build_index(audio[:STREAM_BK_HOST_START], cfg.with_options(use_kernels=False),
+                           device=dev)
+        rng = np.random.default_rng(seed + 32)
+        for lo in range(STREAM_BK_HOST_START, len(audio), STREAM_BK_HOST_BATCH):
+            rows = audio[lo:lo + STREAM_BK_HOST_BATCH]
+            check(np.array_equal(index.insert(rows), twin.insert(rows)),
+                  f"stream_backends {name}: insert ids differ")
+            kill = rng.choice(index.live_ids(), 32, replace=False)
+            check(index.delete(kill) == twin.delete(kill) == 32,
+                  f"stream_backends {name}: deletes differ")
+            counts.reset()
+            t1 = time.perf_counter()
+            res = index.search(q, K)
+            search_s = time.perf_counter() - t1
+            used = counts.snapshot()["launches"]
+            scans = 1 if index.delta_size else 0
+            check(used["topk_smallest"] == 1 + scans and used["pairwise_sq_dist"] == scans,
+                  f"stream_backends {name}: launches {used} (host segments launch nothing)")
+            at_ties = _same_up_to_ties(res, twin.search(q, K),
+                                       f"stream_backends {name} at {index.n} live rows", a_tol)
+        check(all(s.backend == name for s in index.segments) and index.n_flushes >= 2,
+              f"stream_backends {name}: segments {[s.backend for s in index.segments]}")
+        _segments_alone(torch, dev, index, q, {}, f"stream_backends {name}")
+        live = index.live_ids()
+        xl = torch.from_numpy(index.get_vectors(live)).to(dev)
+        recall = _recall(res.indices, live[exact_knn(torch, xl, qa, K)], K)
+        del xl
+        emit({"phase": "stream_backends", "segment_backend": name, "n_live": index.n,
+              "segments": index.segment_count,
+              "segment_sizes": [s.size for s in index.segments], "delta": index.delta_size,
+              "flushes": index.n_flushes, "compactions": index.n_compactions,
+              "launches": {k: v for k, v in used.items() if v},
+              "rows_differing_from_plain_at_ties": at_ties, "segments_identical_to_alone": True, "recall_at_10": recall, "B": len(q),
+              "ms_per_query": search_s * 1e3 / len(q), "seconds": time.perf_counter() - t0})
+        del index, twin
+    emit({"phase": "stream_backends_done", "seconds": time.perf_counter() - t_phase})
 
 
 def project_phase(torch, dev, x, q, seed: int, m: int = 15) -> dict:
@@ -3308,12 +3548,109 @@ def _shard_decode(torch, cfg, params, P: int, dev, prompt, gen: int, max_seq: in
             "positions_plain": pos_ok, "prefill_ms": ev[0].elapsed_time(ev[1]) if ev else None}
 
 
+def _chunk_bound(cfg, params, S: int, start: int) -> dict:
+    """The least time of a (1, S) chunk at ``start``: the bytes it must
+    move (the weights but the embedding table, which gives S rows, and
+    every layer's k and v rows up to start + S, read once; its k, v and
+    pk rows written once) at the HBM rate, beside its operations — the
+    bfloat16 matmuls of the blocks (the head on the last position alone)
+    at the tensor cores' bfloat16 peak, and the causal attention's float32
+    products over the keys each query may see (the port's attention runs
+    in float32) at the float32 peak."""
+    block_elems = sum(t.numel() for n, t in params.named_parameters() if n.startswith("blocks."))
+    L, H, KV, hd, m = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.lsh_m
+    d, Vp, el = cfg.d_model, cfg.padded_vocab(), 2
+    head = Vp * d * el  # the head's (d, Vp) read once
+    weight_bytes = block_elems * el + head + S * d * el
+    kv_read = L * (start + S) * KV * hd * 2 * el
+    written = L * S * KV * (2 * hd + m) * el
+    bytes_moved = weight_bytes + kv_read + written
+    mm_ops = 2 * S * block_elems + 2 * d * Vp
+    keys = S * (start + 1) + S * (S - 1) // 2  # query i sees start + i + 1 keys
+    attn_ops = L * 4 * H * hd * keys
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = (mm_ops / PEAK_BF16_PER_S + attn_ops / PEAK_F32_PER_S) * 1e3
+    return {"ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": bytes_moved, "bf16_matmul_ops": mm_ops, "f32_attention_ops": attn_ops,
+            "bytes_ms": t_bytes, "operations_ms": t_ops}
+
+
+def _chunk_rows(caches, lo: int, hi: int) -> list:
+    """Copies of every layer's cache rows [lo, hi) (whole emulated caches)."""
+    return [{n: t[:, lo:hi].clone() for n, t in c.items()} for c in caches]
+
+
+def _chunk_against(torch, got_lg, got_rows, want_lg, want_rows, what: str) -> dict:
+    """A chunk's last logits and cache rows against the one-device form's:
+    layer 0's rows bit for bit, the logits within lm_serve's bfloat16
+    bounds; the deeper layers' largest deviation, relative, printed."""
+    check(all(torch.equal(t, want_rows[0][n]) for n, t in got_rows[0].items()),
+          f"{what}: layer 0's cache rows differ from the one-device write")
+    rel, corr = _rel_err(torch, got_lg, want_lg), _corr(torch, got_lg, want_lg)
+    check(bool(torch.isfinite(got_lg).all()) and rel <= LM_CONSISTENCY_REL
+          and corr >= LM_CONSISTENCY_CORR,
+          f"{what}: last logits at relative L2 {rel}, correlation {corr} from one device's")
+    deeper = max(float((t.float() - w[n].float()).abs().max()) / max(
+        float(w[n].float().abs().max()), 1e-30)
+        for c, w in zip(got_rows[1:], want_rows[1:]) for n, t in c.items())
+    return {"logits_rel_l2": rel, "logits_corr": corr,
+            "logits_max_abs_err": float((got_lg.float() - want_lg.float()).abs().max()),
+            "layer0_rows_identical": True, "deeper_rows_max_rel_dev": deeper}
+
+
+def _chunk_forms(torch, cfg, params, dev, prompt, chunk) -> dict:
+    """lm_shard (a′): the prompt, then ``chunk`` at the prompt's end through
+    make_decode_step, on one device and on each of LM_CHUNK_MESHES; each
+    form's chunk ms (CUDA events) beside the chunk's bound."""
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.serve.serve_step import make_decode_step, make_prefill
+
+    S0, S = prompt.shape[1], chunk.shape[1]
+    out, want = {}, None
+    for shape in ((1, 1),) + LM_CHUNK_MESHES:
+        D, M = shape
+        mesh = make_host_mesh(M, data=D, device=dev)
+        pre, _ = make_prefill(cfg, mesh, batch=1, seq_len=S0, max_seq=LM_SHARD_MAX_SEQ)
+        dec, info = make_decode_step(cfg, mesh, batch=1, max_seq=LM_SHARD_MAX_SEQ)
+        check(info["lsh_shard"] == (None if shape == (1, 1) else ("data", "model")),
+              f"lm_shard (a′): {shape} took the form {info['lsh_shard']}")
+        _, caches = pre(params, {"tokens": prompt})
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        lg, caches = dec(params, caches, {"tokens": chunk, "position": S0})
+        ev[1].record()
+        torch.cuda.synchronize()
+        row = {"form": info["lsh_shard"], "chunk_ms": ev[0].elapsed_time(ev[1])}
+        if want is None:
+            want = (lg, _chunk_rows(caches, 0, S0 + S))
+        else:
+            rows = _chunk_rows(caches, 0, S0 + S)
+            row.update(_chunk_against(torch, lg, [{n: t[:, S0:] for n, t in c.items()}
+                                                  for c in rows],
+                                      want[0], [{n: t[:, S0:] for n, t in c.items()}
+                                                for c in want[1]],
+                                      f"lm_shard (a′) at {shape}"))
+            if M == 1:  # the split prefill adds no float: every layer's prompt rows
+                check(all(torch.equal(t[:, :S0], w[n][:, :S0])
+                          for c, w in zip(rows, want[1]) for n, t in c.items()),
+                      f"lm_shard (a′) at {shape}: the prefill's cache rows differ from one "
+                      "device's")
+                row["prefill_rows_identical"] = True
+            del rows
+        out[f"{D}x{M}"] = row
+        del caches
+    return out
+
+
 def lm_shard_phase(torch, dev, seed: int) -> dict:
     """The sequence-sharded PM-LSH decode: (a) the entry points at yi-6b's
     full width on emulated data = 2, 4, 8 and the smoke config on the card
-    against the CPU port; (b) long_500k's shape at P = 1, 2, 4, 8 from a
-    cache drawn on the card; (c) an NCCL group of one against the emulated
-    P = 1 form.  Returns layer 0's long_500k query, cache and budget."""
+    against the CPU port; (a′) a 512-token chunk past the prompt on data =
+    2, 4, 8 and (2, 2) against one device; (b) long_500k's shape at P =
+    1, 2, 4, 8 from a cache drawn on the card, a 256-token chunk at
+    524,024, then the decode; (c) an NCCL group of one against the
+    emulated P = 1 form.  Returns layer 0's long_500k query, cache and
+    budget."""
     import shutil
     import tempfile
 
@@ -3353,6 +3690,16 @@ def lm_shard_phase(torch, dev, seed: int) -> dict:
         entry[str(P)] = {"prefill_ms": run["prefill_ms"], "tokens": run["tokens"][0].tolist(),
                          "peak_bytes": torch.cuda.max_memory_allocated()}
         del run
+    # -- (a′) a chunk of 512 tokens past the prompt, against one device ----------
+    crng = np.random.default_rng(seed + 27)
+    chunk = torch.from_numpy(crng.integers(0, cfg.vocab_size, (1, LM_CHUNK))
+                             .astype(np.int32)).to(dev)
+    chunk_a = {"S": LM_CHUNK, "position": LM_SHARD_PROMPT,
+               "bound": _chunk_bound(cfg, params, LM_CHUNK, LM_SHARD_PROMPT),
+               "forms": _chunk_forms(torch, cfg, params, dev, prompt, chunk)}
+    emit({"phase": "lm_shard_chunk", "case": "a", **chunk_a})
+    gc.collect()
+    torch.cuda.empty_cache()
     scfg = get_smoke_config(LM_ARCH).replace(dtype=torch.float32)
     sp = tt.init_params(scfg, seed, device="cpu")
     sprompt = torch.from_numpy(rng.integers(0, scfg.vocab_size, (1, LM_SHARD_SMOKE_PROMPT))
@@ -3395,13 +3742,32 @@ def lm_shard_phase(torch, dev, seed: int) -> dict:
     pk_bytes = sum(c["pk"].numel() * c["pk"].element_size() for c in caches)
     param_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
     start = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 1)).astype(np.int32)).to(dev)
-    long = {}
+    # the fill is taken to end at chunk0; the chunk writes rows [chunk0, kv_len)
+    chunk0 = kv_len - LM_LONG_CHUNK
+    lchunk = torch.from_numpy(crng.integers(0, cfg.vocab_size, (1, LM_LONG_CHUNK))
+                              .astype(np.int32)).to(dev)
+    long_bound = _chunk_bound(cfg, params, LM_LONG_CHUNK, chunk0)
+    long, plain_chunk = {}, None
     for P in LM_LONG_P:
         mesh = make_host_mesh(data=P, device=dev)
         dec, info = make_decode_step(cfg, mesh, batch=1, max_seq=S)
         check(info["lsh_shard"] == (None if P == 1 else sharded),
               f"lm_shard (b): P = {P} took the form {info['lsh_shard']}")
         torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        lg, caches = dec(params, caches, {"tokens": lchunk, "position": chunk0})
+        ev[1].record()
+        torch.cuda.synchronize()
+        chunk_row = {"chunk_ms": ev[0].elapsed_time(ev[1])}
+        rows = _chunk_rows(caches, chunk0, kv_len)
+        if plain_chunk is None:
+            check(bool(torch.isfinite(lg).all()), "lm_shard (b): the plain chunk's logits")
+            plain_chunk = (lg, rows)
+        else:
+            chunk_row.update(_chunk_against(torch, lg, rows, *plain_chunk,
+                                            f"lm_shard (b) chunk at P = {P}"))
+        del rows, lg
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(LM_LONG_GEN + 1)]
         tok, toks = start, []
         ev[0].record()
@@ -3420,7 +3786,9 @@ def lm_shard_phase(torch, dev, seed: int) -> dict:
             "tokens": torch.cat(toks, 1)[0].tolist(),
             "peak_bytes": torch.cuda.max_memory_allocated(),
             "cross_elements_a_layer": None if P == 1 else cross_elems,
-            "cross_bytes_a_layer": None if P == 1 else P * Tl * KV * (2 * hd * 2 + 1)}
+            "cross_bytes_a_layer": None if P == 1 else P * Tl * KV * (2 * hd * 2 + 1),
+            "chunk": chunk_row}
+    del plain_chunk
     # the bound: the weights but the embedding table (one row), pk's rows and
     # the T selected k and v rows of every layer, at the HBM rate
     kv_layer_bytes = 2 * S * KV * hd * 2
@@ -3464,7 +3832,9 @@ def lm_shard_phase(torch, dev, seed: int) -> dict:
                       "gen": LM_SHARD_GEN, "form": list(sharded), "data": entry,
                       "positions_plain": True, "smoke": smoke, "smoke_tol": LM_SHARD_SMOKE_TOL},
           "long_500k": {"batch": 1, "max_seq": S, "kv_len": kv_len, "gen": LM_LONG_GEN,
-                        "cache": "seeded draws on the card, pk through the projection",
+                        "cache": "seeded draws on the card to row 524,024, pk through the "
+                                 "projection; rows 524,024-524,279 a 256-token chunk's",
+                        "chunk": {"S": LM_LONG_CHUNK, "position": chunk0, "bound": long_bound},
                         "fill_s": fill_s, "cache_bytes": cache_bytes, "pk_bytes": pk_bytes,
                         "kv_bytes_a_layer": kv_layer_bytes, "by_P": long,
                         "bound": {"ms": bound_ms, "bytes": bound_bytes,
@@ -4366,6 +4736,7 @@ def index_phases(torch, dev, seed: int) -> None:
     pmtree_range_phase(torch, dev, pm["index"], audio, seed)
     baselines_phase(torch, dev, audio, seed)
     stream_pmtree_phase(torch, dev, audio, seed)
+    stream_backends_phase(torch, dev, data, audio, seed)
 
     # -- the serving front end over the Deep1M twin -----------------------------
     serve_phase(torch, dev, data, seed)

@@ -527,7 +527,8 @@ class ShardedFlatBackend(BaseIndex):
     ``launch.DataMesh``: an emulated one, or a process group),
     ``emulate`` (the emulated mesh of ``shards`` even where a default
     process group is initialised), ``cp_gamma``, ``cp_tile``,
-    ``rerank``, and ``force="ref"`` for the kernels' plain versions.
+    ``rerank``, and ``force="ref"`` (or ``use_kernels=False``, as a
+    streaming index's segments take it) for the kernels' plain versions.
 
     WorkStats: the summed counters equal the single-device run's
     (candidates_selected sums the shards' survivor counts;
@@ -565,7 +566,8 @@ class ShardedFlatBackend(BaseIndex):
             m=cfg.m, seed=cfg.seed, c=cfg.c, emulate=bool(opts.get("emulate", False)),
             quant=self.quant,
             quant_opts=dict(opts.get("pq") or {}) if self.quant else None,
-            rerank=opts.get("rerank"), force=opts.get("force"),
+            rerank=opts.get("rerank"),
+            force=opts.get("force", None if opts.get("use_kernels", True) else "ref"),
             cp_tile=int(opts.get("cp_tile", 128)), device=self.device, **self._given)
         self.params = self.impl.params
         self.force = self.impl.force

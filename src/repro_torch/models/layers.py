@@ -152,25 +152,12 @@ def weak_scale(hd: int, dtype: torch.dtype) -> float:
     return float(torch.tensor(hd**-0.5, dtype=dtype))
 
 
-def chunked_attention(
-    q: torch.Tensor,  # (B, Sq, H, hd)
-    k: torch.Tensor,  # (B, Sk, KV, hd)
-    v: torch.Tensor,  # (B, Sk, KV, hd)
-    *,
-    causal: bool = True,
-    q_offset: torch.Tensor | int = 0,
-    window: int = 0,
-    kv_len: torch.Tensor | int | None = None,
-    chunk: int = 1024,
-) -> torch.Tensor:
-    """Online-softmax attention over KV chunks; O(Sq·chunk) live memory.
-
-    q_offset: global position of q[0] (for decode with a cache).
-    window:   sliding-window size (0 = unlimited) — local attention.
-    kv_len:   #valid cache rows (decode masks the not-yet-written tail).
-    ``q_offset`` and ``kv_len`` may be 0-d tensors: nothing here reads
-    them on the host.
-    """
+def _online_softmax(q, k, v, *, causal, q_offset, window, kv_len, chunk,
+                    k_offset=0, k_end=None):
+    """The flash recurrence of :func:`chunked_attention` over the keys
+    ``k`` / ``v`` at global positions ``k_offset + j``: its unnormalised
+    (B, Sq, KV, G, hd) output, running max and sum (B, Sq, KV, G), all
+    float32.  Rows at or past ``k_end`` (a block's end) are masked too."""
     B, Sq, H, hd = q.shape
     _, Sk, KV, _ = k.shape
     G = H // KV
@@ -192,9 +179,11 @@ def chunked_attention(
     for ci in range(nk):
         kb = k[:, ci * chunk:(ci + 1) * chunk].float()  # (B, ck, KV, hd)
         vb = v[:, ci * chunk:(ci + 1) * chunk].float()
-        kpos = ci * chunk + torch.arange(chunk, device=dev)  # (ck,)
+        kpos = k_offset + ci * chunk + torch.arange(chunk, device=dev)  # (ck,)
         s = torch.einsum("bqkgd,bckd->bqkgc", qr, kb)  # (B, Sq, KV, G, ck)
         mask = kpos[None, :] < limit  # (1, ck) valid rows
+        if k_end is not None:
+            mask = mask & (kpos[None, :] < k_end)
         if causal:
             mask = mask & (qpos[:, None] >= kpos[None, :])
         if window:
@@ -212,8 +201,87 @@ def chunked_attention(
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bqkgc,bckd->bqkgd", p, vb)
         m = m_new
+    return acc, m, l
+
+
+def chunked_attention(
+    q: torch.Tensor,  # (B, Sq, H, hd)
+    k: torch.Tensor,  # (B, Sk, KV, hd)
+    v: torch.Tensor,  # (B, Sk, KV, hd)
+    *,
+    causal: bool = True,
+    q_offset: torch.Tensor | int = 0,
+    window: int = 0,
+    kv_len: torch.Tensor | int | None = None,
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """Online-softmax attention over KV chunks; O(Sq·chunk) live memory.
+
+    q_offset: global position of q[0] (for decode with a cache).
+    window:   sliding-window size (0 = unlimited) — local attention.
+    kv_len:   #valid cache rows (decode masks the not-yet-written tail).
+    ``q_offset`` and ``kv_len`` may be 0-d tensors: nothing here reads
+    them on the host.
+    """
+    B, Sq, H, hd = q.shape
+    acc, _, l = _online_softmax(q, k, v, causal=causal, q_offset=q_offset, window=window,
+                                kv_len=kv_len, chunk=chunk)
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def split_cache_attention(
+    q: torch.Tensor,  # (B, S, H, hd)
+    k: torch.Tensor,  # (B, Smax, KV, hd) emulated, a rank's (B, Smax/P, KV, hd) block in a group
+    v: torch.Tensor,
+    *,
+    mesh,
+    axis,
+    causal: bool = True,
+    q_offset: torch.Tensor | int = 0,
+    window: int = 0,
+    kv_len: torch.Tensor | int,
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """:func:`chunked_attention` of the S queries over a cache whose
+    sequence is split over ``mesh``'s ``axis`` (a name or ('data',
+    'model'), data-major), without any shard holding the whole cache.
+
+    Each shard runs the flash recurrence over its own rows at their
+    global positions (causal, window and ``kv_len`` masks on them) and
+    keeps its unnormalised output, running max and sum; only those
+    partials, (B, S, H, hd + 2) float32 a shard, cross the wire, gathered
+    in shard order and merged by an ordered log-sum-exp, so the emulated
+    form and a group of any backend give the same bits.  A shard with no
+    valid row keeps a max of −1e30, which the merge weighs to zero beside
+    the shard that holds the query's own row."""
+    from .lsh_attention import _shard_blocks, seq_shards
+
+    B, S, H, hd = q.shape
+    am = mesh.axis(axis)
+    Pn = seq_shards(mesh, axis)
+    if am.size != Pn:
+        raise ValueError(f"sequence axes of {Pn} shards on an axis of {am.size}")
+    if am.emulated and k.shape[1] % Pn:
+        raise ValueError(f"a cache of {k.shape[1]} rows does not split over {Pn} shards")
+    parts = []
+    for (p, kb), (_, vb) in zip(_shard_blocks(am, k), _shard_blocks(am, v)):
+        Sl = kb.shape[1]
+        acc, m, l = _online_softmax(q, kb, vb, causal=causal, q_offset=q_offset,
+                                    window=window, kv_len=kv_len, chunk=chunk,
+                                    k_offset=p * Sl, k_end=(p + 1) * Sl)
+        parts.append(torch.cat([acc.reshape(B, S, H, hd), m.reshape(B, S, H, 1),
+                                l.reshape(B, S, H, 1)], dim=-1))
+    every = am.all_gather(parts)
+    m = every[0][..., hd]
+    for t in every[1:]:
+        m = torch.maximum(m, t[..., hd])
+    acc = l = 0
+    for t in every:
+        w = torch.exp(t[..., hd] - m)
+        acc = acc + t[..., :hd] * w[..., None]
+        l = l + t[..., hd + 1] * w
+    return (acc / torch.clamp(l[..., None], min=1e-30)).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -273,6 +341,12 @@ def write_rows(buf: torch.Tensor, new: torch.Tensor, index, *, base: int = 0,
         buf[:, lo - base:hi - base] = new[:, lo - start:hi - start]
 
 
+def from_zero(cache_index) -> bool:
+    """Whether a block is written at position 0 (a prefill): an int 0; a
+    tensor index is read on the device only, so it never counts."""
+    return not isinstance(cache_index, torch.Tensor) and cache_index == 0
+
+
 def attention_apply(
     p,
     x: torch.Tensor,  # (B, S, d)
@@ -292,11 +366,14 @@ def attention_apply(
     the same dict comes back.
 
     With ``lsh_shard`` the cache's sequence is split over the mesh's
-    data axis (whole tensors read as P blocks when emulated, the rank's
-    own block in a group): each row goes to the block that owns its
-    position, a one-token step runs :func:`~.lsh_attention.
-    lsh_decode_attention_sharded`, and a prefill from position 0 attends
-    over its own keys, so no shard needs the whole cache.
+    data axis, or over ('data', 'model') (whole tensors read as P blocks
+    when emulated, the rank's own block in a group): each row goes to the
+    block that owns its position; a PM-LSH layer's one-token step runs
+    :func:`~.lsh_attention.lsh_decode_attention_sharded`; a prefill from
+    position 0 attends over its own keys; any other call (several tokens
+    past position 0, a layer that is not PM-LSH) runs
+    :func:`split_cache_attention`, so no shard needs the whole cache.
+    Without a cache ``lsh_shard`` does nothing, as in the reference.
     """
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -305,8 +382,8 @@ def attention_apply(
     v = (x @ p["wv"]).reshape(B, S, KV, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    if lsh_shard is not None and (cache is None or not use_lsh):
-        raise ValueError("a sequence-split cache is read by the PM-LSH decode only")
+    if cache is None:
+        lsh_shard = None
 
     if cache is not None:
         block = {}
@@ -334,12 +411,12 @@ def attention_apply(
         else:
             out = lsh_decode_attention(q, cache["k"], cache["v"], cache["pk"], p["lsh_a"],
                                        kv_len=kv_len, topk=cfg.lsh_topk)
-    elif lsh_shard is not None:
-        if isinstance(cache_index, torch.Tensor) or cache_index != 0:
-            raise NotImplementedError(
-                "several tokens past position 0 on a sequence-split cache would read the "
-                "whole cache; prefill from position 0, then decode one token a step")
+    elif lsh_shard is not None and from_zero(cache_index):
         out = chunked_attention(q, k, v, causal=causal, q_offset=positions[0], window=window)
+    elif lsh_shard is not None:
+        out = split_cache_attention(q, k_all, v_all, mesh=lsh_shard[0], axis=lsh_shard[1],
+                                    causal=causal, q_offset=positions[0], window=window,
+                                    kv_len=kv_len)
     elif cache is None and k_all.shape[1] % min(1024, k_all.shape[1]) == 0:
         # the TRAIN route: flash attention with the reference's custom VJP
         from .flash_attention import flash_attention

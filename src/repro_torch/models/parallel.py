@@ -394,11 +394,12 @@ def attention(p, x: torch.Tensor, cfg, sh: Shard, *, positions, cache: dict | No
     whole (B, S, d) input; returns one partial output a local shard.
     The cache is written in place (its layout as ``cache_pspecs`` gives
     it: kv heads over 'model' where the axis divides them, else the
-    width; the sequence over ``lsh_shard``'s axes)."""
+    width; the sequence over ``lsh_shard``'s axes, read as
+    :func:`~.layers.attention_apply` reads it)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    if lsh_shard is not None and (cache is None or not use_lsh):
-        raise ValueError("a sequence-split cache is read by the PM-LSH decode only")
+    if cache is None:
+        lsh_shard = None  # as in the reference: it does nothing without a cache
     seq_model = lsh_shard is not None and "model" in _names(lsh_shard[1])
     block = {"index": cache_index}
     if lsh_shard is not None and not sh.emulated:
@@ -444,13 +445,13 @@ def attention(p, x: torch.Tensor, cfg, sh: Shard, *, positions, cache: dict | No
             else:
                 out = lsh_decode_attention(q, heads(k_all), heads(v_all), heads(read["pk"]), a,
                                            kv_len=kv_len, topk=cfg.lsh_topk)
-        elif lsh_shard is not None:
-            if isinstance(cache_index, torch.Tensor) or cache_index != 0:
-                raise NotImplementedError(
-                    "several tokens past position 0 on a sequence-split cache would read the "
-                    "whole cache; prefill from position 0, then decode one token a step")
+        elif lsh_shard is not None and L.from_zero(cache_index):
             out = L.chunked_attention(q, heads(k), heads(v), causal=causal,
                                       q_offset=positions[0], window=window)
+        elif lsh_shard is not None:
+            out = L.split_cache_attention(q, heads(k_all), heads(v_all), mesh=lsh_shard[0],
+                                          axis=lsh_shard[1], causal=causal,
+                                          q_offset=positions[0], window=window, kv_len=kv_len)
         elif cache is None and S % min(1024, S) == 0:
             from .flash_attention import flash_attention
 

@@ -330,10 +330,12 @@ def prefill(params: DecoderLM, batch: dict, cfg, *, max_seq: int | None = None):
 
 
 def decode_step(params: DecoderLM, caches: list[dict], batch: dict, cfg, lsh_shard=None):
-    """One-token decode against a filled cache.  batch: tokens (B,1),
+    """Decode against a filled cache.  batch: tokens (B, 1), or a (B, S)
+    block (a chunked prefill's chunk, a speculative verification),
     position (an int or a 0-d tensor). Returns (logits (B,1,V), caches),
     the caches written in place; ``lsh_shard`` (mesh, axis) when their
-    sequence is split (the sharded PM-LSH decode)."""
+    sequence is split (the sharded PM-LSH decode for one token, the
+    shards' attention partials merged for a block)."""
     return forward(params, batch["tokens"], cfg, caches=caches,
                    position0=batch["position"], memory=batch.get("image_embeds"),
                    logits_slice="last", remat="none", lsh_shard=lsh_shard)

@@ -235,8 +235,10 @@ def _shapes(tensors) -> object:
 
 
 def _check_tokens(batch_in: dict, want: tuple, what: str) -> None:
+    """tokens of shape ``want``; a ``None`` entry takes any length ≥ 1."""
     got = tuple(batch_in["tokens"].shape)
-    if got != want:
+    if len(got) != len(want) or any(g < 1 if w is None else g != w
+                                    for g, w in zip(got, want)):
         raise ValueError(f"{what} was built for tokens {want}, got {got}")
 
 
@@ -382,13 +384,18 @@ def make_prefill(cfg, mesh=None, *, batch: int, seq_len: int, max_seq: int | Non
 
 
 def make_decode_step(cfg, mesh=None, *, batch: int, max_seq: int):
-    """``fn(params, caches, batch_in) -> (logits (B, 1, Vp), caches)``: one
-    token per sequence at ``batch_in["position"]`` (an int or a 0-d
-    tensor), the caches written in place — the sequence-sharded PM-LSH
-    decode where :func:`lsh_shard_rule` picks it (``info["lsh_shard"]``
-    names its axes), on caches ``make_prefill`` on the same mesh filled.
-    The encoder-decoder's step reads its cached cross K/V and needs no
-    frames."""
+    """``fn(params, caches, batch_in) -> (logits (B, 1, Vp), caches)``: a
+    (B, S) block of tokens per sequence from ``batch_in["position"]`` (an
+    int or a 0-d tensor), the last position's logits, the caches written
+    in place; S = 1 is one decode token, S > 1 a chunk of a chunked
+    prefill or a speculative verification, as the reference's step takes
+    it.  Where :func:`lsh_shard_rule` splits the caches' sequence
+    (``info["lsh_shard"]`` names its axes; None for the plain decode) a
+    PM-LSH layer's one-token step runs the tournament merge and a chunk
+    merges the shards' attention partials
+    (:func:`~repro_torch.models.layers.split_cache_attention`), on caches
+    ``make_prefill`` on the same mesh filled.  The encoder-decoder's step
+    reads its cached cross K/V and needs no frames."""
     mesh = make_host_mesh() if mesh is None else mesh
     mod = model_module(cfg)
     c_specs = mod.cache_specs(cfg, batch, max_seq)
@@ -405,7 +412,7 @@ def make_decode_step(cfg, mesh=None, *, batch: int, max_seq: int):
 
     @torch.inference_mode()
     def fn(params, caches, batch_in):
-        _check_tokens(batch_in, (batch, 1), "make_decode_step")
+        _check_tokens(batch_in, (batch, None), "make_decode_step")
         if form["parallel"]:
             return _over_mesh(params, batch_in, caches, mesh, form, one), caches
         if cfg.family == "encdec":

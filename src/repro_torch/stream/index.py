@@ -24,8 +24,10 @@ Registered as backend ``"streaming"`` with capabilities
     index.flush()                       # seal the delta eagerly
 
 options: ``delta_threshold`` (flush trigger, default 512),
-``segment_backend`` ("pmtree" by default, "flat" when ``quant`` is set,
-or "flat-pq"), ``max_segments`` (compaction trigger, default 4),
+``segment_backend`` (any registered backend: "pmtree" by default, "flat"
+when ``quant`` is set; a closest-pair-only one seals and fails at the
+search, as the reference's does), ``max_segments`` (compaction trigger,
+default 4),
 ``max_dead_fraction`` (segment rot trigger, default 0.5),
 ``use_kernels`` (False runs the plain PyTorch versions, in the delta
 scan, the merge and the segments, default True), ``durability`` (crash

@@ -1,11 +1,11 @@
 """Sealed immutable segments: the LSM runs of the streaming index
 (``repro.stream.segment``).
 
-A segment is a frozen set of (global id, vector) rows served by a
-registered static backend of the port that takes the index's projection:
-``pmtree`` (the default, so sealed data gets the paper-faithful probing
-path and its work counters), ``flat`` or ``flat-pq``.  The backend sees
-local row numbers 0..n-1; the segment owns the local→global id remap.
+A segment is a frozen set of (global id, vector) rows served by ANY
+registered backend of the port — ``pmtree`` by default, so sealed data
+gets the paper-faithful probing path and its work counters for free.
+The backend sees local row numbers 0..n-1; the segment owns the
+local→global id remap.
 Deletes never touch a segment: the owner tracks a tombstone count
 (``dead``) per segment and compaction rebuilds when it grows.
 """
@@ -34,31 +34,48 @@ def segment_config(config: IndexConfig, backend: str) -> IndexConfig:
 
 class Segment:
     """One immutable run: global ids + a backend over rows already on
-    the index's device, built with the projection ``a`` (d, m) given, so
-    every segment of one index shares it, as every segment of the
-    reference shares ``ProjectionFamily.create(d, m, seed)``.  A flat
-    segment holds ``rows`` without a copy (the caller hands over a tensor
-    nothing else writes to); a pmtree segment projects them on the
-    device and takes them to the host for its tree.
+    the index's device.
+
+    Every backend the reference draws from ``config.seed`` alone with
+    ``ProjectionFamily.create(d, m, seed)`` — pmtree, the flat family, the
+    three sharded backends and ``streaming`` itself — is built with the
+    projection ``a`` (d, m) given, so every segment of one index shares
+    it as every segment of the reference does.  A flat segment holds
+    ``rows`` without a copy (the caller hands over a tensor nothing else
+    writes to); a pmtree segment projects them on the device and takes
+    them to the host for its tree; a sharded one lays them out over its
+    mesh (the ``mesh`` / ``shards`` options, an emulated one by default).
+    The §7 baselines are built through the registry on host rows: their
+    numpy draws are the reference's, and the ``jax.random`` ones
+    (``multiprobe`` and ``lsb_tree``'s bucket families, ``srs`` and
+    ``rlsh``'s A) come from the options (``families``, ``a``), as the
+    standalone backends take them; the closest-pair-only ones seal and
+    refuse a search, as the reference's do.
     """
 
     _serial = 0  # process-wide serial — owner keys segments by it
 
     def __init__(self, ids: np.ndarray, rows: torch.Tensor, config: IndexConfig,
                  backend: str, *, a: np.ndarray):
-        from ..index.backends import FlatBackend, PMTreeBackend
+        from ..index.backends import (FlatBackend, PMTreeBackend, ShardedBackend,
+                                      ShardedFlatBackend)
         from ..index.registry import get_backend
+        from .index import StreamingIndex
 
         self.ids = np.asarray(ids, dtype=np.int64).reshape(-1)
         if self.ids.size != rows.shape[0]:
             raise ValueError(f"{self.ids.size} ids for {rows.shape[0]} rows")
         self.backend = backend
         cls = get_backend(backend)
-        if not issubclass(cls, (PMTreeBackend, FlatBackend)):
-            raise ValueError(f"segment_backend {backend!r} is not flat-family or pmtree: "
-                             "the port's segments take the index's projection")
-        self.index = cls.from_arrays(rows, a, None, segment_config(config, backend),
-                                     device=rows.device)
+        cfg, dev = segment_config(config, backend), rows.device
+        if issubclass(cls, (PMTreeBackend, FlatBackend)):
+            self.index = cls.from_arrays(rows, a, None, cfg, device=dev)
+        elif issubclass(cls, (ShardedBackend, ShardedFlatBackend)):
+            self.index = cls.from_arrays(rows.cpu().numpy(), a, None, cfg, device=dev)
+        elif issubclass(cls, StreamingIndex):
+            self.index = cls.from_arrays(rows.cpu().numpy(), a, cfg, device=dev)
+        else:
+            self.index = cls(rows, cfg, device=dev)
         self.dead = 0  # tombstones attributed to this segment
         Segment._serial += 1
         self.serial = Segment._serial
@@ -70,7 +87,8 @@ class Segment:
     def bytes_per_point(self) -> float:
         """Distance-storage bytes/point of the backing index (codes +
         codebooks for quantized segments, raw float32 otherwise)."""
-        return float(self.index.bytes_per_point())
+        fn = getattr(self.index, "bytes_per_point", None)
+        return float(fn()) if fn else 4.0 * self.index.d
 
     @property
     def live(self) -> int:

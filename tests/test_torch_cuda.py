@@ -989,3 +989,67 @@ def test_2d_mesh_step_on_the_card_equals_the_cpu_port(cuda, shape):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     np.testing.assert_allclose(losses(cuda), losses(torch.device("cpu")), rtol=1e-5)
+
+
+def test_sharded_flat_segments_on_the_card_match_the_cpu_port(cuda):
+    """A streaming index whose segments are ``sharded-flat`` over an
+    emulated P = 4 mesh, on the card with its kernels, against the same
+    index on the CPU fed the same operations: ids identical, d² to rtol
+    1e-5 and the delta's norm-trick atol (as for the flat segments);
+    pairwise and verify launch once a shard and segment."""
+    from repro_torch.index import IndexConfig, build_index
+
+    data, q = _sharded_data(6000, 48, 43)
+    opts = {"segment_backend": "sharded-flat", "shards": 4, "delta_threshold": 1500,
+            "max_segments": 3}
+    kern = build_index(data[:3000], IndexConfig(backend="streaming", options=opts),
+                       device=cuda)
+    cpu = build_index(data[:3000], IndexConfig(backend="streaming", options=opts),
+                      device="cpu")
+    for lo in range(3000, 6000, 1000):
+        for index in (kern, cpu):
+            index.insert(data[lo:lo + 1000])
+            index.delete(np.arange(lo - 500, lo - 480))
+        counts.reset()
+        rk = kern.search(q, 10)
+        used = counts.snapshot()["launches"]
+        rc = cpu.search(q, 10)
+        np.testing.assert_array_equal(rk.indices, rc.indices)
+        atol = 1e-6 * float((q ** 2).sum(1).max() + (data ** 2).sum(1).max())
+        np.testing.assert_allclose(rk.distances ** 2, rc.distances ** 2, rtol=1e-5, atol=atol)
+        assert used["pairwise_sq_dist"] >= 4 * kern.segment_count
+        assert used["verify_topk"] == 4 * kern.segment_count
+    assert kern.n_flushes == cpu.n_flushes >= 2 and kern.n_compactions == cpu.n_compactions
+    assert {s.backend for s in kern.segments} == {"sharded-flat"}
+
+
+def test_a_chunk_on_a_split_cache_on_the_card_equals_the_cpu_port(cuda):
+    """yi's smoke config in float32 (TF32 off) on an emulated data = 2
+    mesh: the prompt, then a chunk of 7 tokens past it through the
+    decode step (the shards' attention partials merged), on the card and
+    on the CPU from the same parameters: logits within 1e-4 of the
+    largest, layer 0's cache rows within 1e-5 of theirs."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.models import model_module
+    from repro_torch.serve.serve_step import make_decode_step, make_prefill
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("yi_6b").replace(dtype=torch.float32)
+    rng = np.random.default_rng(5)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 32)).astype(np.int32))
+    chunk = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 7)).astype(np.int32))
+
+    def run(device):
+        params = model_module(cfg).init_params(cfg, 0, device="cpu").to(device)
+        mesh = make_host_mesh(data=2, device=device)
+        pre, _ = make_prefill(cfg, mesh, batch=1, seq_len=32, max_seq=64)
+        dec, info = make_decode_step(cfg, mesh, batch=1, max_seq=64)
+        assert info["lsh_shard"] == ("data", "model")
+        _, caches = pre(params, {"tokens": prompt.to(device)})
+        lg, caches = dec(params, caches, {"tokens": chunk.to(device), "position": 32})
+        return lg.cpu(), caches[0]["k"].cpu()
+
+    (got, gk), (want, wk) = run(cuda), run(torch.device("cpu"))
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+    torch.testing.assert_close(gk, wk, rtol=0, atol=1e-5 * float(wk.abs().max()))

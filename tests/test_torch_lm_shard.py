@@ -18,7 +18,10 @@ Tolerances:
   positions identical to a per-shard ``lax.top_k`` of the reference's
   scores; at P = 1 on float32 the unsharded form bit for bit;
 * the model steps' logits within 1e-4 of the largest logit, as
-  ``test_torch_lm_serve.py`` holds the unsharded steps;
+  ``test_torch_lm_serve.py`` holds the unsharded steps, a chunk of S
+  tokens past the prompt too (its attention the shards' partials merged
+  in another order than one pass); its cache bit for bit one device's in
+  layer 0, whose input is the embedding on every form;
 * the specs equal, entry for entry.
 """
 import os
@@ -57,6 +60,11 @@ SHARDS = (2, 4, 8)
 DTYPES = ("f32", "bf16")
 STEP_ARCHS = ("yi_6b", "qwen3_moe_30b_a3b", "llama32_vision_11b")
 PROMPT, MAX_SEQ, STEPS = 16, 32, 4
+# a chunk of S tokens past the prompt on a sequence-split cache: the
+# archs, the (data, model) meshes and the chunk lengths
+CHUNK_ARCHS = ("yi_6b", "llama32_vision_11b")
+CHUNK_MESHES = ((2, 1), (4, 1), (2, 2))
+CHUNKS = (2, 7, 16)
 
 # (B, H, KV, hd, m, Smax): the attention cases' shapes
 SHAPE = (2, 4, 2, 16, 8, 64)
@@ -90,6 +98,12 @@ def _step_inputs(arch: str) -> dict:
         out["image_embeds"] = (r.normal(size=(1, cfg.n_image_tokens, cfg.d_model))
                                * 0.1).astype(np.float32)
     return out
+
+
+def _chunk(arch: str, S: int) -> np.ndarray:
+    """The (1, S) block of tokens written past the prompt."""
+    r = np.random.default_rng(40 + S)
+    return r.integers(0, jax_smoke_config(arch).vocab_size, (1, S)).astype(np.int32)
 
 
 _JAX = r"""
@@ -162,6 +176,23 @@ for arch in ARCHS:
                 steps.append(np.asarray(logits))
         out[f"{arch}_{P}_logits"] = np.concatenate(steps, axis=1)
         out[f"{arch}_{P}_tokens"] = np.concatenate(toks, axis=1)
+
+# a chunk of S tokens past the prompt: the decode step on a (B, S) block
+for arch in CHUNK_ARCHS:
+    cfg = get_smoke_config(arch).replace(dtype=jnp.float32)
+    params = model_module(cfg).init_params(cfg, jax.random.PRNGKey(0))
+    b = {k[len(arch) + 1:]: jnp.asarray(v) for k, v in inp.items() if k.startswith(arch + ":")}
+    for D, M in CHUNK_MESHES:
+        mesh = make_submesh((D, M), ("data", "model"))
+        with mesh:
+            pre, _ = make_prefill(cfg, mesh, batch=1, seq_len=PROMPT, max_seq=MAX_SEQ)
+            dec, _ = make_decode_step(cfg, mesh, batch=1, max_seq=MAX_SEQ)
+            _, caches = pre(params, b)
+            for S in CHUNKS:
+                c = jax.tree.map(jnp.copy, caches)  # the step donates its caches
+                lg, _ = dec(params, c, {**b, "tokens": jnp.asarray(inp[f"chunk{S}/{arch}"]),
+                                        "position": jnp.int32(PROMPT)})
+                out[f"{arch}_{D}x{M}_chunk{S}"] = np.asarray(lg)
 np.savez(OUT, **out)
 """
 
@@ -224,10 +255,13 @@ def jax_side(tmp_path_factory):
         inputs.update({f"{name}_{k}": v for k, v in _lsh_inputs(tied).items()})
     for arch in STEP_ARCHS:
         inputs.update({f"{arch}:{k}": v for k, v in _step_inputs(arch).items()})
+    for arch in CHUNK_ARCHS:
+        inputs.update({f"chunk{S}/{arch}": _chunk(arch, S) for S in CHUNKS})
     cases = {n: (kv, t, ax) for n, (kv, t, _, ax) in LSH_CASES.items()}
     return run_jax(_JAX, inputs, tmp_path_factory.mktemp("jax_lm_shard"), CASES=cases,
                    OVER=OVER_BUDGET, ARCHS=STEP_ARCHS, PROMPT=PROMPT, MAX_SEQ=MAX_SEQ,
-                   STEPS=STEPS)
+                   STEPS=STEPS, CHUNK_ARCHS=CHUNK_ARCHS, CHUNK_MESHES=CHUNK_MESHES,
+                   CHUNKS=CHUNKS)
 
 
 # ---------------------------------------------------------------------------
@@ -288,8 +322,44 @@ def run_sharded(mesh, tokens: dict | None = None) -> dict:
     return out
 
 
+def run_chunk(mesh, S: int = 7) -> dict:
+    """yi's smoke config (the port's own draws) on ``mesh``: the prompt,
+    then a chunk of S tokens past it; the chunk's logits and the blocks
+    of layer 0's pk and layer 1's k this process holds (whole when
+    emulated).  A group rank of a 2-D mesh holds its parameter blocks."""
+    from repro_torch.serve.serve_step import step_form
+    from repro_torch.train.train_step import shard_params
+
+    tc = get_smoke_config("yi_6b").replace(dtype=torch.float32)
+    params = model_module(tc).init_params(tc, 0, device="cpu")
+    form = step_form(tc, mesh, batch=1, max_seq=MAX_SEQ)
+    if form["parallel"] and not mesh.emulated:
+        shard_params(params, mesh, form["layouts"])
+    b = {k: torch.from_numpy(v) for k, v in _step_inputs("yi_6b").items()}
+    pre, _ = make_prefill(tc, mesh, batch=1, seq_len=PROMPT, max_seq=MAX_SEQ)
+    dec, _ = make_decode_step(tc, mesh, batch=1, max_seq=MAX_SEQ)
+    _, caches = pre(params, b)
+    lg, caches = dec(params, caches, {"tokens": torch.from_numpy(_chunk("yi_6b", S)),
+                                      "position": PROMPT})
+    tag = f"chunk{mesh.data.size}x{mesh.model.size}"
+    return {f"{tag}_logits": lg.numpy(), f"{tag}_pk0": caches[0]["pk"].numpy(),
+            f"{tag}_k1": caches[1]["k"].numpy()}
+
+
+def run_forms(mesh, grid=None) -> dict:
+    """What a (P, 1) mesh runs, and a chunk on the 2-D ``grid`` too."""
+    out = run_sharded(mesh)
+    out.update(run_chunk(mesh))
+    if grid is not None:
+        out.update(run_chunk(grid))
+    return out
+
+
 def _group_body():
-    return run_sharded(make_host_mesh(device="cpu"))
+    import torch.distributed as dist
+
+    grid = make_host_mesh(2, device="cpu") if dist.get_world_size() == 4 else None
+    return run_forms(make_host_mesh(device="cpu"), grid)
 
 
 def _rank(rank, world, store, out_dir):
@@ -301,7 +371,8 @@ def group(request, tmp_path_factory):
     """(world, per-rank answers, the emulated mesh's answers)."""
     world = request.param
     ranks = spawn_ranks(_rank, world, tmp_path_factory.mktemp(f"gloo_lm{world}"))
-    return world, ranks, run_sharded(make_host_mesh(data=world, device="cpu"))
+    grid = make_host_mesh(2, data=2, device="cpu") if world == 4 else None
+    return world, ranks, run_forms(make_host_mesh(data=world, device="cpu"), grid)
 
 
 # ---------------------------------------------------------------------------
@@ -436,16 +507,133 @@ def test_block_writes_equal_the_whole_cache_write(index, S, as_tensor):
         assert torch.equal(blk, whole[:, p * 4:(p + 1) * 4]), p
 
 
-def test_a_sequence_split_cache_refuses_a_chunk_past_position_0():
+def test_a_sequence_split_cache_refuses_a_chunk_past_position_0(jax_side):
+    """``transformer.forward`` past position 0 with ``lsh_shard=(mesh,
+    "data")`` on a cache split over 2 data shards, at an int and at a
+    tensor position: the reference's answer, as its decode step gives
+    it (the same forward), within 1e-4 of the largest logit."""
+    from repro_torch.models import transformer as tt
+
     tc, params = _step_params("yi_6b")
     mesh = make_host_mesh(data=2, device="cpu")
     pre, _ = make_prefill(tc, mesh, batch=1, seq_len=PROMPT, max_seq=MAX_SEQ)
-    _, caches = pre(params, {"tokens": torch.zeros((1, PROMPT), dtype=torch.int32)})
+    want = jax_side["yi_6b_2x1_chunk2"]
+    for position in (PROMPT, torch.tensor(PROMPT)):
+        _, caches = pre(params, {"tokens": torch.from_numpy(_step_inputs("yi_6b")["tokens"])})
+        with torch.inference_mode():
+            logits, _ = tt.forward(params, torch.from_numpy(_chunk("yi_6b", 2)), tc,
+                                   caches=caches, position0=position,
+                                   lsh_shard=(mesh, "data"))
+        np.testing.assert_allclose(logits[:, -1:].numpy(), want, rtol=0,
+                                   atol=1e-4 * np.abs(want).max())
+
+
+_ONE_DEVICE = {}
+
+
+def _one_device_chunk(arch: str, S: int):
+    """The prompt and the chunk on one device: (last logits, caches)."""
+    if (arch, S) not in _ONE_DEVICE:
+        tc, params = _step_params(arch)
+        b = {k: torch.from_numpy(v) for k, v in _step_inputs(arch).items()}
+        one = make_host_mesh(device="cpu")
+        pre, _ = make_prefill(tc, one, batch=1, seq_len=PROMPT, max_seq=MAX_SEQ)
+        dec, info = make_decode_step(tc, one, batch=1, max_seq=MAX_SEQ)
+        assert info["lsh_shard"] is None
+        _, caches = pre(params, b)
+        _ONE_DEVICE[arch, S] = dec(params, caches, {**b, "tokens": torch.from_numpy(
+            _chunk(arch, S)), "position": PROMPT})
+    return _ONE_DEVICE[arch, S]
+
+
+@pytest.mark.parametrize("S", CHUNKS)
+@pytest.mark.parametrize("shape", CHUNK_MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("arch", CHUNK_ARCHS)
+def test_a_chunk_past_the_prompt_matches_jax(jax_side, arch, shape, S):
+    """``make_decode_step`` on a (1, S) block at position 16 over a cache
+    split over 'data' ((P, 1)) or ('data', 'model') ((2, 2)): the
+    reference's last logits within 1e-4 of the largest; layer 0, whose
+    input is the embedding on every form, holds the one-device cache bit
+    for bit, the chunk's rows included; the deeper layers' rows and the
+    logits sit within 1e-4 of the one-device form's largest (an ordered
+    merge of the shards' softmax partials against one pass)."""
+    D, M = shape
+    tc, params = _step_params(arch)
+    mesh = make_host_mesh(M, data=D, device="cpu")
+    b = {k: torch.from_numpy(v) for k, v in _step_inputs(arch).items()}
+    pre, _ = make_prefill(tc, mesh, batch=1, seq_len=PROMPT, max_seq=MAX_SEQ)
+    dec, info = make_decode_step(tc, mesh, batch=1, max_seq=MAX_SEQ)
+    assert info["lsh_shard"] == ("data", "model")
+    _, caches = pre(params, b)
+    got, caches = dec(params, caches, {**b, "tokens": torch.from_numpy(_chunk(arch, S)),
+                                       "position": PROMPT})
+    assert tuple(got.shape) == (1, 1, tc.padded_vocab())
+    want = jax_side[f"{arch}_{D}x{M}_chunk{S}"]
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4 * np.abs(want).max())
+    one, one_caches = _one_device_chunk(arch, S)
+    np.testing.assert_allclose(got.numpy(), one.numpy(), rtol=0,
+                               atol=1e-4 * float(one.abs().max()))
+    for name, t in caches[0].items():
+        assert torch.equal(t, one_caches[0][name]), name
+    for c, oc in zip(caches[1:], one_caches[1:]):
+        for name, t in c.items():
+            np.testing.assert_allclose(t.numpy(), oc[name].numpy(), rtol=0,
+                                       atol=1e-4 * float(oc[name].abs().max()))
+
+
+def test_a_layer_without_lsh_on_a_split_cache_masks_global_positions():
+    """recurrentgemma's local attention (window 8) over a cache split over
+    2 data shards: the prompt, two one-token steps and a chunk of 7 past
+    them equal the one-device forward within 1e-5 of the largest logit;
+    without a cache ``lsh_shard`` does nothing, as in the reference."""
     from repro_torch.models import transformer as tt
 
-    with pytest.raises(NotImplementedError, match="position 0"), torch.inference_mode():
-        tt.forward(params, torch.zeros((1, 2), dtype=torch.int32), tc, caches=caches,
-                   position0=PROMPT, lsh_shard=(mesh, "data"))
+    tc = _cfg("recurrentgemma_9b", dtype=torch.float32, window=8)
+    mod = model_module(tc)
+    params = mod.init_params(tc, 0, device="cpu")
+    r = np.random.default_rng(9)
+    blocks = [torch.from_numpy(r.integers(0, tc.vocab_size, (1, n)).astype(np.int32))
+              for n in (PROMPT, 1, 1, 7)]
+    mesh = make_host_mesh(data=2, device="cpu")
+    logits = {}
+    with torch.inference_mode():
+        for shard in (None, (mesh, "data")):
+            caches, pos, got = mod.init_cache(tc, 1, MAX_SEQ, device="cpu"), 0, []
+            for tok in blocks:
+                lg, caches = tt.forward(params, tok, tc, caches=caches, position0=pos,
+                                        lsh_shard=shard)
+                got.append(lg)
+                pos += tok.shape[1]
+            logits[shard is None] = torch.cat(got, 1)
+        plain, _ = tt.forward(params, blocks[0], tc, remat="none")
+        ignored, _ = tt.forward(params, blocks[0], tc, remat="none", lsh_shard=(mesh, "data"))
+    want = logits[True]
+    np.testing.assert_allclose(logits[False].numpy(), want.numpy(), rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+    assert torch.equal(ignored, plain)
+
+
+@pytest.mark.parametrize("P", WORLDS)
+def test_a_chunk_moves_its_attention_partials_alone(P):
+    """One abstract rank of a (P, 1) mesh (the dry run's) decoding a chunk
+    of S tokens on yi's split cache: each layer all-gathers its shards'
+    partials, B·S·H·(hd + 2) float32 a shard, and nothing else crosses."""
+    from repro_torch.launch.mesh import CollectiveTally, make_abstract_mesh
+    from repro_torch.serve.serve_step import fresh_caches
+
+    tc, S = get_smoke_config("yi_6b"), 7
+    tally = CollectiveTally()
+    mesh = make_abstract_mesh(P, 1, tally=tally)
+    dec, info = make_decode_step(tc, mesh, batch=1, max_seq=MAX_SEQ)
+    caches = fresh_caches(tc, mesh, batch=1, max_seq=MAX_SEQ)
+    assert caches[0]["k"].shape[1] == MAX_SEQ // P
+    tokens = torch.empty((1, S), dtype=torch.int32, device="meta")
+    logits, _ = dec(info["abstract_params"], caches, {"tokens": tokens, "position": PROMPT})
+    assert tuple(logits.shape) == (1, 1, tc.padded_vocab())
+    per_shard = 1 * S * tc.n_heads * (tc.head_dim + 2) * 4
+    assert tally.bytes["all-gather"] == tc.n_layers * P * per_shard
+    assert tally.counts["all-gather"] == tc.n_layers
+    assert sum(tally.bytes.values()) == tally.bytes["all-gather"]
 
 
 # ---------------------------------------------------------------------------
@@ -472,6 +660,23 @@ def test_group_steps_equal_emulated_and_hold_only_their_blocks(group):
                                       emulated["cache_k0"][:, r * Sl:(r + 1) * Sl])
         np.testing.assert_array_equal(out["cache_pk1"],
                                       emulated["cache_pk1"][:, r * Sl:(r + 1) * Sl])
+
+
+def test_group_chunk_equals_emulated_on_its_blocks(group):
+    """A chunk past the prompt on gloo ranks of (P, 1), and of (2, 2) in a
+    world of 4: each rank's logits the emulated form's bit for bit, its
+    cache blocks the emulated cache's rows (data-major over the world)."""
+    world, ranks, emulated = group
+    tags = [f"chunk{world}x1"] + (["chunk2x2"] if world == 4 else [])
+    Sl = MAX_SEQ // world
+    for r, out in enumerate(ranks):
+        for tag in tags:
+            np.testing.assert_array_equal(out[f"{tag}_logits"], emulated[f"{tag}_logits"])
+            for leaf in ("pk0", "k1"):
+                assert out[f"{tag}_{leaf}"].shape[1] == Sl
+                np.testing.assert_array_equal(
+                    out[f"{tag}_{leaf}"], emulated[f"{tag}_{leaf}"][:, r * Sl:(r + 1) * Sl],
+                    err_msg=f"rank {r}: {tag}_{leaf}")
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,10 @@ port's ``StreamingIndex.from_arrays`` given the JAX family's A, on
 ``device="cpu"``, where every kernel runs its plain PyTorch version.  The JAX side runs its jnp oracles (``force="ref"``, the
 CPU default) unless a test says otherwise.
 
+The segments over every other registered backend (the §7 baselines, the
+three sharded backends, ``streaming`` itself) take the same kind of
+sequence, the ``jax.random`` draws passed as options.
+
 After every step: ids identical; distances to rtol 1e-5 (segments answer
 in the difference form on both sides, the delta scan in the norm trick
 with the cross term summed by another BLAS than XLA's); segment count,
@@ -23,6 +27,7 @@ from repro.core.hashing import ProjectionFamily as JaxFamily
 from repro.index import IndexConfig as JaxConfig
 from repro.index import build_index as jax_build_index
 from repro.resilience import chaos as jax_chaos
+from repro_torch.convert import bucket_families_from_arrays
 from repro_torch.index import (
     FlatBackend,
     IndexConfig,
@@ -30,6 +35,7 @@ from repro_torch.index import (
     available_backends,
     backend_capabilities,
     build_index,
+    get_backend,
 )
 from repro_torch.kernels import counts
 from repro_torch.obs import trace
@@ -279,13 +285,190 @@ def test_failed_seal_leaves_every_row_served():
 
 
 def test_non_flat_segment_backend_fails_the_seal():
-    data = make_clustered(50, D, seed=9)
-    ti = StreamingIndex.from_arrays(data, _a(), IndexConfig(
-        backend="streaming", options={**OPTS, "segment_backend": "streaming"}),
+    """A ``streaming`` segment inside a streaming index seals as the
+    reference's does (an inner index with the outer one's A and its
+    non-stream options: delta_threshold 512, pmtree segments) and answers
+    with its ids.  A segment under 512 rows answers from the inner
+    index's delta scan, in the norm trick |q|² + |x|² − 2q·x on both
+    sides, whose float32 evaluation is within (d + 2)·2⁻²⁴·(|q|² + |x|²)
+    of the exact d² on each side (a dot product of d terms, two norms
+    and two adds); the two sides' d² are held to twice that, which at
+    these clustered rows (|x|² ≈ 500, d² ≈ 4) exceeds rtol 1e-5 on d:
+    both sides read 1e-5 and 2e-6 off the float64 distance."""
+    ji, ti = _backend_pair("streaming")
+    q = _queries(ji.get_vectors(ji.live_ids()), 4, seed=61)
+    for name, step in _backend_steps():
+        live = ji.live_ids()
+        np.testing.assert_array_equal(step(ti, live), step(ji, live), err_msg=name)
+        _same_state(ji, ti)
+        rj, rt = ji.search(q, K), ti.search(q, K)
+        np.testing.assert_array_equal(rt.indices, rj.indices, err_msg=name)
+        x = ti.get_vectors(rt.indices.reshape(-1)).reshape(*rt.indices.shape, D)
+        scale = (q * q).sum(-1)[:, None] + (x * x).sum(-1)
+        bound = 2 * (D + 2) * 2.0 ** -24 * scale
+        assert (np.abs(rt.distances ** 2 - rj.distances ** 2) <= bound).all(), name
+    assert all(type(s.index) is StreamingIndex for s in ti.segments)
+    assert ti.segment_count >= 2 and ti.n_compactions >= 1
+
+
+# ---------------------------------------------------------------------------
+# segments over every registered backend the reference's segments take
+# ---------------------------------------------------------------------------
+
+#: backend: its options on both sides (the sharded-flat pair over an
+#: emulated mesh of 2 shards: the test process has one JAX device)
+SEGMENT_BACKENDS = {
+    "lscan": {}, "qalsh": {}, "multiprobe": {}, "srs": {}, "rlsh": {}, "lsb_tree": {},
+    "sharded": {}, "sharded-flat": {"shards": 2},
+    "sharded-flat-pq": {"shards": 2, "pq": {"m_codebooks": 8}},
+}
+SEGMENT_OPTS = {"delta_threshold": 256, "max_segments": 3}
+
+
+def _jax_draws(name: str, d: int = D) -> dict:
+    """The ``jax.random`` draws of the reference's ``name`` segments,
+    which depend on d and the seed alone, as the port's options take
+    them (a standalone JAX index's ``families`` or SRS/R-LSH's ``a``)."""
+    if name not in ("multiprobe", "lsb_tree", "srs", "rlsh"):
+        return {}
+    impl = jax_build_index(make_clustered(64, d, seed=60), JaxConfig(backend=name)).impl
+    if name in ("srs", "rlsh"):
+        return {"a": np.asarray(impl.fam.a)}
+    fams = ([f for f, _ in impl.tables] if name == "multiprobe"
+            else [t[0] for t in impl.trees])
+    return {"families": bucket_families_from_arrays(
+        [(np.asarray(f.a), np.asarray(f.b), f.w) for f in fams], device="cpu")}
+
+
+def _backend_pair(name: str, seed_rows: int = 300):
+    """(JAX, port) streaming indexes whose segments are ``name``: the
+    seed rows seal the first segment."""
+    opts = {**SEGMENT_OPTS, "segment_backend": name, **SEGMENT_BACKENDS.get(name, {})}
+    data = make_clustered(seed_rows, D, seed=50)
+    ji = jax_build_index(data, JaxConfig(backend="streaming", options=opts))
+    ti = StreamingIndex.from_arrays(
+        data, _a(), IndexConfig(backend="streaming", options={**opts, **_jax_draws(name)}),
         device="cpu")
-    with pytest.raises(ValueError, match="not flat-family"):
-        ti.flush()
-    assert ti.n == 50 and ti.delta_size == 50 and ti.segment_count == 0
+    return ji, ti
+
+
+def _backend_steps():
+    """Seal a second segment, delete sealed and buffered rows, buffer 100,
+    then seal a third, which compacts (max_segments 3): 860 rows."""
+    batches = [make_clustered(n, D, seed=51 + i) for i, n in enumerate((260, 100, 200))]
+
+    def kill(idx, live, n, newest=False):
+        rng = np.random.default_rng(len(live) + n)
+        return idx.delete(rng.choice(live[-100:] if newest else live, n, replace=False))
+
+    return [
+        ("insert 260 (seal)", lambda idx, live: idx.insert(batches[0])),
+        ("delete sealed", lambda idx, live: kill(idx, live, 20)),
+        ("insert 100", lambda idx, live: idx.insert(batches[1])),
+        ("delete in delta", lambda idx, live: kill(idx, live, 10, newest=True)),
+        ("insert 200 (seal, compaction)", lambda idx, live: idx.insert(batches[2])),
+        ("delete mixed", lambda idx, live: kill(idx, live, 30)),
+    ]
+
+
+@pytest.mark.parametrize("name", list(SEGMENT_BACKENDS))
+def test_segment_backend_matches_jax(name):
+    """Every step's ids identical, distances to rtol 1e-5 and the work
+    counters equal, as the standalone backends hold them.  The reference's
+    emulated sharded-flat compiles each new (k, segment size) in seconds,
+    so those two are searched after the two seals only (the second with
+    tombstones in both sources and a compacted segment)."""
+    every = not name.startswith("sharded-flat")
+    ji, ti = _backend_pair(name)
+    q = _queries(ji.get_vectors(ji.live_ids()), 5, seed=52)
+    _same_state(ji, ti)
+    if every:
+        _same_search(ji, ti, q)
+    for i, (step_name, step) in enumerate(_backend_steps()):
+        live = ji.live_ids()
+        np.testing.assert_array_equal(step(ti, live), step(ji, live), err_msg=step_name)
+        _same_state(ji, ti)
+        if every or i in (0, 4):
+            _same_search(ji, ti, q, k=1 + 3 * i)
+    assert ti.n_flushes == 3 and ti.n_compactions == 1 and ti.segment_count == 2
+    assert {s.backend for s in ti.segments} == {name}
+    assert ti.bytes_per_point() == pytest.approx(ji.bytes_per_point(), rel=1e-12)
+
+
+@pytest.mark.parametrize("name", ["lscan", "sharded-flat"])
+def test_segment_answers_as_its_backend_alone(name):
+    """One sealed segment answers what a standalone index of its backend
+    over the segment's rows answers, in global ids."""
+    ji, ti = _backend_pair(name)
+    seg = ti.segments[0]
+    opts = {**SEGMENT_BACKENDS[name], **_jax_draws(name)}
+    rows = ti.get_vectors(seg.ids)
+    alone = (build_index(rows, IndexConfig(backend=name, options=opts), device="cpu")
+             if name == "lscan" else
+             get_backend(name).from_arrays(rows, _a(), None, IndexConfig(backend=name,
+                                                                         options=opts),
+                                           device="cpu"))
+    q = _queries(rows, 4, seed=53)
+    gids, dd, st = seg.search(q, K)
+    ra = alone.search(q, K)
+    np.testing.assert_array_equal(gids, seg.ids[ra.indices])
+    np.testing.assert_array_equal(dd, ra.distances)
+    assert st.as_dict() == ra.stats.as_dict()
+
+
+@pytest.mark.parametrize("name", ["acp_p", "mkcp", "nlj"])
+def test_closest_pair_only_segments_seal_and_refuse_a_search(name):
+    """The reference seals these and fails at the search; so does the
+    port, with the same exception and message."""
+    ji, ti = _backend_pair(name)
+    _same_state(ji, ti)
+    assert ti.segment_count == 1 and ti.delta_size == 0
+    q = _queries(ti.get_vectors(ti.live_ids()), 2, seed=54)
+    with pytest.raises(NotImplementedError) as jerr:
+        ji.search(q, K)
+    with pytest.raises(NotImplementedError) as terr:
+        ti.search(q, K)
+    assert str(terr.value) == str(jerr.value) == f"backend {name!r} does not support ANN search"
+
+
+@pytest.mark.parametrize("name", ["sharded-flat", "lscan"])
+def test_recovered_segments_answer_as_the_uninterrupted_twin(tmp_path, name):
+    """A durable stream over ``name`` segments crashes after a snapshot
+    and more operations; ``recover()`` rebuilds each segment from its raw
+    rows and answers bit for bit what a twin fed the same operations
+    without a crash answers; the reference recovers the same directory to
+    the same ids."""
+    from repro.resilience import recover as jax_recover
+    from repro_torch.resilience import recover
+
+    opts = {**SEGMENT_OPTS, "segment_backend": name, **SEGMENT_BACKENDS[name]}
+    data = make_clustered(300, D, seed=50)
+    dur = {"durability": {"dir": str(tmp_path / "wal"), "sync": False}}
+    ti = StreamingIndex.from_arrays(data, _a(), IndexConfig(backend="streaming",
+                                                            options={**opts, **dur}),
+                                    device="cpu")
+    twin = StreamingIndex.from_arrays(data, _a(), IndexConfig(backend="streaming",
+                                                              options=opts), device="cpu")
+    for i, (step_name, step) in enumerate(_backend_steps()):
+        live = twin.live_ids()
+        np.testing.assert_array_equal(step(ti, live), step(twin, live), err_msg=step_name)
+        if i == 2:
+            ti.snapshot()
+    ti.durability.close()  # the crash: the process is gone, the directory stays
+    del ti
+    got, report = recover(tmp_path / "wal", device="cpu", a=_a())
+    assert report.snapshot_lsn is not None and report.records_replayed > 0
+    assert {s.backend for s in got.segments} == {name}
+    _same_state(twin, got)
+    q = _queries(data, 5, seed=55)
+    rg, rt = got.search(q, K), twin.search(q, K)
+    np.testing.assert_array_equal(rg.indices, rt.indices)
+    np.testing.assert_array_equal(rg.distances, rt.distances)
+    assert rg.stats.as_dict() == rt.stats.as_dict()
+    got.close()
+    jrec, _ = jax_recover(tmp_path / "wal")
+    np.testing.assert_array_equal(jrec.search(q, K).indices, rg.indices)
+    jrec.close()
 
 
 def test_error_after_the_seal_keeps_rows_in_the_delta():
