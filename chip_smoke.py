@@ -220,8 +220,19 @@ Phases, each printing one JSON line:
            and recovery seconds, every ``RecoveryReport`` field and the
            Prometheus lines of the four resilience series, and removes
            the directory at the end.
+  entry_points  (after durable) the twins of the repo's entry points on
+           the index side, each ``main(["--device", "cuda"])`` in-process,
+           loaded by path: ``examples/torch_quickstart.py`` (5,000 × 128:
+           the facade's pmtree and flat ANN, pmtree CP against nlj, flat's
+           cp_search), ``scripts/torch_check_api.py`` (16 backends on
+           256 × 32 and the quant, cp, serve, quality and sharded gates)
+           and ``scripts/torch_chaos_drill.py`` (seeds 0-4: durability
+           and serve drills).  One line a twin: its rc, wall seconds, its
+           own last printed line and its kernels' launches (counts set to
+           0 before it, read after).  Checks: every rc 0, and the
+           quickstart launched pairwise_sq_dist and pair_join.
 
-  lm_serve (after durable, on a card the index phases have left) yi-6b
+  lm_serve (after entry_points, on a card the index phases have left) yi-6b
            at its full configuration (32 layers, d = 4096, 32 / 4 heads,
            hd = 128, d_ff = 11008, vocab 64,000, bfloat16, PM-LSH decode
            attention at T = 2048, m = 16) on parameters drawn by
@@ -373,7 +384,10 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
+import importlib.util
+import io
 import json
 import os
 import statistics
@@ -4433,6 +4447,44 @@ def lm_train_phase(torch, dev, seed: int) -> dict:
     return dry
 
 
+ENTRY_POINTS = (("quickstart", "examples/torch_quickstart.py"),
+                ("check_api", "scripts/torch_check_api.py"),
+                ("chaos_drill", "scripts/torch_chaos_drill.py"))
+ENTRY_POINT_KERNELS = {"quickstart": ("pairwise_sq_dist", "pair_join")}
+
+
+def entry_points_phase(torch, dev) -> None:
+    """Each entry-point twin's ``main`` on the card, in-process: its rc,
+    seconds, last printed line and launches by kernel."""
+    from repro_torch.kernels import counts
+
+    for name, rel in ENTRY_POINTS:
+        spec = importlib.util.spec_from_file_location(f"entry_{name}", os.path.join(ROOT, rel))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        out = io.StringIO()
+        counts.reset()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = mod.main(["--device", str(dev)])
+            torch.cuda.synchronize()
+        except BaseException:
+            print(out.getvalue(), file=sys.stderr, flush=True)
+            raise
+        seconds = time.perf_counter() - t0
+        launches = dict(counts.LAUNCHES)
+        lines = out.getvalue().splitlines()
+        emit({"phase": "entry_points", "entry": name, "script": rel, "rc": rc,
+              "seconds": seconds, "last_line": lines[-1] if lines else "",
+              "launches": launches})
+        if rc != 0:
+            print(out.getvalue(), file=sys.stderr, flush=True)
+        check(rc == 0, f"{rel} returned {rc}")
+        for kernel in ENTRY_POINT_KERNELS.get(name, ()):
+            check(launches[kernel] > 0, f"{rel} launched no {kernel}")
+
+
 def index_phases(torch, dev, seed: int) -> None:
     """Every phase of the index side, from the Deep1M twin's data to the
     durable stream, on kernels already built."""
@@ -4776,8 +4828,13 @@ def main(argv=None) -> int:
           "sources": sorted(p.name for p in _build.CSRC.glob("*.cu"))})
 
     index_phases(torch, dev, args.seed)
-    # the index phases' tensors are gone with their frame: the LM starts
-    # on a card holding nothing but the kernels
+    # the index phases' tensors are gone with their frame
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the entry points' twins on the index side ---------------------------
+    entry_points_phase(torch, dev)
+    # the LM starts on a card holding nothing but the kernels
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -101,6 +101,21 @@ def solve_parameters(
                        beta=float(beta), t=float(t))
 
 
+def confidence_interval(r: float, m: int, alpha: float) -> tuple[float, float]:
+    """Lemma 3: a 1-2α confidence interval for the projected distance r'
+    given the original distance r:  r·√(χ²_{1-α}(m)) ≤ r' ≤ r·√(χ²_α(m)).
+    """
+    lo = r * math.sqrt(chi2_upper_quantile(1.0 - alpha, m))
+    hi = r * math.sqrt(chi2_upper_quantile(alpha, m))
+    return lo, hi
+
+
+def estimate_distance_sq(projected_dist_sq, m: int):
+    """Lemma 2: unbiased estimator r̂² = r'²/m (on a Python float, a numpy
+    array or a tensor, which keeps its device and dtype)."""
+    return projected_dist_sq / float(m)
+
+
 def empirical_distance_distribution(
     points: np.ndarray, n_samples: int = 100_000, seed: int = 0
 ) -> tuple[np.ndarray, np.ndarray]:

@@ -25,7 +25,7 @@ from .estimator import PMLSHParams, solve_parameters
 from .hashing import ProjectionFamily
 
 __all__ = ["FlatIndex", "build_flat_index", "candidate_budget",
-           "answer_distances", "ann_query"]
+           "answer_distances", "ann_query", "ann_search"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,3 +137,23 @@ def ann_query(index: FlatIndex, q: torch.Tensor, *, k: int, T: int,
         return out + (torch.full((q.shape[0],), T, dtype=torch.int32,
                                  device=q.device),)
     return out
+
+
+def ann_search(index: FlatIndex, q, k: int, c: float = 1.5,
+               params: PMLSHParams | None = None, use_kernels: bool = True,
+               fused: bool = False):
+    """Convenience wrapper: pick T from the build-time parameter cache
+    (re-solving Eq. 10 only when queried at a different ratio c), then
+    :func:`ann_query` on the index's device.  ``q`` (B, d) or (d,) is
+    numpy or a tensor; ``use_kernels=False`` runs the kernels' plain
+    versions."""
+    if params is None:
+        if index.params is not None and index.params.c == c:
+            params = index.params
+        else:
+            params = solve_parameters(c, m=index.m)
+    T = candidate_budget(params, index.n, k)
+    dev = index.data.device
+    q = q.to(dev) if isinstance(q, torch.Tensor) else as_tensor(q, dev)
+    return ann_query(index, q, k=k, T=T, fused=fused,
+                     force=None if use_kernels else "plain")

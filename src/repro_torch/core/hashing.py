@@ -14,6 +14,7 @@ carried across from JAX.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -164,3 +165,43 @@ def hash_to_host(family: BucketFamily, x: np.ndarray, raw: bool = False) -> np.n
     family's device, back as numpy."""
     xt = as_tensor(x, family.a.device)
     return (family.raw(xt) if raw else family.hash(xt)).cpu().numpy()
+
+
+def collision_probability(tau, w: float) -> torch.Tensor:
+    """p(τ) of Eq. 2 — probability two points at distance τ share a bucket,
+    in float32 with τ clamped at 1e-20, as the reference computes it.
+
+    Closed form (Datar et al. 2004):
+        p(τ) = 1 - 2Φ(-w/τ) - (2τ/(√(2π) w)) (1 - exp(-w²/(2τ²)))
+    """
+    tau = torch.clamp_min(torch.as_tensor(tau, dtype=torch.float32), 1e-20)
+    t = w / tau
+    phi = 0.5 * (1.0 + torch.special.erf(-t / math.sqrt(2.0)))
+    return 1.0 - 2.0 * phi - (2.0 / (math.sqrt(2.0 * math.pi) * t)) * (
+        1.0 - torch.exp(-(t * t) / 2.0))
+
+
+def _pstable_samples(family: ProjectionFamily, o1, o2) -> np.ndarray:
+    """(h*(o1) - h*(o2)) / ||o1 - o2|| row by row, flat, as numpy; ``o1``
+    and ``o2`` (n, d) are tensors or numpy arrays (e.g. the reference's
+    ``jax.random`` draws)."""
+    dev = family.a.device
+    o1, o2 = (o.to(dev, torch.float32) if isinstance(o, torch.Tensor) else as_tensor(o, dev)
+              for o in (o1, o2))
+    r = torch.linalg.norm(o1 - o2, dim=-1, keepdim=True)
+    rho = (family.project(o1) - family.project(o2)) / r
+    return rho.cpu().numpy().ravel()
+
+
+def pstable_check(family: ProjectionFamily, n_samples: int = 4096, seed: int = 1) -> np.ndarray:
+    """Empirical sanity check of the 2-stable property (used by tests):
+
+    for random o1, o2: (h*(o1)-h*(o2)) / ||o1-o2||  ~  N(0, 1).
+    o1 and o2 are drawn from a generator on the family's device seeded
+    with ``seed``.  Returns the samples so tests can run normality checks.
+    """
+    dev = family.a.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    o1 = torch.randn((n_samples, family.d), generator=gen, device=dev)
+    o2 = torch.randn((n_samples, family.d), generator=gen, device=dev)
+    return _pstable_samples(family, o1, o2)

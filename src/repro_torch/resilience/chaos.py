@@ -55,7 +55,24 @@ from typing import Iterable, Sequence
 
 __all__ = ["FaultSpec", "FaultPlan", "ChaosError", "ChaosLatencyExceeded",
            "install", "uninstall", "active", "current_plan", "hit",
-           "transform", "dropped", "poisoned", "KNOWN_SITES"]
+           "transform", "dropped", "poisoned", "precise_sleep", "KNOWN_SITES"]
+
+#: the last stretch of a ``precise_sleep`` is spun: on an H100 host
+#: ``time.sleep`` overshot a 1.6-ms request by 0.57 ms and a 0.128-ms
+#: one by 1.0 ms at the median (scripts/torch_drill_timing.py)
+SPIN_S = 2e-3
+
+
+def precise_sleep(seconds: float) -> None:
+    """Block for ``seconds`` and no longer: ``time.sleep`` up to
+    ``SPIN_S`` before the deadline, then spin on ``perf_counter``.  An
+    injected straggler and a retry backoff last what the plan and the
+    serve config say, not what the OS timer adds to them."""
+    deadline = time.perf_counter() + seconds
+    if seconds > SPIN_S:
+        time.sleep(seconds - SPIN_S)
+    while time.perf_counter() < deadline:
+        pass
 
 #: every site the codebase instruments, with the fault kinds that are
 #: meaningful there — the vocabulary ``FaultPlan.seeded`` draws from
@@ -130,7 +147,7 @@ class FaultPlan:
         self._rng = random.Random(self.seed)
         self._hits = [0] * len(self.specs)  # matching accesses per spec
         self._fired = [0] * len(self.specs)
-        self.sleep = time.sleep  # injectable for tests
+        self.sleep = precise_sleep  # injectable for tests
 
     # -- bookkeeping -----------------------------------------------------
 

@@ -198,7 +198,7 @@ class RequestScheduler:
         # degraded tier (OPEN routes degraded buckets back to primary
         # and suppresses hedging until the reset probe succeeds)
         self._jitter_rng = random.Random(0x5EED)
-        self._sleep: Callable[[float], None] = time.sleep
+        self._sleep: Callable[[float], None] = chaos.precise_sleep
         self.breaker = CircuitBreaker(
             window=self.config.breaker_window,
             failure_threshold=self.config.breaker_threshold,

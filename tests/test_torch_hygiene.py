@@ -18,6 +18,8 @@ from repro_torch.kernels import _build, counts, ops
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py"))
+TWINS = ["examples/torch_quickstart.py", "scripts/torch_check_api.py",
+         "scripts/torch_chaos_drill.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
 
 
@@ -25,7 +27,7 @@ def _forbidden(module: str) -> bool:
     return module.split(".")[0] in FORBIDDEN
 
 
-@pytest.mark.parametrize("path", PORT_FILES + ["chip_smoke.py"])
+@pytest.mark.parametrize("path", PORT_FILES + ["chip_smoke.py"] + TWINS)
 def test_source_imports_no_jax_and_nothing_of_repro(path):
     tree = ast.parse((ROOT / path).read_text(), filename=path)
     bad = []
@@ -76,7 +78,7 @@ def test_importing_the_port_loads_no_jax():
                                    "whisper.init_cache", "make_prefill[encdec]",
                                    "serve_batch[hybrid]", "serve_batch[encdec]",
                                    "TrainLoop", "make_train_step", "checkpoint.restore",
-                                   "opt_state_from_numpy", "launch.train.main"])
+                                   "opt_state_from_numpy", "launch.train.main"] + TWINS)
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device works here")
@@ -170,7 +172,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
             "checkpoint.restore": lambda: checkpoint.restore(saved(), 1, {"a": None}),
             "opt_state_from_numpy": lambda: opt_state_from_numpy(lm, {}),
             "launch.train.main": lambda: train_main(["--arch", "yi-6b", "--smoke",
-                                                     "--steps", "1"])}[entry]
+                                                     "--steps", "1"]),
+            **{twin: lambda twin=twin: _load_twin(twin).main([]) for twin in TWINS}}[entry]
 
     def saved():  # a checkpoint written on the CPU, restored by default
         checkpoint.save(tmp_path / "ckpt", 1, {"a": torch.ones(2)})
@@ -184,6 +187,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
+
+
+def _load_twin(rel: str):
+    """An entry-point twin under examples/ or scripts/, loaded by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(pathlib.Path(rel).stem, ROOT / rel)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _wrapper_calls():
