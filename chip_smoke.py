@@ -231,8 +231,39 @@ Phases, each printing one JSON line:
            own last printed line and its kernels' launches (counts set to
            0 before it, read after).  Checks: every rc 0, and the
            quickstart launched pairwise_sq_dist and pair_join.
+  lm_examples  (after entry_points, on a card holding only the kernels)
+           the twins of the LM examples, loaded by path.  (a) Each
+           ``main(["--device", "cuda"])`` in-process at its own sizes,
+           its ``run`` wrapped to keep its results, one line a twin (its
+           seconds, last printed line and launches, counts set to 0
+           before it): ``examples/torch_knn_serving.py`` (yi-6b's smoke
+           config, a 32 × 64-token corpus's 2,016 hidden states served
+           by a streaming datastore, grown by 8 × 63 and 16 evicted; the
+           query's own key first with its payload, 2,504 live pairs, no
+           evicted id back, pairwise_sq_dist and topk_smallest launched),
+           ``examples/torch_long_context.py`` (dense and PM-LSH at T =
+           256, m = 16 over an 8,192-row cache, 64-token prefill, 8
+           greedy steps timed by CUDA events) and
+           ``examples/torch_train_lm.py`` at its defaults (yi-100m, 125M
+           parameters, 300 steps of batch 8 × 256, checkpoints every 100
+           under ``build/train_lm``, removed after): 300 finite losses,
+           the last below the first, the latest committed step 300, the
+           median step ms and tokens/s beside the step's bound
+           (``_train_bounds``).  (b) The smoke config in float32,
+           parameters drawn once on the card and copied to the CPU: both
+           twins' ``run`` on the card and on the CPU port, ids and tokens
+           identical, distances and the first and last step's logits
+           within 1e-4 of the largest.  (c) yi-6b at its full width
+           (32 layers, d = 4096, bfloat16), one parameter set on the card
+           at a time: the dense set through the knn twin (2,016 keys at
+           d = 4096, its own key first) and long_context's dense run, then
+           the PM-LSH set (T = 256, m = 16) through its LSH run; the first
+           decode step's logits, dense against LSH, at correlation ≥ 0.995
+           and relative L2 ≤ 0.05; printed: the last step's correlation,
+           both ms/token beside the decode's bound (the weights' bytes at
+           the HBM rate) and the peak bytes.
 
-  lm_serve (after entry_points, on a card the index phases have left) yi-6b
+  lm_serve (after lm_examples, on a card the index phases have left) yi-6b
            at its full configuration (32 layers, d = 4096, 32 / 4 heads,
            hd = 128, d_ff = 11008, vocab 64,000, bfloat16, PM-LSH decode
            attention at T = 2048, m = 16) on parameters drawn by
@@ -4453,36 +4484,252 @@ ENTRY_POINTS = (("quickstart", "examples/torch_quickstart.py"),
 ENTRY_POINT_KERNELS = {"quickstart": ("pairwise_sq_dist", "pair_join")}
 
 
+def load_twin(name: str, rel: str):
+    """An entry-point twin under examples/ or scripts/, loaded by path."""
+    spec = importlib.util.spec_from_file_location(f"entry_{name}", os.path.join(ROOT, rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def twin_main(torch, mod, argv: list, rel: str) -> tuple:
+    """``mod.main(argv)`` in-process, its stdout captured and its ``run``
+    (where it has one) wrapped to keep each result: (results, printed
+    lines, seconds, launches by kernel, counts set to 0 before it);
+    checks its rc."""
+    from repro_torch.kernels import counts
+
+    results, real = [], getattr(mod, "run", None)
+    if real is not None:
+        def keep(*args, **kw):
+            results.append(real(*args, **kw))
+            return results[-1]
+
+        mod.run = keep
+    out = io.StringIO()
+    counts.reset()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = mod.main(argv)
+        torch.cuda.synchronize()
+    except BaseException:
+        print(out.getvalue(), file=sys.stderr, flush=True)
+        raise
+    finally:
+        if real is not None:
+            mod.run = real
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        print(out.getvalue(), file=sys.stderr, flush=True)
+    check(rc == 0, f"{rel} returned {rc}")
+    return results, out.getvalue().splitlines(), seconds, dict(counts.LAUNCHES)
+
+
 def entry_points_phase(torch, dev) -> None:
     """Each entry-point twin's ``main`` on the card, in-process: its rc,
     seconds, last printed line and launches by kernel."""
-    from repro_torch.kernels import counts
-
     for name, rel in ENTRY_POINTS:
-        spec = importlib.util.spec_from_file_location(f"entry_{name}", os.path.join(ROOT, rel))
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        out = io.StringIO()
-        counts.reset()
-        t0 = time.perf_counter()
-        try:
-            with contextlib.redirect_stdout(out):
-                rc = mod.main(["--device", str(dev)])
-            torch.cuda.synchronize()
-        except BaseException:
-            print(out.getvalue(), file=sys.stderr, flush=True)
-            raise
-        seconds = time.perf_counter() - t0
-        launches = dict(counts.LAUNCHES)
-        lines = out.getvalue().splitlines()
-        emit({"phase": "entry_points", "entry": name, "script": rel, "rc": rc,
+        _, lines, seconds, launches = twin_main(torch, load_twin(name, rel),
+                                                ["--device", str(dev)], rel)
+        emit({"phase": "entry_points", "entry": name, "script": rel, "rc": 0,
               "seconds": seconds, "last_line": lines[-1] if lines else "",
               "launches": launches})
-        if rc != 0:
-            print(out.getvalue(), file=sys.stderr, flush=True)
-        check(rc == 0, f"{rel} returned {rc}")
         for kernel in ENTRY_POINT_KERNELS.get(name, ()):
             check(launches[kernel] > 0, f"{rel} launched no {kernel}")
+
+
+LM_EXAMPLES = (("knn_serving", "examples/torch_knn_serving.py"),
+               ("long_context", "examples/torch_long_context.py"),
+               ("train_lm", "examples/torch_train_lm.py"))
+# what the knn twin's streaming datastore launches, as a CPU dry count of
+# its dispatches predicts it: the delta scan's pairwise and topk and the
+# merges' topk (its pmtree segment is host work)
+LM_EXAMPLE_KERNELS = {"knn_serving": ("pairwise_sq_dist", "topk_smallest")}
+LM_EXAMPLES_CKPT = os.path.join("build", "train_lm")
+LM_EXAMPLES_TRAIN = (300, 8, 256)  # torch_train_lm's defaults: steps, batch, seq_len
+LM_EXAMPLES_LSH = dict(lsh_attention=True, lsh_topk=256, lsh_m=16)  # long_context's
+
+
+def _quiet(fn, *args, **kw):
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kw)
+
+
+def _within_largest(got: np.ndarray, want: np.ndarray, tol: float) -> tuple[float, float]:
+    """The largest |got − want| and the bound ``tol`` × the largest |want|."""
+    return float(np.abs(got - want).max()), tol * float(np.abs(want).max())
+
+
+def lm_examples_phase(torch, dev, seed: int) -> None:
+    """The LM examples' twins on the card: (a) each ``main`` at its own
+    sizes (train_lm at its full defaults); (b) the smoke config in
+    float32 on the card against the CPU port; (c) yi-6b at its full
+    width through the knn and long_context twins' ``run``."""
+    import copy
+    import shutil
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch import checkpoint as ckpt
+    from repro_torch.models import transformer as tt
+
+    t_phase = time.perf_counter()
+    twins = {name: load_twin(name, rel) for name, rel in LM_EXAMPLES}
+    rels = dict(LM_EXAMPLES)
+    argv = ["--device", str(dev)]
+
+    def line(name, lines, seconds, launches, **extra):
+        emit({"phase": "lm_examples", "part": "own_sizes", "entry": name,
+              "script": rels[name], "rc": 0, "seconds": seconds,
+              "last_line": lines[-1] if lines else "", "launches": launches, **extra})
+
+    # -- (a) each twin's main at its own sizes ---------------------------------
+    (knn,), lines, secs, launches = twin_main(torch, twins["knn_serving"], argv,
+                                              rels["knn_serving"])
+    evicted_back = sorted(set(knn["ids_after"].tolist()) & set(knn["evicted"].tolist()))
+    line("knn_serving", lines, secs, launches, ids=knn["ids"].tolist(), row=knn["row"],
+         distances=knn["distances"].tolist(), n=knn["n"], evicted_back=evicted_back)
+    check(len(lines) == 4 and knn["ids"][0] == knn["row"] and knn["tokens"][0] == knn["payload"],
+          f"lm_examples (a): knn's own key {knn['row']} is not first with its payload: "
+          f"{knn['ids'].tolist()}")
+    check(knn["n"] == 2504, f"lm_examples (a): the knn datastore grew to {knn['n']}, not 2504")
+    check(not evicted_back, f"lm_examples (a): evicted ids {evicted_back} came back")
+    for kernel in LM_EXAMPLE_KERNELS["knn_serving"]:
+        check(launches[kernel] > 0, f"lm_examples (a): knn_serving launched no {kernel}")
+
+    (dense, lsh), lines, secs, launches = twin_main(torch, twins["long_context"], argv,
+                                                    rels["long_context"])
+    line("long_context", lines, secs, launches,
+         ms_per_token={"dense": dense["ms_per_token"], "lsh": lsh["ms_per_token"]},
+         ms_median={"dense": dense["ms_median"], "lsh": lsh["ms_median"]},
+         tokens={"dense": dense["tokens"].tolist(), "lsh": lsh["tokens"].tolist()})
+    check(len(lines) == 3, f"lm_examples (a): long_context printed {lines}")
+    del dense, lsh
+
+    steps, B, S = LM_EXAMPLES_TRAIN
+    root = os.path.join(ROOT, LM_EXAMPLES_CKPT)
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        (tr,), lines, secs, launches = twin_main(
+            torch, twins["train_lm"], argv + ["--steps", str(steps), "--batch", str(B),
+                                              "--seq-len", str(S), "--ckpt-dir", root],
+            rels["train_lm"])
+        latest = ckpt.latest_step(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    cfg = twins["train_lm"].yi_100m()
+    losses, step_ms, restarts = tr["losses"], tr["step_ms"], tr["restarts"]
+    n_params = sum(p.numel() for p in tr["params"].parameters())
+    bounds = _train_bounds(cfg, tr["params"], tr["opt"], B, S)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_med = statistics.median(step_ms[1:])
+    line("train_lm", lines, secs, launches, header=lines[0], params=n_params,
+         param_count=cfg.param_count(), steps=len(losses), batch=B, seq_len=S,
+         first_loss=losses[0], last_loss=losses[-1], latest_step=latest, restarts=restarts,
+         step_ms_median=step_med, step_ms_first=step_ms[0],
+         tokens_per_s=B * S / step_med * 1e3, bound_ms=bounds["step_ms"],
+         bound_by=bounds["bound_by"], bound_parts_ms=bounds["parts_ms"],
+         port_work_ms=bounds["port_ms"], step_ms_over_bound=step_med / bounds["step_ms"],
+         tokens_per_s_bound=B * S / bounds["step_ms"] * 1e3)
+    check(lines[0] == f"training yi-100m: 125M params, {steps} steps, batch {B} × seq {S}",
+          f"lm_examples (a): train_lm's header reads {lines[0]!r}")
+    check(len(losses) == steps and np.isfinite(losses).all(),
+          f"lm_examples (a): train_lm took {len(losses)} steps, finite: "
+          f"{bool(np.isfinite(losses).all())}")
+    check(losses[-1] < losses[0], f"lm_examples (a): train_lm's last loss {losses[-1]} is not "
+                                  f"below its first {losses[0]}")
+    check(latest == steps, f"lm_examples (a): the latest committed step is {latest}, not {steps}")
+
+    # -- (b) the smoke config in float32: the card against the CPU port -------
+    smoke = get_smoke_config("yi_6b").replace(dtype=torch.float32)
+    vs_cpu = {}
+    for label, over in (("dense attention", dict(lsh_attention=False)),
+                        ("PM-LSH retrieval attn", LM_EXAMPLES_LSH)):
+        scfg = smoke.replace(**over)
+        on_card = tt.init_params(scfg, seed, device=dev)
+        on_cpu = copy.deepcopy(on_card).to("cpu")
+        got, want = (_quiet(twins["long_context"].run, scfg, label, device=where, params=params)
+                     for where, params in ((dev, on_card), ("cpu", on_cpu)))
+        errs = {step: _within_largest(got[step].cpu().numpy(), want[step].numpy(), LM_SMOKE_TOL)
+                for step in ("first", "last")}
+        vs_cpu[label] = {"tokens_identical": bool(np.array_equal(got["tokens"], want["tokens"])),
+                         "max_abs_err": {k: e for k, (e, _) in errs.items()},
+                         "bound": {k: b for k, (_, b) in errs.items()}}
+        check(vs_cpu[label]["tokens_identical"],
+              f"lm_examples (b): {label} tokens on the card {got['tokens'].tolist()}, on the "
+              f"CPU {want['tokens'].tolist()}")
+        for step, (err, bound_) in errs.items():
+            check(err <= bound_, f"lm_examples (b): {label} {step} logits differ by {err} > "
+                                 f"{bound_}")
+        if not scfg.lsh_attention:  # the knn twin's dense model
+            kg = _quiet(twins["knn_serving"].run, dev, cfg=scfg, params=on_card)
+            kc = _quiet(twins["knn_serving"].run, "cpu", cfg=scfg, params=on_cpu)
+            err, bound_ = _within_largest(kg["distances"], kc["distances"], LM_SMOKE_TOL)
+            same = (np.array_equal(kg["ids"], kc["ids"])
+                    and np.array_equal(kg["ids_after"], kc["ids_after"]))
+            vs_cpu["knn"] = {"ids_identical": same, "max_abs_err": err, "bound": bound_}
+            check(same, f"lm_examples (b): knn ids on the card {kg['ids'].tolist()} / "
+                        f"{kg['ids_after'].tolist()}, on the CPU {kc['ids'].tolist()} / "
+                        f"{kc['ids_after'].tolist()}")
+            check(err <= bound_, f"lm_examples (b): knn distances differ by {err} > {bound_}")
+        del on_card, on_cpu, got, want
+    emit({"phase": "lm_examples", "part": "card_vs_cpu", "arch": smoke.name, "dtype": "float32",
+          "tol": LM_SMOKE_TOL, "runs": vs_cpu})
+
+    # -- (c) yi-6b at its full width, one parameter set on the card at a time --
+    full = get_config(LM_ARCH)
+    Vp, d = full.padded_vocab(), full.d_model
+    check((full.n_layers, d, full.n_heads, full.n_kv_heads, full.head_dim, full.d_ff,
+           full.vocab_size) == (32, 4096, 32, 4, 128, 11008, 64000)
+          and full.dtype == torch.bfloat16, f"lm_examples (c): {full.name} is not yi-6b")
+    torch.cuda.reset_peak_memory_stats()
+    wide = {}
+    for label, over in (("dense attention", dict(lsh_attention=False)),
+                        ("PM-LSH retrieval attn", LM_EXAMPLES_LSH)):
+        cfg_c = full.replace(**over)
+        t0 = time.perf_counter()
+        params = tt.init_params(cfg_c, seed, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        param_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+        weight_bytes = param_bytes - Vp * d * 2 + d * 2  # the embedding: one row a token
+        row = {"init_s": init_s, "param_bytes": param_bytes,
+               "bound_ms": weight_bytes / PEAK_BYTES_PER_S * 1e3}
+        if not cfg_c.lsh_attention:
+            t0 = time.perf_counter()
+            kf = _quiet(twins["knn_serving"].run, dev, cfg=cfg_c, params=params)
+            row["knn"] = {"seconds": time.perf_counter() - t0, "keys": 2016, "n": kf["n"],
+                          "ids": kf["ids"].tolist(), "own_distance": float(kf["distances"][0]),
+                          "evicted_back": sorted(set(kf["ids_after"].tolist())
+                                                 & set(kf["evicted"].tolist()))}
+            check(kf["ids"][0] == kf["row"] and kf["tokens"][0] == kf["payload"]
+                  and kf["n"] == 2504 and not row["knn"]["evicted_back"],
+                  f"lm_examples (c): knn at d = {d}: {row['knn']}")
+        t0 = time.perf_counter()
+        out = _quiet(twins["long_context"].run, cfg_c, label, device=dev, params=params)
+        row.update(seconds=time.perf_counter() - t0, line=out["line"],
+                   ms_per_token=out["ms_per_token"], ms_median=out["ms_median"],
+                   step_ms=out["step_ms"], tokens=out["tokens"].tolist())
+        row["ms_over_bound"] = out["ms_median"] / row["bound_ms"]
+        wide[label] = (row, out["first"], out["last"])
+        del params, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    (d_row, d_first, d_last), (l_row, l_first, l_last) = wide.values()
+    corr_first, rel_first = _corr(torch, l_first, d_first), _rel_err(torch, l_first, d_first)
+    emit({"phase": "lm_examples", "part": "full_width", "arch": full.name, "layers": full.n_layers,
+          "d_model": d, "dtype": "bfloat16", "ctx_len": 8192, "prefill_len": 64,
+          "dense": d_row, "lsh": {**l_row, **LM_EXAMPLES_LSH},
+          "first_step": {"corr": corr_first, "rel_l2": rel_first,
+                         "tol_corr": LM_CONSISTENCY_CORR, "tol_rel": LM_CONSISTENCY_REL},
+          "last_step_corr": _corr(torch, l_last, d_last),
+          "peak_bytes": torch.cuda.max_memory_allocated()})
+    check(corr_first >= LM_CONSISTENCY_CORR and rel_first <= LM_CONSISTENCY_REL,
+          f"lm_examples (c): the first decode step's logits, dense against LSH: corr "
+          f"{corr_first}, relative L2 {rel_first}")
+    emit({"phase": "lm_examples", "seconds": time.perf_counter() - t_phase})
 
 
 def index_phases(torch, dev, seed: int) -> None:
@@ -4835,6 +5082,11 @@ def main(argv=None) -> int:
     # -- the entry points' twins on the index side ---------------------------
     entry_points_phase(torch, dev)
     # the LM starts on a card holding nothing but the kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the LM examples' twins: own sizes, against the CPU, yi-6b's width -----
+    lm_examples_phase(torch, dev, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
 

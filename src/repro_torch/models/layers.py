@@ -289,7 +289,22 @@ def split_cache_attention(
 # ---------------------------------------------------------------------------
 
 
-def init_attention(gen, cfg, dtype=None, *, device: torch.device) -> Params:
+#: where ``lsh_generator``'s seeds start: far from any seed a caller passes
+LSH_SEED_OFFSET = 1 << 40
+
+
+def lsh_generator(seed: int, device: torch.device) -> torch.Generator | None:
+    """The stream the PM-LSH projections ``lsh_a`` are drawn from, apart
+    from the weights' (the reference folds 7 into each layer's key), so
+    that one seed draws the same weights with PM-LSH attention on and
+    off; ``None`` on the meta device."""
+    if device.type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed + LSH_SEED_OFFSET)
+
+
+def init_attention(gen, cfg, dtype=None, *, device: torch.device,
+                   lsh_gen: torch.Generator | None) -> Params:
     dtype = dtype or cfg.dtype
     d, hd = cfg.d_model, cfg.head_dim
     p = Params(
@@ -301,7 +316,7 @@ def init_attention(gen, cfg, dtype=None, *, device: torch.device) -> Params:
     if cfg.lsh_attention:
         # PM-LSH projection matrix for retrieval attention (fixed, not
         # trained — the paper's 2-stable family; one per layer)
-        p["lsh_a"] = normal(gen, (hd, cfg.lsh_m), device).to(dtype)
+        p["lsh_a"] = normal(lsh_gen, (hd, cfg.lsh_m), device).to(dtype)
     return p
 
 

@@ -67,7 +67,7 @@ def layer_kinds(cfg) -> tuple[str, ...]:
 # ---------------------------------------------------------------------------
 
 
-def _init_block(kind: str, gen, cfg, device: torch.device) -> L.Params:
+def _init_block(kind: str, gen, cfg, device: torch.device, lsh_gen) -> L.Params:
     def ln():
         return torch.ones((cfg.d_model,), dtype=torch.float32, device=device)
 
@@ -75,13 +75,13 @@ def _init_block(kind: str, gen, cfg, device: torch.device) -> L.Params:
         return L.init_swiglu(gen, cfg.d_model, cfg.d_ff, cfg.dtype, device=device)
 
     if kind in ("attn", "local"):
-        return L.Params(ln1=ln(), attn=L.init_attention(gen, cfg, device=device),
+        return L.Params(ln1=ln(), attn=L.init_attention(gen, cfg, device=device, lsh_gen=lsh_gen),
                         ln2=ln(), mlp=mlp())
     if kind == "moe":
-        return L.Params(ln1=ln(), attn=L.init_attention(gen, cfg, device=device),
+        return L.Params(ln1=ln(), attn=L.init_attention(gen, cfg, device=device, lsh_gen=lsh_gen),
                         ln2=ln(), moe=init_moe(gen, cfg, device=device))
     if kind == "cross":
-        return L.Params(ln1=ln(), attn=L.init_attention(gen, cfg, device=device),
+        return L.Params(ln1=ln(), attn=L.init_attention(gen, cfg, device=device, lsh_gen=lsh_gen),
                         lnx=ln(), xattn=L.init_cross_attention(gen, cfg, device=device),
                         ln2=ln(), mlp=mlp())
     if kind == "rec":
@@ -132,7 +132,8 @@ def init_params(cfg, seed: int = 0, *, device: str | torch.device = "cuda") -> D
     gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     kinds = layer_kinds(cfg)
     Vp, d = cfg.padded_vocab(), cfg.d_model
-    blocks = [_init_block(kind, gen, cfg, dev) for kind in kinds]
+    lsh_gen = L.lsh_generator(seed, dev)
+    blocks = [_init_block(kind, gen, cfg, dev, lsh_gen) for kind in kinds]
     embed = (L.normal(gen, (Vp, d), dev) * 0.02).to(cfg.dtype)
     lm_head = None if cfg.tie_embeddings else L.dense_init(gen, d, Vp, cfg.dtype, device=dev)
     return DecoderLM(cfg, blocks, embed, torch.ones((d,), dtype=torch.float32, device=dev),

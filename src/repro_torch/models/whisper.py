@@ -25,19 +25,20 @@ from ..device import resolve_device
 from . import layers as L
 
 
-def _init_enc_layer(gen, cfg, device) -> L.Params:
+def _init_enc_layer(gen, cfg, device, lsh_gen) -> L.Params:
     def ln():
         return torch.ones((cfg.d_model,), dtype=torch.float32, device=device)
 
-    return L.Params(ln1=ln(), attn=L.init_attention(gen, cfg, device=device), ln2=ln(),
+    return L.Params(ln1=ln(), attn=L.init_attention(gen, cfg, device=device, lsh_gen=lsh_gen),
+                    ln2=ln(),
                     mlp=L.init_gelu_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype, device=device))
 
 
-def _init_dec_layer(gen, cfg, device) -> L.Params:
+def _init_dec_layer(gen, cfg, device, lsh_gen) -> L.Params:
     def ln():
         return torch.ones((cfg.d_model,), dtype=torch.float32, device=device)
 
-    return L.Params(ln1=ln(), attn=L.init_attention(gen, cfg, device=device),
+    return L.Params(ln1=ln(), attn=L.init_attention(gen, cfg, device=device, lsh_gen=lsh_gen),
                     lnx=ln(), xattn=L.init_cross_attention(gen, cfg, device=device),
                     ln2=ln(),
                     mlp=L.init_gelu_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype, device=device))
@@ -73,8 +74,9 @@ def init_params(cfg, seed: int = 0, *, device: str | torch.device = "cuda") -> E
     dev = resolve_device(device, meta=True)
     gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     Vp, d = cfg.padded_vocab(), cfg.d_model
-    enc = [_init_enc_layer(gen, cfg, dev) for _ in range(cfg.encoder_layers)]
-    dec = [_init_dec_layer(gen, cfg, dev) for _ in range(cfg.n_layers)]
+    lsh_gen = L.lsh_generator(seed, dev)
+    enc = [_init_enc_layer(gen, cfg, dev, lsh_gen) for _ in range(cfg.encoder_layers)]
+    dec = [_init_dec_layer(gen, cfg, dev, lsh_gen) for _ in range(cfg.n_layers)]
     embed = (L.normal(gen, (Vp, d), dev) * 0.02).to(cfg.dtype)
 
     def ones():

@@ -19,7 +19,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py"))
 TWINS = ["examples/torch_quickstart.py", "scripts/torch_check_api.py",
-         "scripts/torch_chaos_drill.py"]
+         "scripts/torch_chaos_drill.py", "examples/torch_knn_serving.py",
+         "examples/torch_long_context.py", "examples/torch_train_lm.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
 
 
