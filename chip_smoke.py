@@ -1399,9 +1399,9 @@ def stream_phase(torch, dev, data, queries, seed: int, *, rounds: int = STREAM_R
     B = max(batches)
     with trace.trace() as tr:
         index.search(qB[B], K)
-    root = tr.spans[0]
+    root, *rest = trace.reference_view(tr)
     spans = []
-    for sp in tr.spans[1:]:
+    for sp in rest:
         row = {"name": sp.name, "parent": sp.parent, "ms": sp.duration_s * 1e3,
                **{k: v for k, v in sp.attrs.items() if k in ("size", "dead", "bytes", "flops")}}
         if sp.name.startswith("kernel."):  # on the card's roofline, as obs_trace holds them
@@ -2001,7 +2001,8 @@ def obs_trace_phase(torch, dev, runs: dict, kernels_line: list) -> dict:
         torch.cuda.synchronize()
         with trace.trace() as tr:
             call()
-        tree = [(s.name, s.parent) for s in tr.spans]
+        ref = trace.reference_view(tr)  # the port-only spans left out
+        tree = [(s.name, s.parent) for s in ref]
         check(tree == EXPECTED_SPAN_TREES[name],
               f"obs_trace {name}: span tree {tree} differs from the expected one")
         chrome = export.to_chrome_trace(tr, peaks=peaks)
@@ -2031,7 +2032,7 @@ def obs_trace_phase(torch, dev, runs: dict, kernels_line: list) -> dict:
                   f"obs_trace {name}: {s.name} span {row['wall_ms']} ms under 0.9 × "
                   f"its kernel's {line} device ms")
         summary = export.stage_summary(tr, peaks=peaks)
-        emit({"phase": "obs_trace", "path": name, "root_ms": tr.spans[0].duration_s * 1e3,
+        emit({"phase": "obs_trace", "path": name, "root_ms": ref[0].duration_s * 1e3,
               "coverage": export.coverage(tr), "kernel_spans": spans,
               "stages": {k: {f: v[f] for f in ("count", "total_us", "fraction_of_peak")
                              if f in v} for k, v in summary["stages"].items()},

@@ -14,7 +14,8 @@
 Traced, the stages open the reference's spans: ``cp.query`` over
 ``cp.project``, ``cp.sort``, ``cp.join`` (the ``kernel.pair_join`` span
 inside) and ``cp.reverify``, each synchronized before it closes (only
-while tracing: untraced, the path makes one host read, the answer's).
+while tracing: untraced, the path makes one host read, the answer's, in
+the port-only ``sync.cp_answer`` span).
 
 Every reported distance is an exact float32 distance; a true top-k pair
 is missed only when its 1-D key gap exceeds γ·t·ub, with per-pair
@@ -132,9 +133,11 @@ def cp_fused_search(
             diff = data[pairs[:, 0]] - data[pairs[:, 1]]
             dists = torch.where(real, torch.sqrt((diff * diff).sum(1)), float("nan"))
             resort = torch.sort(dists, stable=True).indices
-            host = torch.cat([pairs[resort].to(torch.int64).reshape(-1),
-                              dists[resort].view(torch.int32).to(torch.int64),
-                              stats, real.sum().reshape(1)]).cpu().numpy()
+            packed = torch.cat([pairs[resort].to(torch.int64).reshape(-1),
+                                dists[resort].view(torch.int32).to(torch.int64),
+                                stats, real.sum().reshape(1)])
+            with otrace.span("sync.cp_answer"):
+                host = packed.cpu().numpy()
     m = int(host[-1])
     pairs_h = host[:2 * kk].reshape(kk, 2)[:m].astype(np.int32)
     dists_h = host[2 * kk:3 * kk].astype(np.int32).view(np.float32)[:m]

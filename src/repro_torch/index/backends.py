@@ -72,6 +72,13 @@ def _ctor_kwargs(cls, config: IndexConfig, **common) -> dict:
     return {k: v for k, v in kw.items() if k in params}
 
 
+def _to_host(span: str, t: torch.Tensor) -> np.ndarray:
+    """``t`` copied to the host, a wait on the device, in a ``sync.*``
+    span of its own."""
+    with otrace.span(span):
+        return t.cpu().numpy()
+
+
 class BaseIndex:
     """Common construction / validation shared by all adapters."""
 
@@ -102,20 +109,21 @@ class BaseIndex:
             raise NotImplementedError(
                 f"backend {self.backend_name!r} does not support ANN search"
             )
-        q = np.atleast_2d(np.asarray(queries, dtype=np.float32))
-        if q.shape[-1] != self.d:
-            raise ValueError(f"queries have d={q.shape[-1]}, index d={self.d}")
-        k = int(k if k is not None else self.config.default_k)
-        if k < 1:
-            raise ValueError(f"k must be >= 1, got {k}")
-        # non-finite query rows would poison any distance pipeline:
-        # substitute a benign zero row for the backend, then mask those
-        # rows to the sentinel answer (-1 / +inf) and count them in
-        # WorkStats.queries_rejected
-        bad_rows = ~np.isfinite(q).all(axis=1)
-        n_bad = int(bad_rows.sum())
-        if n_bad:
-            q = np.where(bad_rows[:, None], np.float32(0.0), q)
+        with otrace.span("index.validate"):
+            q = np.atleast_2d(np.asarray(queries, dtype=np.float32))
+            if q.shape[-1] != self.d:
+                raise ValueError(f"queries have d={q.shape[-1]}, index d={self.d}")
+            k = int(k if k is not None else self.config.default_k)
+            if k < 1:
+                raise ValueError(f"k must be >= 1, got {k}")
+            # non-finite query rows would poison any distance pipeline:
+            # substitute a benign zero row for the backend, then mask those
+            # rows to the sentinel answer (-1 / +inf) and count them in
+            # WorkStats.queries_rejected
+            bad_rows = ~np.isfinite(q).all(axis=1)
+            n_bad = int(bad_rows.sum())
+            if n_bad:
+                q = np.where(bad_rows[:, None], np.float32(0.0), q)
         with otrace.span("index.search", backend=self.backend_name,
                          B=int(q.shape[0]), k=k) as sp:
             res = self._search(q, min(k, self.n))
@@ -366,9 +374,10 @@ class FlatBackend(BaseIndex):
         # verify kernel's answer width also caps k
         fused = (self.fused if self.fused is not None
                  else self.n >= 8192) and k <= 128
-        qt = torch.from_numpy(q).to(self.device)
+        with otrace.span("sync.upload"):  # pageable: the copy waits for the stream
+            qt = torch.from_numpy(q).to(self.device)
         if self.codec is None:
-            if otrace.enabled() and not fused:
+            if not fused:
                 # the reference runs this pipeline as one jit call: one
                 # span bounds it, with nothing recorded inside
                 with otrace.span("ann.query", B=B, n=self.n, k=k, T=T, fused=False):
@@ -382,10 +391,10 @@ class FlatBackend(BaseIndex):
             # canonical answer floats; the pipeline's d² only ranked candidates
             dd = answer_distances(self.impl.data, ids, qt)
             return SearchResult(
-                ids.cpu().numpy(), dd.cpu().numpy(),
+                _to_host("sync.ids", ids), _to_host("sync.distances", dd),
                 stats=WorkStats(rounds=B, candidates_verified=B * T,
                                 candidates_selected=self._record_select(
-                                    cnt.cpu().numpy(), T)),
+                                    _to_host("sync.counts", cnt), T)),
             )
         rerank = (self.rerank if self.rerank is not None
                   else max(4 * k, T // 3, 64))
@@ -395,11 +404,12 @@ class FlatBackend(BaseIndex):
             store_raw=self.store_raw, force=self.force, fused=fused,
             with_count=True)
         return SearchResult(
-            ids.cpu().numpy(), dd.cpu().numpy(),
+            _to_host("sync.ids", ids), _to_host("sync.distances", dd),
             stats=WorkStats(
                 rounds=B,
                 candidates_verified=B * R if self.store_raw else 0,
-                candidates_selected=self._record_select(cnt.cpu().numpy(), T),
+                candidates_selected=self._record_select(
+                    _to_host("sync.counts", cnt), T),
                 point_distance_computations=B * T,  # the ADC rerank tier
             ),
         )

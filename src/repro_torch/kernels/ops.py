@@ -15,9 +15,13 @@ Where the card's kernel does less work than the a-priori model counts,
 its span is refined from what the call did, as the reference refines
 pair_join's from its ``tiles_pruned``: radius_select from its kernel's
 4 reads of d, verify_topk from the rows its distance pass read.
-Disabled cost is one boolean check per call and no host sync.  verify's topk launch (from C)
-and radius_select's trim and overflow sorts run inside their caller's
-span and open none of their own, as in the reference.
+Disabled cost is one boolean check and one profiler check per call and
+no host sync.  With tracing off under a ``torch.profiler`` the span is a
+profiler range of the same name, with no model and no sync.  verify's topk launch
+(from C) and radius_select's trim and overflow sorts run inside their
+caller's span and open none of their own, as in the reference; the
+select's overflow check, its one host read, runs in a port-only
+``sync.select_overflow`` span.
 """
 from __future__ import annotations
 
@@ -68,7 +72,8 @@ def _instrumented(name: str, cost_of):
         @functools.wraps(fn)
         def wrapper(*args, **kw):
             if not _otrace.enabled():
-                return fn(*args, **kw)
+                with _otrace.span(name):  # a profiler range where one runs
+                    return fn(*args, **kw)
             _otrace.block(args, tuple(kw.values()))
             with _otrace.get_tracer().span(name, **cost_of(*args, **kw).attrs()):
                 out = fn(*args, **kw)
@@ -231,7 +236,9 @@ def radius_select(d: torch.Tensor, T: int, *, tau0: torch.Tensor | None = None,
                 passes=SELECT_KERNEL_PASSES)
         # an overflowed buffer dropped survivors in index order, possibly
         # true top-T members: answer with the exact sort instead
-        if bool((cnt > T_pad).any()):
+        with _otrace.span("sync.select_overflow"):
+            overflow = bool((cnt > T_pad).any())
+        if overflow:
             counts.route("radius_select.overflow")
             vals, idx, cnt = _sort()
         else:

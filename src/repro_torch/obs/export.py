@@ -23,7 +23,7 @@ import math
 from typing import Iterable, Sequence
 
 from . import roofline
-from .trace import Span, Trace
+from .trace import Span, Trace, reference_view
 
 __all__ = ["to_chrome_trace", "save_chrome_trace", "validate_chrome_trace",
            "stage_summary", "coverage"]
@@ -131,8 +131,10 @@ def coverage(spans) -> float:
     the "did the spans account for the measured time" check (the
     acceptance bar is ≥0.95 on the traced pipelines).  A leaf root is
     its own measurement and counts as fully covered; returns 1.0 for
-    an empty trace."""
-    spans = _spans_of(spans)
+    an empty trace.  Over the reference's tree (:func:`reference_view`):
+    a port-only root such as ``index.validate`` counts for nothing, and
+    a ``serve.flush`` is a root of its own, not inside its submit."""
+    spans = reference_view(_spans_of(spans))
     root_total = child_total = 0.0
     by_parent: dict[int, float] = {}
     for i, s in enumerate(spans):
@@ -156,7 +158,8 @@ def stage_summary(spans, *, peaks: roofline.DevicePeaks | None = None) -> dict:
     when the stage's spans carry roofline models — summed bytes/FLOPs,
     model arithmetic intensity, achieved GB/s / GFLOP/s over the
     stage's total time and the bound classification.  The envelope
-    records total root wall time, span count, and :func:`coverage`.
+    records total root wall time and :func:`coverage`, both over the
+    reference's tree (:func:`reference_view`), and the span count.
     """
     spans = _spans_of(spans)
     stages: dict[str, dict] = {}
@@ -176,7 +179,7 @@ def stage_summary(spans, *, peaks: roofline.DevicePeaks | None = None) -> dict:
             st.update(roofline.achieved(cost, st["total_us"] / 1e6, peaks))
         else:  # non-kernel stage: no model to place on the roofline
             st.pop("bytes"), st.pop("flops")
-    wall_us = sum(s.duration_us for s in spans if s.parent == -1)
+    wall_us = sum(s.duration_us for s in reference_view(spans) if s.parent == -1)
     return {
         "wall_us": round(wall_us, 1),
         "n_spans": len(spans),

@@ -244,71 +244,72 @@ class RequestScheduler:
         Malformed queries (NaN/Inf, wrong shape, unconvertible dtype)
         raise :class:`RejectedQuery` BEFORE entering any batch — one
         poison row must not spoil B_pad-1 neighbors."""
-        now = self.clock()
-        q = self._validate_query(query)
-        k = int(k if k is not None else self.step.k)
-        if k < 1:
-            raise ValueError(f"k must be >= 1, got {k}")
-        self.metrics.on_submit()
-        rid = self._next_id
-        self._next_id += 1
+        with otrace.span("serve.submit"):  # a full bucket's flush nests
+            now = self.clock()
+            q = self._validate_query(query)
+            k = int(k if k is not None else self.step.k)
+            if k < 1:
+                raise ValueError(f"k must be >= 1, got {k}")
+            self.metrics.on_submit()
+            rid = self._next_id
+            self._next_id += 1
 
-        cache_key = None
-        hit = None
-        if self.cache is not None:
-            # key() degrades to exact-bytes keying when no codec could
-            # be trained/adopted — never train on the queries themselves
-            # (a single-query grid collapses and distant queries collide)
-            try:
-                chaos.hit("serve.cache")
-                cache_key = self.cache.key(q, k)
-                hit = self.cache.get(cache_key,
-                                     version=getattr(self.step, "version", 0))
-            except ChaosError:
-                # a failing cache is never fatal: serve the full path
-                cache_key, hit = None, None
-                self.metrics.on_cache_error()
-            if hit is not None:
-                resp = self._respond(rid, hit, self.step, cached=True,
-                                     latency_s=self.clock() - now)
-                self.metrics.on_cache_hit(resp.latency_s)
+            cache_key = None
+            hit = None
+            if self.cache is not None:
+                # key() degrades to exact-bytes keying when no codec could
+                # be trained/adopted — never train on the queries themselves
+                # (a single-query grid collapses and distant queries collide)
+                try:
+                    chaos.hit("serve.cache")
+                    cache_key = self.cache.key(q, k)
+                    hit = self.cache.get(cache_key,
+                                         version=getattr(self.step, "version", 0))
+                except ChaosError:
+                    # a failing cache is never fatal: serve the full path
+                    cache_key, hit = None, None
+                    self.metrics.on_cache_error()
+                if hit is not None:
+                    resp = self._respond(rid, hit, self.step, cached=True,
+                                         latency_s=self.clock() - now)
+                    self.metrics.on_cache_hit(resp.latency_s)
+                    return Ticket(self, rid, resp)
+                if cache_key is not None:  # real probe, not an injected error
+                    self.metrics.on_cache_miss()
+
+            action = self.admission.decide(len(self._pending))
+            if action == SHED:
+                self.metrics.on_shed()
+                resp = Response(rid, "shed", latency_s=self.clock() - now)
                 return Ticket(self, rid, resp)
-            if cache_key is not None:  # real probe, not an injected error
-                self.metrics.on_cache_miss()
 
-        action = self.admission.decide(len(self._pending))
-        if action == SHED:
-            self.metrics.on_shed()
-            resp = Response(rid, "shed", latency_s=self.clock() - now)
-            return Ticket(self, rid, resp)
+            tier, k_serve, degraded = "primary", k, False
+            if action == DEGRADE:
+                degraded = True
+                if self.degraded_step is not None:
+                    tier = "degraded"
+                else:  # no cheaper tier wired: lower the T = βn + k budget
+                    k_serve = max(1, min(k, self.config.degrade_k
+                                         or max(1, k // 2)))
 
-        tier, k_serve, degraded = "primary", k, False
-        if action == DEGRADE:
-            degraded = True
-            if self.degraded_step is not None:
-                tier = "degraded"
-            else:  # no cheaper tier wired: lower the T = βn + k budget
-                k_serve = max(1, min(k, self.config.degrade_k
-                                     or max(1, k // 2)))
-
-        deadline = now + (deadline_ms if deadline_ms is not None
-                          else self.config.default_deadline_ms) / 1e3
-        k_pad = self.palette.k_pad(k_serve)
-        bkey = (k_pad, tier)
-        bucket = self._buckets.get(bkey)
-        if bucket is None:
-            bucket = self._buckets[bkey] = Bucket(k_pad, tier)
-        bucket.add(PendingRequest(
-            rid, q, k_serve, k, deadline, now,
-            cache_key=None if degraded else cache_key, degraded=degraded))
-        self._pending[rid] = bkey
-        # the ticket must exist (and be registered) before a full-bucket
-        # flush runs, or its response would be delivered to nobody
-        ticket = Ticket(self, rid)
-        self._tickets[rid] = weakref.ref(ticket)
-        if len(bucket) >= self.config.b_max:
-            self._flush(bkey, reason="full")
-        return ticket
+            deadline = now + (deadline_ms if deadline_ms is not None
+                              else self.config.default_deadline_ms) / 1e3
+            k_pad = self.palette.k_pad(k_serve)
+            bkey = (k_pad, tier)
+            bucket = self._buckets.get(bkey)
+            if bucket is None:
+                bucket = self._buckets[bkey] = Bucket(k_pad, tier)
+            bucket.add(PendingRequest(
+                rid, q, k_serve, k, deadline, now,
+                cache_key=None if degraded else cache_key, degraded=degraded))
+            self._pending[rid] = bkey
+            # the ticket must exist (and be registered) before a full-bucket
+            # flush runs, or its response would be delivered to nobody
+            ticket = Ticket(self, rid)
+            self._tickets[rid] = weakref.ref(ticket)
+            if len(bucket) >= self.config.b_max:
+                self._flush(bkey, reason="full")
+            return ticket
 
     def _validate_query(self, query) -> np.ndarray:
         """Normalize one query to a finite float32 (d,) vector or raise

@@ -785,6 +785,71 @@ def test_traced_kernel_span_covers_its_kernel(cuda, op):
         assert 0 < span.attrs["rows_read"] <= 200_000
 
 
+def test_every_host_sync_of_a_search_is_in_a_sync_span(cuda, monkeypatch):
+    """With PyTorch's sync debug mode, each synchronizing call of one fused
+    search and of one cp_search falls inside a port-only ``sync.*`` span,
+    under a CPU profile, where the spans are profiler ranges (which add
+    no sync of their own): 5 a search (the
+    upload, the select's overflow read, the three copies back), 1 a
+    cp_search (its answer)."""
+    import warnings
+
+    from repro_torch.index import IndexConfig, build_index
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import trace
+
+    rng = np.random.default_rng(29)
+    data = (rng.normal(size=(20, 64)) * 4)[rng.integers(0, 20, 20_000)]
+    data = (data + rng.normal(size=(20_000, 64)) * 0.5).astype(np.float32)
+    q = (data[:16] + 0.1 * rng.normal(size=(16, 64))).astype(np.float32)
+    index = build_index(data, IndexConfig(backend="flat"), device=cuda)
+    open_ = []
+
+    fast = trace._RecordFunctionFast
+
+    class Tracked:
+        """A range that keeps the names of the ranges open."""
+
+        def __init__(self, name):
+            self._rf, self._name = fast(name), name
+
+        def __enter__(self):
+            open_.append(self._name)
+            return self._rf.__enter__()
+
+        def __exit__(self, *exc):
+            open_.pop()
+            return self._rf.__exit__(*exc)
+
+    monkeypatch.setattr(trace, "_RecordFunctionFast", Tracked)
+
+    def syncs(call):
+        """For each sync the debug mode reports, the innermost sync.* span
+        open as it was reported (None outside every one)."""
+        call()
+        torch.cuda.synchronize()
+        seen = []
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = lambda message, *a, **kw: seen.append(
+                (str(message), next((n for n in reversed(open_) if n.startswith("sync.")),
+                                    None)))
+            with profile(activities=[ProfilerActivity.CPU]):
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    call()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        # (the mode's own notice, that it is a prototype, is no sync)
+        return [span for message, span in seen if "called a synchronizing" in message]
+
+    assert syncs(lambda: index.search(q, 10)) == [
+        "sync.upload", "sync.select_overflow", "sync.ids", "sync.distances", "sync.counts"]
+    assert syncs(lambda: index.cp_search(10)) == ["sync.cp_answer"]
+
+
 def test_scheduler_on_the_card_matches_the_plain_twin(cuda):
     """A small RequestScheduler over a flat datastore on the card (fused:
     n ≥ 8192) with the kernels, beside the same traffic through a

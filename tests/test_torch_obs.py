@@ -9,10 +9,12 @@ kernels run their plain PyTorch versions and JAX its jnp oracles:
   refinement arguments the port adds default to the reference's count);
   the peaks keyed on the torch device;
 * the span trees of the fused flat, unfused flat, ``flat-pq``,
-  ``cp_search`` and streaming paths: names, nesting, every stage attr but
+  ``cp_search`` and streaming paths, the port-only spans left out
+  (``trace.reference_view``): names, nesting, every stage attr but
   the select's survivor count (the jnp oracle of radius_select thresholds
   differently, see test_torch_flat.py) and every ``kernel.*`` span's
-  bytes and FLOPs equal;
+  bytes and FLOPs equal; where the port-only spans sit, and the spans'
+  profiler ranges under torch.profiler;
 * ``chip_smoke.EXPECTED_SPAN_TREES``: the reference's trees;
 * the exporters: the same Chrome trace and stage summary for the same
   spans;
@@ -242,7 +244,7 @@ def test_span_tree_and_kernel_models_match_jax(n, quant, call):
         rj = run(ji)
     with trace.trace() as ttr:
         rt = run(ti)
-    assert _tree(ttr.spans) == _tree(jtr.spans)
+    assert _tree(trace.reference_view(ttr)) == _tree(jtr.spans)
     kernels = [s for s in ttr.spans if s.name.startswith("kernel.")]
     assert all(s.attrs["bytes"] > 0 and s.attrs["flops"] > 0 for s in kernels)
     # the unfused float pipeline is one span, as the reference's one jit call
@@ -282,14 +284,14 @@ def test_streaming_span_tree_matches_jax_with_a_fused_segment():
         rj = ji.search(q, K)
     with trace.trace() as ttr:
         rt = ti.search(q, K)
-    assert _tree(ttr.spans) == _tree(jtr.spans)
+    assert _tree(trace.reference_view(ttr)) == _tree(jtr.spans)
     assert "ann.verify" in [s.name for s in ttr.spans]
     np.testing.assert_array_equal(rt.indices, rj.indices)
     with jtrace.trace() as jtr:
         ji.cp_search(5)
     with trace.trace() as ttr:
         ti.cp_search(5)
-    assert _tree(ttr.spans) == _tree(jtr.spans)
+    assert _tree(trace.reference_view(ttr)) == _tree(jtr.spans)
 
 
 def test_chip_smoke_expected_trees_are_the_reference_trees():
@@ -324,10 +326,155 @@ def test_kernel_span_attrs_and_refinement_hooks():
             with trace.paused():
                 assert trace.current_span() is None
                 ops.topk_smallest(d2, 5)
-    assert [s.name for s in tr.spans] == ["kernel.radius_select", "outer"]
+    # the select's overflow check, its host read, in a port-only span
+    assert [(s.name, s.parent) for s in tr.spans] == [
+        ("kernel.radius_select", -1), ("sync.select_overflow", 0), ("outer", -1)]
     want = jroof.radius_select_cost(3, 500, 40 + 256).attrs()
     assert {k: tr.spans[0].attrs[k] for k in want} == want
     assert trace.current_span() is None
+
+
+# -- the port's own spans, and spans as profiler ranges ---------------------
+
+
+def _parents(spans, name):
+    return [spans[s.parent].name if s.parent >= 0 else None
+            for s in spans if s.name == name]
+
+
+def test_port_only_spans_sit_where_the_program_waits():
+    """``index.validate`` a root just before ``index.search``; the upload
+    and the three copies back under ``index.search``; the select's
+    overflow read under ``kernel.radius_select``; cp_search's one read
+    under ``cp.reverify``: 5 ``sync.*`` spans a fused search, 1 a
+    cp_search.  One ``serve.submit`` a submit, a root, the full bucket's
+    ``serve.flush`` inside the submit that filled it."""
+    from repro_torch.serve import RequestScheduler, ServeConfig
+    from repro_torch.serve.serve_step import make_retrieval_step
+
+    data, _, ti = _flat_pair(8192, False)
+    with trace.trace() as tr:
+        ti.search(_queries(data, 5, seed=21), K)
+        ti.cp_search(K)
+    spans = tr.spans
+    assert [(s.name, s.parent) for s in spans[:2]] == [("index.validate", -1),
+                                                      ("index.search", -1)]
+    for name in ("sync.upload", "sync.ids", "sync.distances", "sync.counts"):
+        assert _parents(spans, name) == ["index.search"]
+    assert _parents(spans, "sync.select_overflow") == ["kernel.radius_select"]
+    assert _parents(spans, "sync.cp_answer") == ["cp.reverify"]
+    names = [s.name for s in spans]
+    assert [n for n in names if n.startswith("sync.")] == [
+        "sync.upload", "sync.select_overflow", "sync.ids", "sync.distances", "sync.counts",
+        "sync.cp_answer"]
+    assert names.index("sync.upload") < names.index("ann.query") < names.index("sync.ids")
+
+    keys = make_clustered(512, D, seed=7)
+    step, _ = make_retrieval_step(keys, np.arange(512), k=4, device="cpu",
+                                  index_config=IndexConfig(backend="flat"))
+    sched = RequestScheduler(step, config=ServeConfig(b_max=4, default_deadline_ms=1e6))
+    with trace.trace() as tr:
+        tickets = [sched.submit(keys[i] + 0.01, k=4) for i in range(6)]
+        sched.drain()
+        assert all(t.result().ok for t in tickets)
+    spans = tr.spans
+    submits = [i for i, s in enumerate(spans) if s.name == "serve.submit"]
+    assert len(submits) == 6 and all(spans[i].parent == -1 for i in submits)
+    flushes = [s for s in spans if s.name == "serve.flush"]
+    assert [s.parent for s in flushes] == [submits[3], -1]  # the 4th filled b_max = 4
+    assert _parents(spans, "index.validate") == ["serve.search"] * 2
+
+
+def test_reference_view_drops_port_only_spans_and_reparents():
+    S = trace.Span
+    spans = [S("serve.submit", 0, 9, -1), S("serve.flush", 1, 8, 0),
+             S("index.validate", 1, 2, 1), S("index.search", 2, 8, 1),
+             S("sync.upload", 2, 3, 3), S("kernel.x", 2, 3, 4), S("sync.ids", 7, 8, 3),
+             S("serve.submitted", 9, 9, -1)]
+    view = trace.reference_view(spans)
+    assert [(s.name, s.parent) for s in view] == [
+        ("serve.flush", -1), ("index.search", 0), ("kernel.x", 1), ("serve.submitted", -1)]
+    assert [(s.t0, s.t1) for s in view] == [(1, 8), (2, 8), (2, 3), (9, 9)]
+    assert trace.reference_view(trace.Trace(spans)) == view
+    assert spans[5].parent == 4  # the spans handed in are left as they were
+
+
+def test_coverage_and_wall_time_read_the_reference_tree():
+    """A port-only leaf root (``index.validate``) adds nothing to the
+    coverage or the wall time, and a flush held by its submit is a root
+    of its own, as in the reference; the stages still count every span."""
+    S = trace.Span
+    spans = [S("index.validate", 0, 1, -1), S("serve.submit", 1, 11, -1),
+             S("serve.flush", 2, 10, 1), S("serve.search", 2, 6, 2),
+             S("sync.ids", 6, 7, 3)]
+    view = trace.reference_view(spans)
+    assert export.coverage(spans) == export.coverage(view) == 0.5
+    summary = export.stage_summary(spans)
+    assert summary["wall_us"] == 8e6 and summary["coverage"] == 0.5
+    assert summary["n_spans"] == 5 and summary["stages"]["sync.ids"]["count"] == 1
+
+
+def _range_tree(prof, names):
+    """(name, parent) of the profiler's ranges named in ``names``, in the
+    order they opened, each under the innermost such range around it."""
+    evs = sorted((e for e in prof.events() if e.name in names),
+                 key=lambda e: (e.time_range.start, -e.time_range.end))
+    at = {id(e): i for i, e in enumerate(evs)}
+    out = []
+    for e in evs:
+        p = e.cpu_parent
+        while p is not None and id(p) not in at:
+            p = p.cpu_parent
+        out.append((e.name, -1 if p is None else at[id(p)]))
+    return out
+
+
+@pytest.mark.parametrize("n", [8192, 2000])  # fused; unfused, one ann.query span
+def test_timeline_mode_gives_the_span_tree_as_profiler_ranges(monkeypatch, n):
+    """A search under torch.profiler with tracing off: one range a span,
+    named and nested as the span-timing trace's spans (the port-only
+    ones among them); no Span stored, no ``block`` sync, no tracing-only
+    host read (``item`` / ``int`` of a tensor: the fused select's
+    survivor count), the answers bit for bit the unprofiled call's; no
+    range inside :func:`trace.paused`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    data, _, ti = _flat_pair(n, False)
+    q = _queries(data, 5, seed=23)
+    plain = ti.search(q, K)
+    with trace.trace() as ttr:
+        ti.search(q, K)
+    want = [(s.name, s.parent) for s in ttr.spans]
+    calls = {"block": 0, "read": 0}
+
+    def counted(key, fn):
+        def wrapper(*args, **kw):
+            calls[key] += 1
+            return fn(*args, **kw)
+        return wrapper
+
+    monkeypatch.setattr(trace, "_block_one", counted("block", trace._block_one))
+    monkeypatch.setattr(torch.Tensor, "item", counted("read", torch.Tensor.item))
+    monkeypatch.setattr(torch.Tensor, "__int__", counted("read", torch.Tensor.__int__))
+    with trace.trace():  # the counters see what span timing does
+        ti.search(q, K)
+    assert calls["block"] > 0 and (calls["read"] > 0) == (n >= 8192)
+    calls.update(block=0, read=0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert not trace.enabled()
+        got = ti.search(q, K)
+        with trace.span("outside.the.tree", x=1) as sp:
+            assert sp is None
+        with trace.paused():
+            ti.search(q, K)  # opens no range
+    assert calls == {"block": 0, "read": 0}
+    assert trace.get_tracer().spans == []
+    assert trace.span("no.profiler") is trace._NULL_SPAN
+    np.testing.assert_array_equal(got.indices, plain.indices)
+    np.testing.assert_array_equal(got.distances, plain.distances)
+    assert got.stats == plain.stats
+    assert _range_tree(prof, {n for n, _ in want}) == want
+    assert [e.name for e in prof.events()].count("outside.the.tree") == 1
 
 
 # -- exporters --------------------------------------------------------------

@@ -275,7 +275,7 @@ def test_traced_span_tree_matches_jax(backend):
     with trace.trace() as ttr:
         traced = ti.search(q, 5)
         ti.cp_search(3)
-    assert _tree(ttr.spans) == _tree(jtr.spans)
+    assert _tree(trace.reference_view(ttr)) == _tree(jtr.spans)
     np.testing.assert_array_equal(plain.indices, traced.indices)
     np.testing.assert_array_equal(plain.distances, traced.distances)
     sel = [s.attrs["candidates_selected"] for s in ttr.spans if s.name == "shard.select"]
