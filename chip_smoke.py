@@ -938,7 +938,7 @@ def exact_closest_pairs(torch, x, k: int, rows: int = 2048) -> set:
 
 
 def select_edge_rows(rng) -> list:
-    """(name, d, tau0, T, T_pad) numpy rows for radius_select's edges:
+    """(name, d, tau0, T) numpy rows for radius_select's edges:
     brackets that collapse (lo == hi), values near FLT_MAX where lo + hi
     overflows to +inf mids with real values above hi, +inf and NaN
     entries, ties on the tree's mids."""
@@ -946,7 +946,7 @@ def select_edge_rows(rng) -> list:
     d = np.zeros((2, 600), np.float32)
     d[1] = np.inf
     d[1, :50] = rng.uniform(1.0, 2.0, 50)
-    rows.append(("collapsed", d, np.ones(2, np.float32), 100, 200))
+    rows.append(("collapsed", d, np.ones(2, np.float32), 100))
     d = rng.uniform(1e38, 3.4e38, size=(6, 2000)).astype(np.float32)
     d[:, :100] = rng.uniform(0.0, 1e37, size=(6, 100))
     d[4, 100:600] = rng.uniform(1e38, 1.69e38, 500)
@@ -955,14 +955,14 @@ def select_edge_rows(rng) -> list:
     d[5, 100:] = np.inf
     d[5, :100] = rng.uniform(2e38, 3.4e38, 100)
     rows.append(("near_flt_max", d,
-                 np.array([2.9e38, 2.2e38, 1.5e38, 4e37, 1.703e38, 1e36], np.float32), 800, 1990))
+                 np.array([2.9e38, 2.2e38, 1.5e38, 4e37, 1.703e38, 1e36], np.float32), 800))
     d = (rng.normal(size=(3, 2 * 4096 + 77)) ** 2).astype(np.float32)
     d[rng.random(d.shape) < 0.1] = np.inf
     d[rng.random(d.shape) < 0.1] = np.nan
     d[2, :-100] = np.inf
-    rows.append(("inf_nan", d, np.full(3, 0.02, np.float32), 150, 300))
+    rows.append(("inf_nan", d, np.full(3, 0.02, np.float32), 150))
     d = rng.integers(0, 8, size=(3, 3000)).astype(np.float32)
-    rows.append(("small_integers", d, np.full(3, 0.35, np.float32), 300, 3000))
+    rows.append(("small_integers", d, np.full(3, 0.35, np.float32), 300))
     return rows
 
 
@@ -989,31 +989,38 @@ def edge_parity(torch, dev, ref, ops, kpair, ksel, kver, ktopk, kproj) -> int:
                              ref.pairwise_sq_dist(q, x), rtol=1e-5, atol=1e-5),
               f"pairwise_sq_dist_rows edge ({B}, {N}, {d})")
         cases += 1
-    for B, N, T, T_pad, scale in ((1, 100, 7, 71, 1.0), (7, 700, 120, 184, 1.0),
-                                  (5, 300, 1, 65, 1.0), (2, 500, 30, 94, 1e-9),
-                                  (2, 500, 30, 94, 1e9)):
+    for B, N, T, scale in ((1, 100, 7, 1.0), (7, 700, 120, 1.0), (5, 300, 1, 1.0),
+                           (2, 500, 30, 1e-9), (2, 500, 30, 1e9)):
         dd = torch.randn((B, N), generator=g, device=dev) ** 2 * 3
         tau0 = dd.mean(1) * max(T / N, 1e-3) * scale
-        got = ksel.radius_select(dd, tau0, T, T_pad=T_pad)
-        want = ref.radius_select_kernel(dd, tau0, T, T_pad=T_pad)
+        got = ksel.radius_select(dd, tau0, T)
+        want = ref.radius_select_exact(dd, tau0, T)
         check(all(torch.equal(a, b) for a, b in zip(got, want)),
-              f"radius_select edge ({B}, {N}, {T}, {T_pad}, {scale})")
+              f"radius_select edge ({B}, {N}, {T}, {scale})")
         cases += 1
-    for name, dd, tau0, T, T_pad in select_edge_rows(np.random.default_rng(9)):
+    for name, dd, tau0, T in select_edge_rows(np.random.default_rng(9)):
         dd, tau0 = torch.from_numpy(dd).to(dev), torch.from_numpy(tau0).to(dev)
-        got = ksel.radius_select(dd, tau0, T, T_pad=T_pad)
-        want = ref.radius_select_kernel(dd, tau0, T, T_pad=T_pad)
+        got = ksel.radius_select(dd, tau0, T)
+        want = ref.radius_select_exact(dd, tau0, T)
         check(all(torch.equal(a, b) for a, b in zip(got, want)), f"radius_select edge {name}")
         cases += 1
     tie = torch.full((1, 600), 5.0, device=dev)
     tie[0, 597:] = 0.5
-    got = ksel.radius_select(tie, torch.ones(1, device=dev), 10, T_pad=100)
-    want = ref.radius_select_kernel(tie, torch.ones(1, device=dev), 10, T_pad=100)
+    got = ksel.radius_select(tie, torch.ones(1, device=dev), 10)
+    want = ref.radius_select_exact(tie, torch.ones(1, device=dev), 10)
     check(all(torch.equal(a, b) for a, b in zip(got, want)) and int(got[2][0]) == 600,
-          "radius_select tie-cluster overflow")
-    _, idx = ops.radius_select(tie, 10, T_pad=100)  # rerouted to the exact sort
-    check(set(idx[0, :3].tolist()) == {597, 598, 599}, "overflow reroute")
-    cases += 1
+          "radius_select tie cluster")
+    _, idx = ops.radius_select(tie, 10, T_pad=100)  # the ordered route
+    check(set(idx[0, :3].tolist()) == {597, 598, 599}, "radius_select tie cluster, ordered")
+    # 10,000 tied values past the band buffer: resolved over the whole row
+    wide = torch.randn((2, 20000), generator=g, device=dev) ** 2 + 2.0
+    wide[:, 5000:15000] = 1.5
+    half = torch.full((2,), 0.5, device=dev)
+    *got, stats = ksel.radius_select(wide, half, 2000, stats=True)
+    want = ref.radius_select_exact(wide, half, 2000)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)) and stats[:, 2].tolist() == [1, 1],
+          f"radius_select wide tie cluster (stats {stats.tolist()})")
+    cases += 2
     # verify: padding, k > Tc, exact ties, a row named by every query and
     # twice in one list, queries past one group (B = 130), a width past
     # the registers' (d = 600, read from global memory per entry), a NaN
@@ -4771,16 +4778,21 @@ def index_phases(torch, dev, seed: int) -> None:
     check(pw_err <= pw_tol, f"pairwise_sq_dist: max |diff| {pw_err} > {pw_tol}")
 
     tau0 = select_seed(d2p, T, impl.m)
-    sel = ksel.radius_select(d2p, tau0, T, T_pad=T_pad)
-    sel_plain = ref.radius_select_kernel(d2p, tau0, T, T_pad=T_pad)
+    sel = ksel.radius_select(d2p, tau0, T)
+    sel_plain = ref.radius_select_exact(d2p, tau0, T)
     sel_same = all(torch.equal(a, b) for a, b in zip(sel, sel_plain))
     sel_err = float((sel[0] - sel_plain[0]).nan_to_num(0.0).abs().max())  # inf − inf: 0
     check(sel_same, "radius_select: vals, idx or counts differ from the plain version")
     check(bool((sel[2] <= T_pad).all()) and bool((sel[2] >= T).all()),
           f"radius_select: counts {sel[2].min().item()}..{sel[2].max().item()} "
           f"outside [T, T_pad]")
-    _, pos = ref.topk_smallest(sel[0], T)
-    cand = torch.gather(sel[1], 1, pos.to(torch.int64))
+    # the ordered route: the reference's kernel and trim, ascending
+    ordered = ops.radius_select(d2p, T, tau0=tau0, with_count=True)
+    check(all(torch.equal(a, b) for a, b in zip(
+        ordered, ops.radius_select(d2p, T, tau0=tau0, with_count=True, force="plain"))),
+          "radius_select: the ordered route differs from the plain route")
+    del ordered
+    cand = sel[1]  # the fused path's candidates: the kernel's index order
 
     ver_v, ver_i, rows_read = kver.verify_topk(impl.data, q64, cand, K, rows_read=True)
     ver_plain = ref.verify_topk(impl.data, q64, cand, K)
@@ -4916,10 +4928,10 @@ def index_phases(torch, dev, seed: int) -> None:
     entry("radius_select", "fused", csrc + "select.cu",
           "src/repro/kernels/select.py:55",
           fused_counts["launches"]["radius_select"], sel_err,
-          lambda: ksel.radius_select(d2p, tau0, T, T_pad=T_pad),
-          lambda: ref.radius_select_kernel(d2p, tau0, T, T_pad=T_pad),
+          lambda: ksel.radius_select(d2p, tau0, T),
+          lambda: ref.radius_select_exact(d2p, tau0, T),
           lambda: torch.topk(d2p, T, largest=False),
-          4 * B * n + 4 * B + 8 * B * T_pad + 4 * B, (L + iters + 2) * B * n)
+          4 * B * n + 4 * B + 8 * B * T + 4 * B, (L + iters + 2) * B * n)
     entry("verify_topk", "fused", csrc + "verify.cu",
           "src/repro/kernels/verify.py:34",
           fused_counts["launches"]["verify_topk"], ver_err,
@@ -4950,7 +4962,7 @@ def index_phases(torch, dev, seed: int) -> None:
     check(torch.equal(ti, pi) and torch.equal(tv, pv),
           "topk_smallest: values or indices differ from the plain version")
     # the topk kernel at verify's shape: the d² of the B = 64 candidates in
-    # their trimmed order, as verify hands them to it
+    # the select's index order, as verify hands them to it
     d2_ver = torch.stack([((impl.data[c.long()] - qb) ** 2).sum(-1) for c, qb in zip(cand, q64)])
     tv, ti = ktopk.topk_smallest(d2_ver, K)
     pv, pi = ref.topk_smallest(d2_ver, K)
@@ -4977,7 +4989,7 @@ def index_phases(torch, dev, seed: int) -> None:
           proj["fn"], proj["plain"], proj["library"], proj["bytes"], proj["ops"])
     # the select's launches: a memset, the ladder, a histogram pass per 7
     # bisection steps, the compaction; each reads d once but the memset
-    sel_launches = launch_ms(torch, lambda: ksel.radius_select(d2p, tau0, T, T_pad=T_pad),
+    sel_launches = launch_ms(torch, lambda: ksel.radius_select(d2p, tau0, T),
                              ("select_", "emset"))
     labels = {"select_ladder": "ladder", "select_pass": "pass", "select_compact": "compact"}
     sel_passes = {}
@@ -5010,7 +5022,7 @@ def index_phases(torch, dev, seed: int) -> None:
     # the algorithm's own traffic (repro/obs/roofline.py's models), beside
     # the one-read bounds above, and what verify's bound counts
     extra = {
-        "radius_select": {"traffic_model_ms": (d_reads * B * n * 4 + 2 * B * T_pad * 4)
+        "radius_select": {"traffic_model_ms": (d_reads * B * n * 4 + 2 * B * T * 4)
                           / PEAK_BYTES_PER_S * 1e3,
                           "d_reads": d_reads, "launch_device_ms": sel_passes},
         "verify_topk": {"traffic_model_ms": verify_traffic_bytes(n, d, B, T, K, uniq, E)

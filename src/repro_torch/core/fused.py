@@ -53,6 +53,11 @@ def fused_ann_query(index: FlatIndex, q: torch.Tensor, *, k: int, T: int,
 
     Same contract as ``flat_index.ann_query``: (indices (B, k) int32,
     distances (B, k) float32), and the same output on ties-free data.
+    The select hands verify the T candidates as a set: on the card in
+    ascending id order (the CUDA select's own, with no sort after it),
+    on the plain route ascending by estimate; verify breaks an exact
+    distance tie by candidate position, so only such ties can answer
+    differently on the two routes.
 
     While tracing, each stage runs under an ``ann.*`` span (the
     ``kernel.*`` spans of ``kernels.ops`` nest underneath) with its
@@ -87,8 +92,9 @@ def fused_ann_query(index: FlatIndex, q: torch.Tensor, *, k: int, T: int,
         with otrace.span("ann.select") as sp:
             m = index.params.m if index.params is not None else index.m
             tau0 = select_seed(d2p, T, m)
+            # verify reads only the set: no sort after the select
             _, cand, cnt = kops.radius_select(d2p, T, tau0=tau0, force=force,
-                                              with_count=True)  # (B, T), (B,)
+                                              with_count=True, ordered=False)  # (B, T), (B,)
             if sp is not None:
                 sp.attrs["candidates_selected"] = int(cnt.sum())
 

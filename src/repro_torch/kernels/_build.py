@@ -40,8 +40,8 @@ SIGNATURES = {
     "pairwise_sq_dist_launch": (_I, [_P, _P, _P, _I, _I, _I, _P]),
     "pairwise_sq_dist_rows_launch": (_I, [_P, _P, _P, _I, _I, _I, _P]),
     "radius_select_scratch_ints": (ctypes.c_longlong, [_I, _I]),
-    "radius_select_launch": (_I, [_P, _P, _P, _I, _I, _I, _I,
-                                  _P, _P, _P, _P, _P]),
+    "radius_select_launch": (_I, [_P, _P, _P, _I, _I, _I,
+                                  _P, _P, _P, _P, _P, _P]),
     "verify_topk_group_size": (_I, [_I, _I]),
     "verify_topk_chunk": (_I, [_I, _I]),
     "verify_topk_scratch_bytes": (_L, [_I, _I, _I, _I, _I]),

@@ -18,10 +18,10 @@ pair_join's from its ``tiles_pruned``: radius_select from its kernel's
 Disabled cost is one boolean check and one profiler check per call and
 no host sync.  With tracing off under a ``torch.profiler`` the span is a
 profiler range of the same name, with no model and no sync.  verify's topk launch
-(from C) and radius_select's trim and overflow sorts run inside their
-caller's span and open none of their own, as in the reference; the
+(from C) and radius_select's sorts run inside their caller's span and
+open none of their own, as in the reference; on the plain route the
 select's overflow check, its one host read, runs in a port-only
-``sync.select_overflow`` span.
+``sync.select_overflow`` span.  The CUDA select reads nothing back.
 """
 from __future__ import annotations
 
@@ -198,15 +198,26 @@ def default_select_seed(d: torch.Tensor, T: int, *, stride: int = 8) -> torch.Te
 @_instrumented("kernel.radius_select", _select_cost)
 def radius_select(d: torch.Tensor, T: int, *, tau0: torch.Tensor | None = None,
                   T_pad: int | None = None, force: str | None = None,
-                  with_count: bool = False):
-    """Row-wise T smallest (values, indices) by radius thresholding.
+                  with_count: bool = False, ordered: bool = True):
+    """Row-wise T smallest (values, indices) by radius thresholding, ties
+    to the lowest index.
 
-    Ascending, lowest-index tie-break, like a stable sort.  The kernel
-    compacts the survivors of a threshold into T_pad ≥ T slots and one
-    stable sort over those finishes.  A tie cluster wider than the
-    buffer is detected from the exact survivor counts and rerouted to
-    the exact sort: that check reads the counts on the host, one device
-    sync per call.  A degenerate budget (T_pad ≥ N) sorts directly.
+    On a CUDA tensor the kernel answers each row's first T by (value,
+    index) itself, in ascending index order, with no host read; a caller
+    that reads the order (``ordered=True``, the default) gets them
+    ascending by a stable sort over the T, a caller that needs only the
+    set (``ordered=False``) gets the kernel's index order.  Traced, the
+    span records the batch's summed final band (``band``) and the rows
+    resolved over the whole row (``band_fallback_rows``): a host read,
+    only while tracing.
+
+    The plain route (CPU tensors, ``force="plain"``) is the reference's:
+    the kernel compacts the survivors of a threshold into T_pad ≥ T slots
+    and one stable sort over those finishes, ascending whatever
+    ``ordered`` says.  A tie cluster wider than the buffer is detected
+    from the exact survivor counts and rerouted to the exact sort: that
+    check reads the counts on the host.  On every device a degenerate
+    budget (T_pad ≥ N) sorts directly.
 
     ``with_count=True`` appends the per-row survivor count (B,) int32
     (``WorkStats.candidates_selected``); the sort paths report T.
@@ -224,16 +235,23 @@ def radius_select(d: torch.Tensor, T: int, *, tau0: torch.Tensor | None = None,
     if T_pad >= N:  # nothing to skip: the plain sort is cheaper
         counts.route("radius_select.sort")
         vals, idx, cnt = _sort()
+        return (vals, idx, cnt) if with_count else (vals, idx)
+    if tau0 is None:
+        tau0 = default_select_seed(d, T)
+    d32 = d.to(torch.float32).contiguous()
+    if not plain:
+        vals, idx, cnt, stats = _select.radius_select(d32, tau0, T, stats=True)
+        band = {}
+        if _otrace.enabled():  # the one host read, only while tracing
+            total, _, fallback = stats.sum(0).tolist()
+            band = {"band": total, "band_fallback_rows": fallback}
+        _refine("kernel.radius_select", _roofline.radius_select_cost(
+            B, N, T, passes=SELECT_KERNEL_PASSES), passes=SELECT_KERNEL_PASSES, **band)
+        if ordered:
+            vals, pos = ref.topk_smallest(vals, T)
+            idx = torch.gather(idx, 1, pos.to(torch.int64))
     else:
-        if tau0 is None:
-            tau0 = default_select_seed(d, T)
-        select = ref.radius_select_kernel if plain else _select.radius_select
-        vals_p, idx_p, cnt = select(d.to(torch.float32).contiguous(), tau0, T,
-                                    T_pad=T_pad)
-        if not plain:
-            _refine("kernel.radius_select", _roofline.radius_select_cost(
-                B, N, T_pad, passes=SELECT_KERNEL_PASSES),
-                passes=SELECT_KERNEL_PASSES)
+        vals_p, idx_p, cnt = ref.radius_select_kernel(d32, tau0, T, T_pad=T_pad)
         # an overflowed buffer dropped survivors in index order, possibly
         # true top-T members: answer with the exact sort instead
         with _otrace.span("sync.select_overflow"):

@@ -13,6 +13,9 @@ and ``chip_smoke.py`` can hold the CUDA kernel against it on the card:
                           contract of lax.top_k, repro/kernels/ref.py:69-75)
   radius_select_kernel  ← repro/kernels/select.py (rung ladder,
                           bisection, index-ordered compaction)
+  radius_select_exact   ← no TPU kernel: the CUDA select's answer, the
+                          first T by (value, index) in index order, with
+                          radius_select_kernel's survivor count
   verify_topk           ← repro/kernels/verify.py (difference form, as
                           repro/kernels/ref.py:234-253)
   adc_dist              ← repro/kernels/adc.py (LUT sums over code slots,
@@ -29,7 +32,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["pairwise_sq_dist", "project_dist", "topk_smallest", "select_rungs",
-           "radius_select_kernel", "verify_topk", "adc_dist", "pair_join"]
+           "radius_select_kernel", "radius_select_exact", "verify_topk", "adc_dist",
+           "pair_join"]
 
 _INF = float("inf")
 
@@ -142,6 +146,31 @@ def radius_select_kernel(d: torch.Tensor, tau0: torch.Tensor, T: int, *,
     vals[rows, slots] = d[rows, cols]
     idx[rows, slots] = cols.to(torch.int32)
     return vals, idx, count
+
+
+def radius_select_exact(d: torch.Tensor, tau0: torch.Tensor, T: int
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The CUDA select's answer (csrc/select.cu), plainly, on any device.
+
+    d (B, N) float32 (+inf is padding, NaN is never selected), tau0 (B,)
+    seeds → (vals (B, T), idx (B, T) int32, count (B,) int32): each row's
+    first T real entries by (value, index), −0 and +0 equal, in
+    ascending index order, padded with (+inf, −1) where the row has fewer
+    than T real entries; and ``radius_select_kernel``'s exact survivor
+    count.  A stable sort of the values gives ``radius_select_kernel``
+    followed by the trim's stable sort, whenever that buffer held the
+    first T.
+    """
+    d = d.to(torch.float32)
+    B, N = d.shape
+    count = radius_select_kernel(d, tau0, T, T_pad=T)[2]
+    real = d < _INF
+    key = torch.where(real, d, _INF) + 0.0  # −0 as +0
+    first = torch.sort(key, dim=1, stable=True).indices[:, :T]  # the reals first
+    taken = torch.gather(real, 1, first)
+    idx = torch.sort(torch.where(taken, first, N), dim=1).values  # N: past every index
+    vals = torch.where(idx < N, torch.gather(d, 1, idx.clamp_max(N - 1)), _INF)
+    return vals, torch.where(idx < N, idx, -1).to(torch.int32), count
 
 
 def verify_topk(data: torch.Tensor, q: torch.Tensor, cand: torch.Tensor, k: int

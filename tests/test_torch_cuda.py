@@ -135,6 +135,10 @@ def _select_rows(kind, B, N, T, seed_scale, device):
     elif kind == "small_integers":  # ties on the tree's mids
         d = rng.integers(0, 8, size=(B, N)).astype(np.float32)
         tau0 = d.mean(1) * T / N
+    elif kind == "wide_tie":  # 10,000 ties past the 4,096-slot band buffer
+        d = (d + 2.0).astype(np.float32)
+        d[:, N // 4: N // 4 + 10_000] = 1.5
+        tau0[:] = 0.5
     return torch.from_numpy(d).to(device), torch.from_numpy(tau0.astype(np.float32)).to(device)
 
 
@@ -145,36 +149,46 @@ def _select_rows(kind, B, N, T, seed_scale, device):
     (2, 600, 100, 200, 1.0, "collapsed"), (6, 2000, 800, 1990, 1.0, "near_flt_max"),
     (3, 2 * 4096 + 77, 150, 300, 1.0, "inf_nan"), (3, 3000, 300, 3000, 1.0, "small_integers"),
     (2, 1, 1, 1, 1.0, "squared"), (3, 1000, 1, 65, 1.0, "squared"),
-    (2, 500, 500, 500, 1.0, "squared"),
+    (2, 500, 500, 500, 1.0, "squared"), (2, 40_000, 2000, 2250, 1.0, "wide_tie"),
+    (4, 3 * 16384 + 5, 399, 655, 1.0, "squared"),
 ])
 def test_radius_select_matches_plain(cuda, B, N, T, T_pad, seed_scale, kind):
+    """The kernel gives its plain version exactly (ids, values, order,
+    counts); the ordered route gives the reference's kernel and trim (or
+    its exact sort): the same values, and the same ids but in a row's
+    +inf padding, which the exact sort names by index where some row of
+    the batch overflowed the reference's buffer, and the kernel as −1."""
     from repro_torch.kernels.select import radius_select
 
     d, tau0 = _select_rows(kind, B, N, T, seed_scale, cuda)
-    got = radius_select(d, tau0, T, T_pad=T_pad)
-    want = ref.radius_select_kernel(d, tau0, T, T_pad=T_pad)
+    got = radius_select(d, tau0, T)
+    want = ref.radius_select_exact(d, tau0, T)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+    gv, gi = ops.radius_select(d, T, tau0=tau0, T_pad=T_pad)
+    wv, wi = ops.radius_select(d, T, tau0=tau0, T_pad=T_pad, force="plain")
+    real = wv < float("inf")
+    assert torch.equal(gv, wv) and torch.equal(gi[real], wi[real])
 
 
 def test_radius_select_launches_four_kernels(cuda):
-    """One call: the ladder, two histogram passes and the compaction.  The
-    first launches of a trace can go unrecorded, so the trace holds two
-    calls 20 ms apart and the kernels after the pause are counted."""
+    """One call: the ladder, two histogram passes and the compaction, and
+    on the unordered route nothing else but the seed's clamp and the
+    memset: no sort and no gather.  The first launches of a trace can go
+    unrecorded, so the trace holds two calls 20 ms apart and the kernels
+    after the pause are counted."""
     import time
 
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels.select import radius_select
-
     d, tau0 = _select_rows("squared", 4, 20000, 500, 1.0, cuda)
-    radius_select(d, tau0, 500, T_pad=700)  # the build, outside the trace
+    ops.radius_select(d, 500, tau0=tau0, ordered=False)  # the build, outside the trace
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        radius_select(d, tau0, 500, T_pad=700)
+        ops.radius_select(d, 500, tau0=tau0, ordered=False)
         torch.cuda.synchronize()
         time.sleep(0.02)
-        radius_select(d, tau0, 500, T_pad=700)
+        ops.radius_select(d, 500, tau0=tau0, ordered=False)
         torch.cuda.synchronize()
     kernels = sorted((e for e in prof.events()
                       if e.cpu_time_total == 0 and (e.self_device_time_total or 0) > 0),
@@ -188,20 +202,45 @@ def test_radius_select_launches_four_kernels(cuda):
                              "select_compact_kernel")}
     assert launched == {"select_ladder_kernel": 1, "select_pass_kernel": 2,
                         "select_compact_kernel": 1}
+    others = [n for n in names if "select_" not in n and "emset" not in n]
+    assert len(others) == 1 and not any(w in others[0].lower() for w in ("sort", "gather")), names
 
 
 def test_radius_select_overflow_matches_plain(cuda):
+    """Tie clusters: 600 ties that the band resolves, and 10,000 past the
+    band buffer, resolved over the whole row; both exact, with no host
+    read on either route, and the span counts the row that fell back."""
     from repro_torch.kernels.select import radius_select
+    from repro_torch.obs import trace
 
     d = _tie_cluster(cuda)
     tau0 = torch.full((1,), 1.0, device=cuda)
-    got = radius_select(d, tau0, 10, T_pad=100)
-    want = ref.radius_select_kernel(d, tau0, 10, T_pad=100)
-    assert int(got[2][0]) == 600
+    *got, stats = radius_select(d, tau0, 10, stats=True)
+    want = ref.radius_select_exact(d, tau0, 10)
+    assert int(got[2][0]) == 600 and stats[0].tolist() == [597, 597, 0]
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    vals, idx = ops.radius_select(d, 10, T_pad=100)  # rerouted to the sort
+    vals, idx = ops.radius_select(d, 10, T_pad=100)  # ordered: ascending, the ties by index
     assert set(idx[0, :3].tolist()) == {597, 598, 599}
+    assert idx[0, 3:].tolist() == list(range(7))
+
+    wide, tau0 = _select_rows("wide_tie", 2, 40_000, 2000, 1.0, cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ops.radius_select(wide, 2000, tau0=tau0, with_count=True, ordered=False)
+        ordered = ops.radius_select(wide, 2000, tau0=tau0, with_count=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = ref.radius_select_exact(wide, tau0, 2000)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    plain = ops.radius_select(wide, 2000, tau0=tau0, with_count=True, force="plain")
+    assert torch.equal(ordered[0], plain[0]) and torch.equal(ordered[1], plain[1])
+    with trace.trace() as tr:
+        ops.radius_select(wide, 2000, tau0=tau0, ordered=False)
+    (span,) = [sp for sp in tr.spans if sp.name == "kernel.radius_select"]
+    assert span.attrs["band_fallback_rows"] == 2 and span.attrs["band"] >= 2 * 10_000
 
 
 @pytest.mark.parametrize("B,n,d,Tc,k,pad", [
@@ -423,6 +462,35 @@ def test_flat_facade_matches_plain(cuda, n):
     else:
         assert used["pairwise_sq_dist_rows"] == 1
     assert used["pairwise_sq_dist"] == 1
+
+
+def test_fused_ann_query_matches_plain_at_full_width(cuda):
+    """fused_ann_query on ties-free data at (64, 200,000): the kernels'
+    route (the select's candidates in index order, no sort) answers the
+    ids and distances of ``force="plain"``, and the survivor counts of the
+    plain select on the same estimates (the estimate's kernel and its
+    plain version round differently, to rtol 1e-5, and so may count the
+    bracket's last values differently)."""
+    from repro_torch.core.flat_index import build_flat_index, candidate_budget
+    from repro_torch.core.fused import fused_ann_query, select_seed
+
+    rng = np.random.default_rng(37)
+    data = (rng.normal(size=(40, 128)) * 3)[rng.integers(0, 40, 200_000)]
+    data = torch.from_numpy((data + rng.normal(size=(200_000, 128))).astype(np.float32))
+    q = torch.from_numpy(rng.normal(size=(64, 128)).astype(np.float32) * 0.2).to(cuda)
+    q += data[rng.integers(0, 200_000, 64)].to(cuda)
+    index = build_flat_index(data, m=15, seed=5, device=cuda)
+    T = candidate_budget(index.params, index.n, 10)
+    counts.reset()
+    gi, gd, gc = fused_ann_query(index, q, k=10, T=T, with_count=True)
+    assert counts.LAUNCHES["radius_select"] == 1
+    wi, wd, _ = fused_ann_query(index, q, k=10, T=T, with_count=True, force="plain")
+    assert torch.equal(gi, wi)
+    torch.testing.assert_close(gd, wd, rtol=1e-6, atol=0)
+    d2p = ops.pairwise_sq_dist(index.family.project(q), index.projected)
+    _, _, wc = ops.radius_select(d2p, T, tau0=select_seed(d2p, T, index.m), with_count=True,
+                                 force="plain")
+    assert torch.equal(gc, wc)
 
 
 @pytest.mark.parametrize("B,N,S,V,per_query", [
@@ -789,9 +857,9 @@ def test_every_host_sync_of_a_search_is_in_a_sync_span(cuda, monkeypatch):
     """With PyTorch's sync debug mode, each synchronizing call of one fused
     search and of one cp_search falls inside a port-only ``sync.*`` span,
     under a CPU profile, where the spans are profiler ranges (which add
-    no sync of their own): 5 a search (the
-    upload, the select's overflow read, the three copies back), 1 a
-    cp_search (its answer)."""
+    no sync of their own): 4 a search (the upload and the three copies
+    back; the CUDA select reads nothing back), 1 a cp_search (its
+    answer)."""
     import warnings
 
     from repro_torch.index import IndexConfig, build_index
@@ -846,7 +914,7 @@ def test_every_host_sync_of_a_search_is_in_a_sync_span(cuda, monkeypatch):
         return [span for message, span in seen if "called a synchronizing" in message]
 
     assert syncs(lambda: index.search(q, 10)) == [
-        "sync.upload", "sync.select_overflow", "sync.ids", "sync.distances", "sync.counts"]
+        "sync.upload", "sync.ids", "sync.distances", "sync.counts"]
     assert syncs(lambda: index.cp_search(10)) == ["sync.cp_answer"]
 
 

@@ -219,7 +219,7 @@ def _wrapper_calls():
         "pairwise_sq_dist_rows": lambda: pairwise_dist.pairwise_sq_dist_rows(
             z(2, 3), z(2, 4, 3)),
         "project_dist": lambda: project_dist.project_dist(z(4, 3), z(3, 2), z(2, 2)),
-        "radius_select": lambda: select.radius_select(z(2, 9), z(2), 3, T_pad=5),
+        "radius_select": lambda: select.radius_select(z(2, 9), z(2), 3),
         "topk_smallest": lambda: topk.topk_smallest(z(2, 9), 3),
         "verify_topk": lambda: verify.verify_topk(
             z(9, 3), z(2, 3), torch.zeros(2, 4, dtype=torch.int32), 2),

@@ -380,6 +380,217 @@ def test_histogram_schedule_matches_serial_bisection(name):
 
 
 # ---------------------------------------------------------------------------
+# radius_select_exact: the CUDA select's answer (csrc/select.cu)
+# ---------------------------------------------------------------------------
+
+
+def _exact_case(name):
+    """(d, tau0, T) for the plain version of the CUDA select, made with
+    numpy from a seed; tau0 is the sample-mean seed of the real entries."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "squared_normals":
+        d, T = (rng.normal(size=(4, 1500)) ** 2).astype(np.float32), 120
+    elif name == "tie_cluster":  # 600 tied survivors, T = 10
+        d, T = _tie_cluster(), 10
+    elif name == "all_tied":  # every value of a row ties
+        d, T = np.full((2, 900), 2.5, np.float32), 40
+    elif name == "inf_padding":  # +inf is padding; the last row has fewer real than T
+        d, T = (rng.normal(size=(3, 1200)) ** 2).astype(np.float32), 100
+        d[rng.random(d.shape) < 0.3] = np.inf
+        d[2, 60:] = np.inf
+    elif name == "T_N_minus_1":
+        d, T = (rng.normal(size=(3, 400)) ** 2).astype(np.float32), 399
+    else:
+        raise KeyError(name)
+    real = np.where(d < np.inf, d, 0.0)
+    return d, (real.mean(1) * T / d.shape[1]).astype(np.float32), T
+
+
+EXACT_CASES = ["squared_normals", "tie_cluster", "all_tied", "inf_padding", "T_N_minus_1"]
+
+
+@pytest.mark.parametrize("name", EXACT_CASES)
+def test_radius_select_exact_is_the_first_T_of_a_stable_sort(name):
+    """Exactly T a row, in ascending index order: as a set the first T of
+    torch.sort(stable=True) over the real entries, then (+inf, −1)."""
+    d, tau0, T = _exact_case(name)
+    gv, gi, _ = ref.radius_select_exact(_t(d), _t(tau0), T)
+    assert gv.shape == gi.shape == (d.shape[0], T)
+    for b in range(d.shape[0]):
+        row = _t(d[b])
+        first = torch.sort(row, stable=True).indices[:T]
+        first = first[row[first] < float("inf")]
+        m = first.numel()
+        np.testing.assert_array_equal(gi[b, :m].numpy(), torch.sort(first).values.numpy())
+        np.testing.assert_array_equal(gv[b, :m].numpy(), d[b, gi[b, :m].numpy()])
+        assert (gi[b, m:] == -1).all() and torch.isinf(gv[b, m:]).all()
+
+
+@pytest.mark.parametrize("name", EXACT_CASES)
+def test_radius_select_exact_counts_as_the_kernel(name):
+    """Its survivor count is radius_select_kernel's, whatever the buffer."""
+    d, tau0, T = _exact_case(name)
+    _, _, gc = ref.radius_select_exact(_t(d), _t(tau0), T)
+    for T_pad in (T, min(T + 256, d.shape[1])):
+        _, _, wc = ref.radius_select_kernel(_t(d), _t(tau0), T, T_pad=T_pad)
+        np.testing.assert_array_equal(gc.numpy(), wc.numpy())
+
+
+@pytest.mark.parametrize("name", EXACT_CASES)
+def test_radius_select_exact_sorted_matches_jax(name):
+    """Index order, then a stable sort, gives the JAX kernel and its trim
+    (or its exact sort, where its buffer overflows or T_pad >= N)."""
+    d, tau0, T = _exact_case(name)
+    gv, gi, _ = ref.radius_select_exact(_t(d), _t(tau0), T)
+    sv, pos = ref.topk_smallest(gv, T)
+    si = torch.gather(gi, 1, pos.to(torch.int64))
+    wv, wi = jops.radius_select(jnp.asarray(d), T, tau0=jnp.asarray(tau0), force="interpret")
+    np.testing.assert_array_equal(si.numpy(), np.asarray(wi))
+    np.testing.assert_array_equal(sv.numpy(), np.asarray(wv))
+
+
+# The CUDA select's last pass buffers its bracket's elements, and the
+# row's last block resolves the row from them: the final band's picks, or
+# a radix search over the whole row, or every real entry; the compaction
+# places each tile's share of the answer by the starts that follow.  This
+# model repeats that schedule and must give the plain version exactly.
+
+
+def _order_keys(x):
+    """uint32 keys ordered as the float32 values x are, −0 as +0
+    (select.cu's order_key)."""
+    u = np.where(x == 0, np.float32(0), x).astype(np.float32).view(np.uint32)
+    return np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint32)
+
+
+def _from_order_key(k):
+    u = k & 0x7FFFFFFF if k & 0x80000000 else ~k & 0xFFFFFFFF
+    return np.array([u], np.uint32).view(np.float32)[0]
+
+
+def _radix_cut(v, T):
+    """The T-th smallest real entry of v by (value, index): four 8-bit
+    digits of the order keys, then the tie at that value in index order."""
+    keys = _order_keys(v[v < np.inf])
+    prefix = mask = 0
+    rank = T
+    for shift in (24, 16, 8, 0):
+        sel = keys[(keys & mask) == prefix]
+        hist = np.bincount((sel >> shift) & 255, minlength=256)
+        cum = np.cumsum(hist)
+        digit = int(np.searchsorted(cum, rank))
+        rank -= int(cum[digit] - hist[digit])
+        prefix |= digit << shift
+        mask |= 255 << shift
+    vs = _from_order_key(prefix)
+    return vs, int(np.nonzero(v == vs)[0][rank - 1])
+
+
+def _exact_schedule(d, tau0, T, tile=16384, band_cap=None, band_sort=2048, stage=2048):
+    """radius_select_exact by select.cu's schedule (``stage``: the most
+    bracket elements a tile stages, kBandSort).  Returns the plain
+    version's triple and each row's mode: "band", "radix" or "all"."""
+    d = d.to(torch.float32)
+    B, N = d.shape
+    if band_cap is None:  # select.cu's band_cap_of
+        band_cap = N if N < 4096 else max(4096, N // 32)
+    tau0 = torch.clamp_min(tau0.to(torch.float32), 1e-30)
+    vals = torch.full((B, T), float("inf"))
+    idx = torch.full((B, T), -1, dtype=torch.int32)
+    count = torch.zeros(B, dtype=torch.int32)
+    modes = []
+    for b in range(B):
+        v, real = d[b], d[b] < float("inf")
+        lo, hi = _ladder_bracket(v, real, tau0[b], T)
+        for p in range(2):
+            mids = _tree_mids(lo, hi)
+            cum = torch.cumsum(_pass_hist(v, real, lo, hi, mids), 0)
+            if p == 1:  # each tile's scan, and the band buffer
+                tiles = [torch.cumsum(_pass_hist(v[s:s + tile], real[s:s + tile], lo, hi,
+                                                 mids), 0) for s in range(0, N, tile)]
+                inside = real & (v > lo) & (v <= hi)
+                band = torch.nonzero(inside)[:, 0]
+                lost = any(int(inside[s:s + tile].sum()) > stage for s in range(0, N, tile))
+            lo, hi, leaf = _walk(cum, lo, hi, T)
+        clo = int(cum[leaf])
+        chi = int(cum[_BINS + 1 if torch.isinf(hi) else leaf + 1])
+        n_real = int(cum[_BINS + 1])
+        count[b] = chi
+        mode = ("all" if n_real <= T else
+                "radix" if clo >= T or band.numel() > band_cap or lost else "band")
+        if mode == "band":
+            final = band[(v[band] > lo) & (v[band] <= hi)]
+            if final.numel() != chi - clo or final.numel() > band_sort:
+                mode = "radix"
+        if mode == "all":
+            vs, i_s = float("inf"), -1
+            shares = [int(t[_BINS + 1]) for t in tiles]
+        elif mode == "band":
+            picks = sorted(final.tolist(), key=lambda i: (float(v[i]), i))[:T - clo]
+            vs, i_s = float(v[picks[-1]]), picks[-1]
+            shares = [int(tiles[t][leaf]) + sum(i // tile == t for i in picks)
+                      for t in range(len(tiles))]
+        else:
+            vs, i_s = _radix_cut(v.numpy(), T)
+            shares = None
+        modes.append(mode)
+        # compaction: a tile's share starts after the shares before it
+        take = (v < vs) | ((v == vs) & (torch.arange(N) <= i_s))
+        pos = 0
+        for t, s in enumerate(range(0, N, tile)):
+            keep = s + torch.nonzero(take[s:s + tile])[:, 0]
+            if shares is not None:  # the scans place each tile exactly
+                assert keep.numel() == shares[t]
+            vals[b, pos:pos + keep.numel()] = v[keep]
+            idx[b, pos:pos + keep.numel()] = keep.to(torch.int32)
+            pos += keep.numel()
+        assert pos == min(T, n_real)
+    return (vals, idx, count), modes
+
+
+def _wide_tie_cluster():
+    """10,000 tied values past a 4,096-slot band buffer, T = 2,000."""
+    rng = np.random.default_rng(41)
+    d = (rng.normal(size=(2, 20000)) ** 2 + 2.0).astype(np.float32)
+    d[:, 5000:15000] = 1.5
+    d[1, :100] = 0.25
+    return d, np.full(2, 0.5, np.float32), 2000
+
+
+@pytest.mark.parametrize("name,want", [
+    *[(c, None) for c in SCHEDULE_CASES], *[("exact_" + c, None) for c in EXACT_CASES],
+    ("wide_tie_cluster", ["radix", "radix"]), ("tie_cluster_sorted", ["band"]),
+    ("tie_cluster_past_sort", ["radix"]), ("tie_cluster_past_buffer", ["radix"]),
+    ("tie_cluster_past_stage", ["radix"]),
+])
+def test_exact_schedule_matches_plain(name, want):
+    """The band buffer, the row's resolution and the placed compaction give
+    the plain version exactly: the same ids, values and counts."""
+    kw = {}
+    if name.startswith("exact_"):
+        d, tau0, T = _exact_case(name[len("exact_"):])
+    elif name == "wide_tie_cluster":
+        d, tau0, T = _wide_tie_cluster()
+    elif name.startswith("tie_cluster_"):
+        (d, tau0, T), kw = _exact_case("tie_cluster"), {
+            "tie_cluster_sorted": {}, "tie_cluster_past_sort": {"band_sort": 512},
+            "tie_cluster_past_buffer": {"band_cap": 500},
+            "tie_cluster_past_stage": {"stage": 500}}[name]
+    else:
+        d, tau0, T, _ = _schedule_case(name)
+        kw = {"tile": 64} if name == "many_tiles" else {}
+    (gv, gi, gc), modes = _exact_schedule(_t(d), _t(tau0), T, **kw)
+    wv, wi, wc = ref.radius_select_exact(_t(d), _t(tau0), T)
+    np.testing.assert_array_equal(gi.numpy(), wi.numpy())
+    np.testing.assert_array_equal(gv.numpy(), wv.numpy())
+    np.testing.assert_array_equal(gc.numpy(), wc.numpy())
+    if want is not None:
+        assert modes == want
+    elif name in ("squared_normals", "ragged_tiles", "exact_squared_normals"):
+        assert set(modes) == {"band"}  # the main path's rows resolve from the band
+
+
+# ---------------------------------------------------------------------------
 # verify_topk
 # ---------------------------------------------------------------------------
 
